@@ -1,0 +1,157 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Marked ``cuda``: each test skips without a CUDA device. This
+file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Limits: bf16 x bf16 products are exact in f32, so a sound kernel and
+the plain version differ only in summation order. The limits are set
+from readings on the card, not from the worst-case summation bound
+(which at d=768 would pass a kernel that lost a bf16x3 pass). With
+S = |x|max |q|max: sound kernels read at most ~1.1e-6 S (coarse) and
+~5e-8 S (refine dots); the controls in ``test_controls_break_the_limits``
+read ~3e-4 S and ~5e-5 S. The limits, 2^-16 S and 2^-20 S, sit an order
+of magnitude from both (chip_smoke.py's ``limits``; cosine coarse scores
+are normalised, S = 1).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vectordb_tpu_torch import BatchInsertItem, DistanceMetric, Vector
+from vectordb_tpu_torch import VectorStore
+from vectordb_tpu_torch.ops import coarse_kernel as ck
+from vectordb_tpu_torch.ops import cuda_kernels
+
+pytestmark = pytest.mark.cuda
+MODES = ["euclidean", "dot", "cosine"]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _operands(dev, n, d, q, mode, seed=0):
+    rng = np.random.default_rng(seed)
+    db = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(
+        dev)
+    valid = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+    queries = torch.from_numpy(
+        rng.standard_normal((q, d), dtype=np.float32)).to(dev)
+    sq = (db * db).sum(1)
+    hi, lo = ck.split_hi_lo(db)
+    terms = ck._query_terms(queries, sq, torch.sqrt(sq), valid, mode)
+    s = float(torch.sqrt(sq.max())) * float(terms[3].max())
+    limit = 2.0 ** -16 * (1.0 if mode == "cosine" else s)
+    return db, hi, lo, queries, terms, limit, 2.0 ** -20 * s
+
+
+def _live_err(got, want):
+    live = want < 1e29
+    assert torch.equal(live, got < 1e29)
+    return float((got - want).abs()[live].max())
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n, d, q", [(4096, 768, 100), (1024, 40, 7)])
+def test_k1_matches_plain(dev, mode, n, d, q):
+    db, hi, lo, queries, terms, bound, _ = _operands(dev, n, d, q, mode)
+    qThi, _, _, _, qrow, col, inv = terms
+    before = cuda_kernels.launches["coarse_minima_1p_sup"]
+    t_k, s_k = ck._minima_1p_sup(qThi, qrow, hi, col, inv, mode)
+    t_p, s_p = ck._minima_1p_sup_plain(qThi, qrow, hi, col, inv, mode)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["coarse_minima_1p_sup"] == before + 1
+    assert t_k.shape == (n // 16, q) and s_k.shape == (n // 256, q)
+    assert _live_err(t_k, t_p) <= bound
+    assert _live_err(s_k, s_p) <= bound
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("mode", MODES)
+def test_k3_matches_plain(dev, mode, passes):
+    db, hi, lo, queries, terms, bound, _ = _operands(dev, 2048, 768, 65,
+                                                     mode, seed=1)
+    qThi, qlo, _, _, qrow, col, inv = terms
+    qTlo = qlo.to(torch.bfloat16)
+    got = ck._coarse_minima(qThi, qTlo, qrow, hi, lo, col, inv, passes, mode)
+    want = ck._coarse_minima_plain(qThi, qTlo, qrow, hi, lo, col, inv,
+                                   passes, mode)
+    torch.cuda.synchronize()
+    assert got.shape == (65, 2048 // 16)
+    assert _live_err(got, want) <= bound
+
+
+@pytest.mark.parametrize("d", [768, 37])
+def test_k2_matches_plain(dev, d):
+    db, _, _, queries, _, _, dot_b = _operands(dev, 4096, d, 9, "dot",
+                                               seed=2)
+    rng = np.random.default_rng(3)
+    tidx = torch.from_numpy(rng.integers(0, 4096 // 16, (9, 33))).to(dev)
+    got = ck._refine_dots(tidx, queries, db, 33)
+    want = ck._refine_dots_plain(tidx, queries, db, 33)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= dot_b
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_controls_break_the_limits(dev, mode):
+    """Each limit must reject a kernel that breaks the arithmetic the
+    certificates assume: K3 run at 1 pass instead of 3, K1 with its dots
+    rounded to bf16, K2 on TF32 operands."""
+    db, hi, lo, queries, terms, bound, dot_b = _operands(dev, 4096, 768,
+                                                         64, mode, seed=5)
+    qThi, qlo, _, _, qrow, col, inv = terms
+    qTlo = qlo.to(torch.bfloat16)
+    want3 = ck._coarse_minima_plain(qThi, qTlo, qrow, hi, lo, col, inv, 3,
+                                    mode)
+    one_pass = ck._coarse_minima(qThi, qTlo, qrow, hi, lo, col, inv, 1, mode)
+    assert _live_err(one_pass, want3) > bound
+    want1 = ck._coarse_minima_plain(qThi, qTlo, qrow, hi, lo, col, inv, 1,
+                                    mode)
+    dots = (hi.float() @ qThi.float()).to(torch.bfloat16).float()
+    rounded = ck._score_plain(dots, qrow, col, inv, mode)
+    rounded = rounded.reshape(-1, ck.SUB, 64).amin(dim=1).T
+    assert _live_err(rounded, want1) > bound
+    tf32 = lambda x: ((x.view(torch.int32) + 0x1000)  # noqa: E731
+                      & ~0x1FFF).view(torch.float32)
+    tidx = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 4096 // 16, (64, 32))).to(dev)
+    exact = ck._refine_dots_plain(tidx, queries, db, 32)
+    assert float((ck._refine_dots_plain(tidx, tf32(queries), tf32(db), 32)
+                  - exact).abs().max()) > dot_b
+
+
+def test_wrappers_check_their_inputs(dev):
+    db, hi, _, queries, terms, _, _ = _operands(dev, 512, 64, 4, "dot")
+    qThi, _, _, _, qrow, col, inv = terms
+    with pytest.raises(ValueError, match="multiple"):
+        cuda_kernels.coarse_minima_1p_sup(qThi, qrow, hi[:500], col[:, :500],
+                                          inv[:, :500], "dot")
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.refine_dots(
+            torch.zeros((8, 4), dtype=torch.int64, device=dev)[:4],
+            queries.T.contiguous().T, db, 4)
+
+
+@pytest.mark.parametrize("metric", list(DistanceMetric))
+def test_store_on_card_matches_store_on_cpu(dev, metric, monkeypatch):
+    from vectordb_tpu_torch.ops import topk
+    monkeypatch.setattr(topk, "_EXACT1P_MIN_N", 512)
+    rng = np.random.default_rng(4)
+    rows = rng.standard_normal((3000, 128), dtype=np.float32)
+    qs = rng.standard_normal((16, 128), dtype=np.float32)
+    out = []
+    for device in ("cuda", "cpu"):
+        s = VectorStore.with_flat_index(metric, device=device)
+        s.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                        for i in range(3000)])
+        res = s.search_batch([(Vector(q), 10) for q in qs])
+        out.append(([[r.id for r in row] for row in res],
+                    [[r.distance for r in row] for row in res]))
+    assert out[0][0] == out[1][0]
+    np.testing.assert_allclose(out[0][1], out[1][1], rtol=2e-5, atol=2e-5)

@@ -1,0 +1,47 @@
+"""Carry a store's state across from the JAX package.
+
+``store_from_reference`` builds a port store with the identical slot
+layout from the numpy arrays ``vectordb_tpu`` exports:
+``FlatIndex.packed_arrays()`` gives (vectors, valid, id_of_slot) and
+``VectorStore.internal_to_string_ids()`` the id map. Same slots give the
+same candidate tiles, so the two packages' results compare position by
+position. Only numpy crosses over: this module imports no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from .distance import DistanceMetric
+from .index.flat import FlatIndex
+from .store import VectorStore
+
+
+def store_from_reference(vectors: np.ndarray, valid: np.ndarray,
+                         id_of_slot: np.ndarray,
+                         internal_to_string: Dict[int, str],
+                         metric: DistanceMetric, device="cuda",
+                         search_mode: str = "exact",
+                         metadata: Optional[Dict[int, Dict[str, str]]] = None
+                         ) -> VectorStore:
+    """A port ``VectorStore`` over ``FlatIndex(metric, search_mode,
+    device=device)`` holding the exported rows in their original slots,
+    under their original internal and string ids. ``metadata`` maps
+    internal id -> fields (the JAX store's ``get_metadata`` per id)."""
+    index = FlatIndex(metric, search_mode=search_mode, device=device)
+    index.adopt_packed(vectors, valid, id_of_slot)
+    live_ids = set(np.asarray(id_of_slot)[np.asarray(valid, bool)].tolist())
+    id_map = {int(iid): str(sid) for iid, sid in internal_to_string.items()}
+    if set(id_map) != live_ids:
+        raise ValueError("internal_to_string must name exactly the live "
+                         "slots' internal ids")
+    store = VectorStore(index)
+    store.adopt_index_state(id_map, metadata or {},
+                            next_id=max(id_map, default=-1) + 1,
+                            dimension=index.dimension)
+    return store
+
+
+__all__ = ["store_from_reference"]

@@ -1,0 +1,550 @@
+"""Exact brute-force k-NN over a packed device matrix.
+
+Port of ``vectordb_tpu/index/flat.py`` for ``storage="f32"`` on one
+device. Capability parity with reference src/flat_index.rs:12-74
+(add/remove/search/get_vector/len/iter):
+
+  * rows live in a packed ``f32[capacity, d]`` host matrix mirrored to the
+    device, with a ``bool[capacity]`` validity mask and precomputed row
+    norms; capacity grows by powers of two;
+  * the device state carries bf16 hi/lo mirrors and the residual bound
+    ``elo_max``, so search runs the certified coarse ladder
+    (ops/topk.flat_search_batched_submit) on every device: the plain
+    kernel versions on a CPU tensor, the CUDA kernels on a CUDA one;
+  * insert/delete patch the device state by scatter; a write that races
+    an in-flight search scatters into a copy (the search's fallback tier
+    reads its snapshot later, on the host's schedule);
+  * ``search_masked`` applies a precompiled metadata mask *before* top-k,
+    making filtered search exact.
+
+Not in this slice: ``storage="bf16"/"int8"``, mesh sharding,
+``host_backing`` and progressive hydration (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..distance import (DistanceMetric, prepare_device,
+                        validate_cosine_operands)
+from ..errors import DimensionMismatchError, InvalidVectorError
+from ..ops import coarse_kernel
+from ..ops.topk import flat_search_batched_submit, next_pow2
+from ..ops.update import (scatter_rows, scatter_rows_copy, scatter_values,
+                          scatter_values_copy)
+from ..utils.profiling import annotate
+from ..vector import Vector, as_f32_array
+from .base import Index
+
+_MIN_CAPACITY = 1024
+# If more than this fraction of slots is dirty, re-upload wholesale instead
+# of scattering.
+_FULL_SYNC_FRACTION = 8
+# Device footprint gate for the f32 rows + bf16 hi/lo mirrors (8 bytes per
+# element), picked for an 80 GB H100: 64 GB leaves room for the query-side
+# temporaries (the K1 tile minima alone are 1.07 GB at N=2^20, Q=4096).
+# A store past it needs the f32-source kernels K4/K5, not yet ported.
+_MIRROR_MEM_LIMIT = 64 * 10 ** 9
+
+
+class SearchBatchHandle:
+    """An in-flight index-level batched search (search_batch_submit).
+
+    ``collect()`` blocks on the device result, maps slots to internal ids,
+    and releases the index's in-flight mark — exactly once, even if called
+    repeatedly or if the device work failed. An abandoned handle releases
+    the mark from ``__del__`` so writes don't stay pinned to the
+    copy-scatter path forever."""
+
+    __slots__ = ("_fn", "_on_done", "_result", "_has_result")
+
+    def __init__(self, fn, on_done=None):
+        self._fn = fn
+        self._on_done = on_done
+        self._has_result = False
+        self._result = None
+
+    @classmethod
+    def ready(cls, result) -> "SearchBatchHandle":
+        handle = cls(None)
+        handle._result = result
+        handle._has_result = True
+        return handle
+
+    def collect(self):
+        if not self._has_result:
+            try:
+                self._result = self._fn()
+                self._has_result = True
+            finally:
+                self._release()
+        return self._result
+
+    def _release(self):
+        done, self._on_done = self._on_done, None
+        if done is not None:
+            done()
+
+    def __del__(self):
+        try:
+            self._release()
+        except Exception:
+            pass
+
+
+def _slots_to_ids(dists, idx, id_of_slot, k_req: int, nq: int
+                  ) -> List[List[Tuple[int, float]]]:
+    """Map (Q, k) slot results to per-query [(internal_id, dist)] rows,
+    trimming the +inf masked/invalid tail."""
+    out: List[List[Tuple[int, float]]] = []
+    for qi in range(nq):
+        row: List[Tuple[int, float]] = []
+        for j in range(dists.shape[1]):
+            dist = float(dists[qi, j])
+            if math.isinf(dist):
+                break  # masked/invalid tail
+            if len(row) == k_req:
+                break
+            row.append((int(id_of_slot[int(idx[qi, j])]), dist))
+        out.append(row)
+    return out
+
+
+class FlatIndex(Index):
+    """Exact k-NN via the certified device flat scan."""
+
+    def __init__(self, metric: DistanceMetric, search_mode: str = "exact",
+                 device="cuda"):
+        if search_mode not in ("exact", "fast"):
+            raise ValueError(f"unknown search_mode: {search_mode!r}")
+        # "exact": the certified ladder (tiers 1-3). "fast": the 1-pass
+        # coarse scan + exact refine (exact distances, approximate ids).
+        self.search_mode = search_mode
+        self._device_t = prepare_device(device)
+        self._metric = metric
+        self._dim: Optional[int] = None
+        self._capacity = 0
+        self._len = 0
+        # host-side packed storage (source of truth)
+        self._vectors: Optional[np.ndarray] = None   # f32[capacity, d]
+        self._valid: Optional[np.ndarray] = None     # bool[capacity]
+        self._sq_norms: Optional[np.ndarray] = None  # f32[capacity]
+        self._norms: Optional[np.ndarray] = None     # f32[capacity]
+        self._id_of_slot: Optional[np.ndarray] = None  # int64[capacity], -1 free
+        self._slot_of_id: dict[int, int] = {}
+        self._free_slots: list[int] = []
+        self._zero_norm_live = 0  # live rows with zero norm (cosine validation)
+        # device state + dirty tracking
+        self._device: Optional[dict] = None
+        self._dirty_slots: set[int] = set()
+        self._lock = threading.RLock()
+        # readers that copied the device dict and released the lock; while
+        # any are in flight, syncs scatter into copies (see _sync_device)
+        self._searches_in_flight = 0
+
+    # -- basic properties ---------------------------------------------------
+
+    @property
+    def metric(self) -> DistanceMetric:
+        return self._metric
+
+    @property
+    def dimension(self) -> Optional[int]:
+        return self._dim
+
+    @property
+    def capacity(self) -> int:
+        return self._capacity
+
+    def __len__(self) -> int:
+        return self._len
+
+    def slot_of(self, internal_id: int) -> Optional[int]:
+        return self._slot_of_id.get(internal_id)
+
+    # -- storage management -------------------------------------------------
+
+    def _ensure_storage(self, dim: int, want_rows: int) -> None:
+        """Allocate or grow packed storage to hold ``want_rows`` live rows."""
+        if self._dim is None:
+            self._dim = dim
+        needed = max(want_rows, _MIN_CAPACITY)
+        if self._capacity >= needed:
+            return
+        new_cap = next_pow2(needed, floor=_MIN_CAPACITY)
+        new_vectors = np.zeros((new_cap, self._dim), dtype=np.float32)
+        new_valid = np.zeros(new_cap, dtype=bool)
+        new_sq = np.zeros(new_cap, dtype=np.float32)
+        new_norms = np.zeros(new_cap, dtype=np.float32)
+        new_ids = np.full(new_cap, -1, dtype=np.int64)
+        if self._capacity:
+            new_vectors[: self._capacity] = self._vectors
+            new_valid[: self._capacity] = self._valid
+            new_sq[: self._capacity] = self._sq_norms
+            new_norms[: self._capacity] = self._norms
+            new_ids[: self._capacity] = self._id_of_slot
+        self._free_slots.extend(range(new_cap - 1, self._capacity - 1, -1))
+        self._vectors, self._valid = new_vectors, new_valid
+        self._sq_norms, self._norms, self._id_of_slot = new_sq, new_norms, new_ids
+        self._capacity = new_cap
+        self._device = None  # full re-upload on next search
+        self._dirty_slots.clear()
+
+    def _take_slot(self) -> int:
+        if not self._free_slots:
+            self._ensure_storage(self._dim, self._capacity * 2 if self._capacity else 1)
+        return self._free_slots.pop()
+
+    # -- mutation -----------------------------------------------------------
+
+    def add(self, internal_id: int, vector: Vector) -> None:
+        with self._lock:
+            arr = as_f32_array(vector)
+            dim = arr.shape[0]
+            if self._dim is not None and dim != self._dim:
+                raise DimensionMismatchError(self._dim, dim)
+            self._ensure_storage(dim, self._len + 1)
+            old_slot = self._slot_of_id.get(internal_id)
+            if old_slot is not None:
+                self._clear_slot(old_slot)
+            slot = self._take_slot()
+            self._write_slot(slot, internal_id, arr)
+
+    def add_batch(self, items: Sequence[Tuple[int, "Vector | np.ndarray"]]) -> None:
+        """Amortized bulk add: one host pass, one device sync on next search."""
+        with self._lock:
+            if not items:
+                return
+            first = as_f32_array(items[0][1])
+            dim = first.shape[0]
+            if self._dim is not None and dim != self._dim:
+                raise DimensionMismatchError(self._dim, dim)
+            self._ensure_storage(dim, self._len + len(items))
+            ids = np.fromiter((int(i) for i, _ in items), dtype=np.int64,
+                              count=len(items))
+            if np.unique(ids).size == len(items) and not any(
+                    int(i) in self._slot_of_id for i in ids):
+                # vectorized append of fresh distinct ids
+                self._bulk_append_fresh(ids, items, dim)
+                return
+            for internal_id, vector in items:
+                arr = as_f32_array(vector)
+                if arr.shape[0] != self._dim:
+                    raise DimensionMismatchError(self._dim, arr.shape[0])
+                old_slot = self._slot_of_id.get(internal_id)
+                if old_slot is not None:
+                    self._clear_slot(old_slot)
+                slot = self._take_slot()
+                self._write_slot(slot, internal_id, arr)
+
+    def _bulk_append_fresh(self, ids: np.ndarray, items, dim: int) -> None:
+        """Vectorized append of fresh distinct ids (lock held, storage
+        pre-sized). On a dimension mismatch the accepted PREFIX is applied
+        before the error surfaces (reference storage.rs:293-298)."""
+        n = len(items)
+        mat = np.empty((n, dim), dtype=np.float32)
+        error = None
+        for j, (_, vector) in enumerate(items):
+            row = as_f32_array(vector)
+            if row.shape[0] != dim:
+                error = DimensionMismatchError(dim, row.shape[0])
+                n = j
+                mat = mat[:n]
+                ids = ids[:n]
+                break
+            mat[j] = row
+        if n:
+            self._append_matrix_locked(ids, mat)
+        if error is not None:
+            raise error
+
+    def _append_matrix_locked(self, ids: np.ndarray, mat: np.ndarray) -> None:
+        """Append a validated (n, d) f32 matrix of fresh distinct ids
+        (lock held, storage pre-sized)."""
+        n = len(ids)
+        slots = np.fromiter((self._take_slot() for _ in range(n)),
+                            dtype=np.int64, count=n)
+        try:
+            self._vectors[slots] = mat
+            sq = np.einsum("ij,ij->i", mat, mat).astype(np.float32)
+            self._sq_norms[slots] = sq
+            self._norms[slots] = np.sqrt(sq)
+            self._valid[slots] = True
+            self._id_of_slot[slots] = ids
+            self._slot_of_id.update(zip(ids.tolist(), slots.tolist()))
+            self._len += n
+            self._zero_norm_live += int((sq == 0.0).sum())
+        finally:
+            # even on a partial failure, every possibly-touched slot is
+            # recorded (stale-dirty is safe; missed-dirty is not)
+            if self._device is not None:
+                self._dirty_slots.update(slots.tolist())
+
+    def adopt_packed(self, vectors: np.ndarray, valid: np.ndarray,
+                     id_of_slot: np.ndarray) -> None:
+        """Take over a packed slot layout as it stands (an empty index
+        only): row ``s`` of ``vectors`` lands in slot ``s``, so the same
+        slots give the same candidate tiles as the exporting index
+        (convert.store_from_reference). The capacity must be a power of
+        two >= 1024, as the index itself allocates it."""
+        with self._lock:
+            if self._len or self._slot_of_id:
+                raise ValueError("adopt_packed requires an empty index")
+            vectors = np.ascontiguousarray(vectors, dtype=np.float32)
+            valid = np.ascontiguousarray(valid, dtype=bool)
+            id_of_slot = np.ascontiguousarray(id_of_slot, dtype=np.int64)
+            cap, dim = vectors.shape
+            if cap < _MIN_CAPACITY or cap != next_pow2(cap):
+                raise ValueError(f"capacity {cap} is not a power of two "
+                                 f">= {_MIN_CAPACITY}")
+            if valid.shape != (cap,) or id_of_slot.shape != (cap,):
+                raise ValueError("valid/id_of_slot must have shape "
+                                 f"({cap},)")
+            if self._dim is not None and dim != self._dim:
+                raise DimensionMismatchError(self._dim, dim)
+            live = np.nonzero(valid)[0]
+            ids = id_of_slot[live]
+            if (ids < 0).any() or np.unique(ids).size != live.size:
+                raise ValueError("live slots need distinct ids >= 0")
+            self._dim = dim
+            self._capacity = cap
+            self._vectors = vectors.copy()
+            self._vectors[~valid] = 0.0
+            self._valid = valid.copy()
+            self._sq_norms = np.einsum("ij,ij->i", self._vectors,
+                                       self._vectors).astype(np.float32)
+            self._norms = np.sqrt(self._sq_norms)
+            self._id_of_slot = np.where(valid, id_of_slot, -1)
+            self._slot_of_id = dict(zip(ids.tolist(), live.tolist()))
+            # pops come off the end: lowest free slot first, as after a
+            # fresh pow2 growth
+            self._free_slots = np.nonzero(~valid)[0][::-1].tolist()
+            self._len = int(live.size)
+            self._zero_norm_live = int((self._sq_norms[live] == 0.0).sum())
+            self._device = None
+            self._dirty_slots.clear()
+
+    def _write_slot(self, slot: int, internal_id: int, arr: np.ndarray) -> None:
+        self._vectors[slot] = arr
+        sq = float(np.dot(arr, arr))
+        self._sq_norms[slot] = sq
+        self._norms[slot] = math.sqrt(sq)
+        self._valid[slot] = True
+        self._id_of_slot[slot] = internal_id
+        self._slot_of_id[internal_id] = slot
+        self._len += 1
+        if sq == 0.0:
+            self._zero_norm_live += 1
+        if self._device is not None:
+            self._dirty_slots.add(slot)
+
+    def _clear_slot(self, slot: int) -> None:
+        internal_id = int(self._id_of_slot[slot])
+        if self._sq_norms[slot] == 0.0 and self._valid[slot]:
+            self._zero_norm_live -= 1
+        self._valid[slot] = False
+        self._id_of_slot[slot] = -1
+        self._slot_of_id.pop(internal_id, None)
+        self._free_slots.append(slot)
+        self._len -= 1
+        if self._device is not None:
+            self._dirty_slots.add(slot)
+
+    def remove(self, internal_id: int) -> None:
+        with self._lock:
+            slot = self._slot_of_id.get(internal_id)
+            if slot is None:
+                return  # unknown IDs are a no-op, like the reference HashMap remove
+            self._clear_slot(slot)
+
+    # -- lookup -------------------------------------------------------------
+
+    def get_vector(self, internal_id: int) -> Optional[Vector]:
+        with self._lock:
+            slot = self._slot_of_id.get(internal_id)
+            if slot is None:
+                return None
+            return Vector(self._vectors[slot].copy())
+
+    def iter_items(self) -> Iterator[Tuple[int, Vector]]:
+        with self._lock:
+            slots = np.nonzero(self._valid)[0] if self._valid is not None else []
+            pairs = [(int(self._id_of_slot[s]), Vector(self._vectors[s].copy()))
+                     for s in slots]
+        return iter(pairs)
+
+    # -- device state -------------------------------------------------------
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        # always a copy: on the CPU a from_numpy view would alias the host
+        # arrays that later writes mutate under in-flight searches
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            self._device_t, copy=True)
+
+    def _build_device_full(self) -> dict:
+        """A complete device state from the host arrays: f32 rows, norms,
+        validity, bf16 hi/lo mirrors and the residual bound elo_max."""
+        if self._capacity * self._dim * 8 > _MIRROR_MEM_LIMIT:
+            raise NotImplementedError(
+                f"{self._capacity} x {self._dim} rows with bf16 mirrors "
+                f"exceed the {_MIRROR_MEM_LIMIT} B device gate; larger "
+                "stores need the f32-source kernels K4/K5 (ROADMAP queue 2)")
+        db = self._to_device(self._vectors)
+        hi, lo = coarse_kernel.split_hi_lo(db)
+        return {
+            "db": db,
+            "sq_norms": self._to_device(self._sq_norms),
+            "norms": self._to_device(self._norms),
+            "valid": self._to_device(self._valid),
+            "hi": hi,
+            "lo": lo,
+            "elo_max": coarse_kernel.residual_max_norm(db, hi),
+        }
+
+    def _sync_device(self) -> dict:
+        """Bring the device state up to date. Called with the lock held."""
+        if self._device is None:
+            self._device = self._build_device_full()
+            self._dirty_slots.clear()
+            return self._device
+        if self._dirty_slots:
+            if len(self._dirty_slots) * _FULL_SYNC_FRACTION > self._capacity:
+                self._device = None
+                return self._sync_device()
+            idx_np = np.fromiter(self._dirty_slots, dtype=np.int64)
+            idx = self._to_device(idx_np)
+            dev = self._device
+            if self._searches_in_flight > 0:
+                # a reader still holds the old buffers — copy, don't patch
+                s_rows, s_vals = scatter_rows_copy, scatter_values_copy
+                s_hl = coarse_kernel.scatter_hi_lo_copy
+            else:
+                s_rows, s_vals = scatter_rows, scatter_values
+                s_hl = coarse_kernel.scatter_hi_lo
+            # one host-to-device transfer of the patched rows, shared by
+            # the row scatter, the mirror scatter and the residual bound
+            rows = self._to_device(self._vectors[idx_np])
+            dev["db"] = s_rows(dev["db"], idx, rows)
+            dev["sq_norms"] = s_vals(dev["sq_norms"], idx,
+                                     self._to_device(self._sq_norms[idx_np]))
+            dev["norms"] = s_vals(dev["norms"], idx,
+                                  self._to_device(self._norms[idx_np]))
+            dev["valid"] = s_vals(dev["valid"], idx,
+                                  self._to_device(self._valid[idx_np]))
+            dev["hi"], dev["lo"] = s_hl(dev["hi"], dev["lo"], idx, rows)
+            # patched rows can only RAISE the recorded residual bound
+            # (stale-high is safe: the 1-pass margin just widens)
+            dev["elo_max"] = torch.maximum(
+                dev["elo_max"], coarse_kernel.residual_max_norm_f32(rows))
+            self._dirty_slots.clear()
+        return self._device
+
+    # -- search -------------------------------------------------------------
+
+    def search(self, query: Vector, k: int) -> List[Tuple[int, float]]:
+        results = self.search_batch(as_f32_array(query).reshape(1, -1), k)
+        return results[0]
+
+    def search_batch(self, queries: np.ndarray, k: int,
+                     slot_mask: Optional[np.ndarray] = None,
+                     mask_layout_version: Optional[int] = None
+                     ) -> List[List[Tuple[int, float]]]:
+        """Q queries in one device submission; optional pre-top-k slot
+        mask (``mask_layout_version``: see search_batch_submit)."""
+        return self.search_batch_submit(
+            queries, k, slot_mask=slot_mask,
+            mask_layout_version=mask_layout_version).collect()
+
+    def search_batch_submit(self, queries: np.ndarray, k: int,
+                            slot_mask: Optional[np.ndarray] = None,
+                            mask_layout_version: Optional[int] = None
+                            ) -> "SearchBatchHandle":
+        """Asynchronous ``search_batch``: snapshots device state under the
+        index lock, launches the device work, and returns a handle whose
+        ``collect()`` waits for it and maps slots to internal ids.
+        Mutations racing an in-flight handle take the copy-scatter path
+        (``_searches_in_flight``), so collected results always reflect the
+        snapshot point. A mask compiled for another slot layout raises
+        StaleSlotMaskError (this index never repacks, so its layout
+        version stays 0)."""
+        queries = np.asarray(queries, dtype=np.float32)
+        if queries.ndim != 2:
+            raise InvalidVectorError("queries must be a (Q, d) array")
+        with self._lock:
+            if (slot_mask is not None and mask_layout_version is not None
+                    and mask_layout_version != self.slot_layout_version):
+                from ..errors import StaleSlotMaskError
+                raise StaleSlotMaskError(mask_layout_version,
+                                         self.slot_layout_version)
+            if self._len == 0 or k <= 0:
+                return SearchBatchHandle.ready(
+                    [[] for _ in range(queries.shape[0])])
+            if queries.shape[1] != self._dim:
+                raise DimensionMismatchError(self._dim, queries.shape[1])
+            if self._metric is DistanceMetric.COSINE:
+                qn = np.sqrt(np.sum(queries * queries, axis=1))
+                validate_cosine_operands(self._metric, float(qn.min()),
+                                         self._zero_norm_live)
+            dev = dict(self._sync_device())
+            id_of_slot = self._id_of_slot.copy()
+            live = self._len
+            self._searches_in_flight += 1
+        try:
+            if slot_mask is not None:
+                mask = np.asarray(slot_mask, dtype=bool)
+                cap = int(dev["valid"].shape[0])
+                if mask.shape[0] != cap:
+                    padded = np.zeros(cap, dtype=bool)
+                    padded[: min(mask.shape[0], cap)] = mask[:cap]
+                    mask = padded
+                dev["valid"] = dev["valid"] & self._to_device(mask)
+            k_req = min(int(k), live)
+            with annotate("vdb/flat.submit"):
+                handle = flat_search_batched_submit(
+                    queries, dev, self._metric, k_req,
+                    mode=self.search_mode)
+        except BaseException:
+            self._search_done()
+            raise
+        nq = queries.shape[0]
+
+        def _collect():
+            with annotate("vdb/flat.collect"):
+                dists, idx = handle.collect()
+                return _slots_to_ids(dists, idx, id_of_slot, k_req, nq)
+
+        return SearchBatchHandle(_collect, on_done=self._search_done)
+
+    def _search_done(self) -> None:
+        with self._lock:
+            self._searches_in_flight -= 1
+
+    def search_masked(self, query: Vector, k: int, slot_mask: np.ndarray,
+                      mask_layout_version: Optional[int] = None
+                      ) -> Optional[List[Tuple[int, float]]]:
+        results = self.search_batch(as_f32_array(query).reshape(1, -1), k,
+                                    slot_mask=slot_mask,
+                                    mask_layout_version=mask_layout_version)
+        return results[0]
+
+    # -- introspection ------------------------------------------------------
+
+    def packed_arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(vectors[capacity,d], valid[capacity], id_of_slot[capacity])
+        host copies."""
+        with self._lock:
+            if self._vectors is None:
+                return (np.zeros((0, 0), np.float32), np.zeros(0, bool),
+                        np.zeros(0, np.int64))
+            return (self._vectors.copy(), self._valid.copy(),
+                    self._id_of_slot.copy())
+
+    def __repr__(self) -> str:
+        return (f"FlatIndex(metric={self._metric.value}, len={self._len}, "
+                f"dim={self._dim}, capacity={self._capacity}, "
+                f"device={self._device_t})")

@@ -1,0 +1,203 @@
+"""Build, load and wrap the hand-written Hopper kernels (csrc/*.cu).
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
+one shared library with a plain C interface, cached under
+``vectordb_tpu_torch/_build/`` by a hash of the sources, and loaded with
+ctypes. Nothing is built or loaded when this module is imported, so the
+CPU tests import it on a machine with no ``nvcc`` and no card.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
+raises if the C function reports a CUDA error, and adds one to its entry
+of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
+
+    K1  coarse_minima_1p_sup  csrc/coarse_minima.cu  PASSES=1, EMIT_SUPER
+    K3  coarse_minima         csrc/coarse_minima.cu  PASSES=3 or 1
+    K2  refine_dots           csrc/refine_dots.cu
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+SUB = 16
+SUPER = 16
+_ROWS_PER_BLOCK = SUB * SUPER          # coarse kernel: one super-tile
+_REFINE_QPB = 4                        # refine kernel: queries per block
+_MAX_SMEM = 227 * 1024                 # Hopper per-block shared memory
+_MODES = {"euclidean": 0, "dot": 1, "cosine": 2}
+_PKG = Path(__file__).resolve().parent.parent
+_SOURCES = ("coarse_minima.cu", "refine_dots.cu")
+_ARCH = "arch=compute_90a,code=sm_90a"
+
+launches = {"coarse_minima_1p_sup": 0, "coarse_minima": 0, "refine_dots": 0}
+# build facts of the loaded library (path, seconds, compiler output)
+build_info: dict = {}
+
+
+def reset_launches() -> None:
+    for key in launches:
+        launches[key] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    if path is None and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        path = os.path.join(home, "bin", "nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    srcs = [_PKG / "csrc" / name for name in _SOURCES]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs))
+    build = _PKG / "_build"
+    build.mkdir(exist_ok=True)
+    so = build / f"libvdb_kernels_{digest.hexdigest()[:16]}.so"
+    seconds, log = 0.0, ""
+    if not so.exists():
+        tmp = build / f".{so.name}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+               *map(str, srcs)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.vdb_coarse_minima.argtypes = [p, p, p, p, p, p, p, p, p, l, i, i, i,
+                                      i, i, p]
+    lib.vdb_coarse_minima.restype = i
+    lib.vdb_refine_dots.argtypes = [p, p, p, p, i, i, i, p]
+    lib.vdb_refine_dots.restype = i
+    build_info.update(path=str(so), seconds=seconds, log=log)
+    return lib
+
+
+def load() -> dict:
+    """Build and load the library now; returns ``build_info``."""
+    _lib()
+    return build_info
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _coarse(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col, mode: str,
+            passes: int, emit_super: bool):
+    d, qp = qThi.shape
+    n = db_hi.shape[0]
+    dev = db_hi.device
+    if dev.type != "cuda":
+        raise ValueError(f"coarse kernel needs CUDA tensors, got {dev}")
+    if n % _ROWS_PER_BLOCK or n == 0:
+        raise ValueError(f"rows {n} must be a positive multiple of "
+                         f"{_ROWS_PER_BLOCK}")
+    if passes not in (1, 3) or (passes == 3 and emit_super):
+        raise ValueError(f"unsupported passes={passes}, "
+                         f"emit_super={emit_super}")
+    bf, f32 = torch.bfloat16, torch.float32
+    _check("qThi", qThi, bf, (d, qp), dev)
+    _check("qrow", qrow, f32, (1, qp), dev)
+    _check("db_hi", db_hi, bf, (n, d), dev)
+    _check("col", col, f32, (1, n), dev)
+    _check("inv_col", inv_col, f32, (1, n), dev)
+    if passes == 3:
+        _check("qTlo", qTlo, bf, (d, qp), dev)
+        _check("db_lo", db_lo, bf, (n, d), dev)
+    tile = torch.empty((n // SUB, qp), dtype=f32, device=dev)
+    sup = (torch.empty((n // _ROWS_PER_BLOCK, qp), dtype=f32, device=dev)
+           if emit_super else None)
+    lo_q = qTlo if passes == 3 else qThi
+    lo_db = db_lo if passes == 3 else db_hi
+    rc = _lib().vdb_coarse_minima(
+        qThi.data_ptr(), lo_q.data_ptr(), qrow.data_ptr(), db_hi.data_ptr(),
+        lo_db.data_ptr(), col.data_ptr(), inv_col.data_ptr(),
+        tile.data_ptr(), sup.data_ptr() if sup is not None else None,
+        n, d, qp, _MODES[mode], passes, int(emit_super), _stream(dev))
+    _raise_on(rc, "coarse_minima")
+    return tile, sup
+
+
+def coarse_minima_1p_sup(qThi, qrow, db_hi, col, inv_col, mode: str):
+    """K1: one bf16 pass -> (tile minima (N/16, Qp), super minima
+    (N/256, Qp)) f32, tile-major, as vectordb_tpu's _minima_1p_sup."""
+    out = _coarse(qThi, None, qrow, db_hi, None, col, inv_col, mode, 1,
+                  True)
+    launches["coarse_minima_1p_sup"] += 1
+    return out
+
+
+def coarse_minima(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col,
+                  passes: int, mode: str):
+    """K3: bf16x3 (passes=3) or one bf16 pass -> tile minima
+    (N/16, Qp) f32, tile-major (the caller transposes)."""
+    tile, _ = _coarse(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col, mode,
+                      passes, False)
+    launches["coarse_minima"] += 1
+    return tile
+
+
+def refine_dots(tile_idx, queries, db, m: int):
+    """K2: (Qp, m*16) f32 dots of each query with the rows of its m
+    selected 16-row tiles, IEEE f32 FMA."""
+    qp, d = queries.shape
+    n = db.shape[0]
+    dev = db.device
+    if dev.type != "cuda":
+        raise ValueError(f"refine kernel needs CUDA tensors, got {dev}")
+    if n % SUB:
+        raise ValueError(f"rows {n} must be a multiple of {SUB}")
+    if _REFINE_QPB * d * 4 > _MAX_SMEM:
+        raise ValueError(f"d={d} too wide for the refine kernel")
+    _check("tile_idx", tile_idx, torch.int64, (qp, m), dev)
+    _check("queries", queries, torch.float32, (qp, d), dev)
+    _check("db", db, torch.float32, (n, d), dev)
+    out = torch.empty((qp, m * SUB), dtype=torch.float32, device=dev)
+    if qp == 0 or m == 0:
+        return out
+    rc = _lib().vdb_refine_dots(tile_idx.data_ptr(), queries.data_ptr(),
+                                db.data_ptr(), out.data_ptr(), qp, m, d,
+                                _stream(dev))
+    _raise_on(rc, "refine_dots")
+    launches["refine_dots"] += 1
+    return out
+
+
+__all__ = ["coarse_minima_1p_sup", "coarse_minima", "refine_dots",
+           "launches", "reset_launches", "load", "build_info"]

@@ -1,0 +1,288 @@
+"""Flat-scan distance + top-k on the device, and the exact tier ladder.
+
+Port of ``vectordb_tpu/ops/topk.py`` (f32 tiers only). The plain f32 scan
+(tier 3 and the in-package oracle) is ``torch.matmul`` at "highest"
+precision — IEEE f32, never TF32 (distance.prepare_device) — followed by
+exact ``torch.topk``. The JAX package's ``approx_min_k`` (a TPU
+PartialReduce unit) has no counterpart; the fast scan uses exact top-k.
+
+There is no jit and so no power-of-two bucketing of Q or k: PyTorch runs
+eagerly and the CUDA kernels take any query count.
+
+``flat_search_batched_submit`` is the dispatch point. With bf16 hi/lo
+mirrors in the device state it runs the certified ladder:
+  tier 1  1-pass certified (coarse_kernel.coarse_search_1p; K1 + K2)
+  tier 2  bf16x3 certified (coarse_kernel.coarse_search; K3 + K2)
+  tier 3  plain f32 scan (flat_search_exact_tiled)
+Each tier's uncertified queries re-run through the next one.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..distance import DistanceMetric, pairwise_distances
+
+# Max elements of one (Q-chunk, N) distance block in the plain scans: an
+# eager scan materialises it, so large batches are cut into query chunks
+# (1 GiB of f32 per block).
+_SCAN_ELEMS = 1 << 28
+
+
+def next_pow2(n: int, floor: int = 1) -> int:
+    n = max(int(n), floor)
+    return 1 << (n - 1).bit_length()
+
+
+def _query_chunks(q: int, n: int):
+    step = max(1, _SCAN_ELEMS // max(n, 1))
+    return [(q0, min(q0 + step, q)) for q0 in range(0, q, step)]
+
+
+def _chunked(fn):
+    """Run a (queries, db, ...) -> (dists, idx) scan over query chunks."""
+    @functools.wraps(fn)
+    def run(queries, db, *args):
+        parts = [fn(queries[a:b], db, *args)
+                 for a, b in _query_chunks(queries.shape[0], db.shape[0])]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+    return run
+
+
+@_chunked
+def flat_search(queries, db, db_sq_norms, db_norms, valid,
+                metric: DistanceMetric, k: int):
+    """Full scan + exact top-k: (dists (Q,k) asc, idx (Q,k)). ``k`` must
+    be <= db.shape[0]; invalid slots come back with distance +inf and
+    must be dropped by the caller."""
+    dists = pairwise_distances(queries, db, metric, db_sq_norms=db_sq_norms,
+                               db_norms=db_norms)
+    dists = torch.where(valid[None, :], dists, float("inf"))
+    return torch.topk(dists, int(k), dim=1, largest=False)
+
+
+# Candidate pool for the fast path's coarse pass: at least this many (and
+# at least FAST_OVERFETCH * k) rows survive into the exact re-rank.
+FAST_OVERFETCH = 8
+FAST_MIN_CANDIDATES = 128
+
+
+def _exact_rerank(queries, db, db_sq_norms, db_norms, valid, cand,
+                  metric: DistanceMetric, k: int):
+    """Exact f32 re-rank of per-query candidate rows ``cand`` (Q, C):
+    returns (dists (Q, k'), ids (Q, k')) ascending, +inf for dead rows."""
+    cand_rows = db[cand]                                     # (Q, C, d)
+    dots = torch.bmm(cand_rows, queries[:, :, None])[..., 0]
+    dead = ~valid[cand]
+    if metric is DistanceMetric.EUCLIDEAN:
+        q_sq = (queries * queries).sum(dim=1, keepdim=True)
+        exact = torch.sqrt(torch.clamp(q_sq + db_sq_norms[cand] - 2.0 * dots,
+                                       min=0.0))
+    elif metric is DistanceMetric.DOT_PRODUCT:
+        exact = -dots
+    else:
+        qn = torch.sqrt((queries * queries).sum(dim=1, keepdim=True))
+        denom = qn * db_norms[cand]
+        sim = dots / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+        exact = 1.0 - torch.clamp(sim, -1.0, 1.0)
+    exact = torch.where(dead, float("inf"), exact)
+    vals, pos = torch.topk(exact, min(int(k), exact.shape[1]), dim=1,
+                           largest=False)
+    return vals, torch.gather(cand, 1, pos)
+
+
+@_chunked
+def flat_search_fast(queries, db, db_sq_norms, db_norms, valid,
+                     metric: DistanceMetric, k: int):
+    """Two-tier search: full f32 scan, exact top-kc candidate pool, exact
+    re-rank. Returned distances are exact."""
+    n = db.shape[0]
+    kc = min(max(int(k) * FAST_OVERFETCH, FAST_MIN_CANDIDATES), n)
+    coarse = pairwise_distances(queries, db, metric,
+                                db_sq_norms=db_sq_norms, db_norms=db_norms)
+    coarse = torch.where(valid[None, :], coarse, float("inf"))
+    cand = torch.topk(coarse, kc, dim=1, largest=False)[1]
+    return _exact_rerank(queries, db, db_sq_norms, db_norms, valid, cand,
+                         metric, k)
+
+
+# Max queries per fallback chunk when certification fails for a few
+# queries in a large batch (bounds the (chunk, N) distance matrix).
+_FALLBACK_CHUNK = 256
+
+# Below this capacity the 1-pass certified tier is skipped: the bf16x3
+# pipeline serves small stores. Tests lower it.
+_EXACT1P_MIN_N = 1 << 18
+
+
+def _use_exact1p(device_state: dict, capacity: int, d: int,
+                 k_eff: int) -> bool:
+    from . import coarse_kernel
+    return ("elo_max" in device_state
+            and capacity >= _EXACT1P_MIN_N
+            and coarse_kernel.supports_1p(capacity, d, k_eff))
+
+
+def _to_host(*tensors):
+    return [t.cpu().numpy() for t in tensors]
+
+
+def _collect_plain(dists, idx):
+    return tuple(_to_host(dists, idx))
+
+
+def _collect_certified(dists, idx, certified, queries_np, fb_state,
+                       metric, k):
+    """Fetch a certified search's outputs; re-run uncertified rows through
+    the next tier (whatever ``fb_state`` still routes to: the bf16x3
+    pipeline when only elo_max was stripped, the plain scan when the
+    mirrors were), in chunks of _FALLBACK_CHUNK queries. The fallback
+    reads ``fb_state``, the snapshot taken at submit."""
+    d_, i_, cert = _to_host(dists, idx, certified)
+    if bool(np.all(cert)):
+        return d_, i_
+    d_ = d_.copy()
+    i_ = i_.copy()
+    bad = np.nonzero(~cert)[0]
+    for start in range(0, bad.shape[0], _FALLBACK_CHUNK):
+        rows = bad[start:start + _FALLBACK_CHUNK]
+        sub_d, sub_i = flat_search_batched(
+            np.ascontiguousarray(np.asarray(queries_np)[rows]),
+            fb_state, metric, k, mode="exact")
+        d_[rows] = sub_d[:, : d_.shape[1]]
+        i_[rows] = sub_i[:, : i_.shape[1]]
+    return d_, i_
+
+
+# Row-tile size for the exact tiled path: small tiles keep the refine pool
+# (k * EXACT_TILE_ROWS rows/query) tiny.
+EXACT_TILE_ROWS = 16
+
+
+@_chunked
+def flat_search_exact_tiled(queries, db, db_sq_norms, db_norms, valid,
+                            metric: DistanceMetric, k: int):
+    """Provably-exact two-phase search (tier 3). Phase 1 reduces the
+    masked distance matrix to per-tile minima; phase 2 takes each query's
+    k best tiles (if a row outside them were in the true top-k, each
+    chosen tile's minimum would witness a closer row) and re-ranks their
+    rows exactly. Requires N to be a multiple of EXACT_TILE_ROWS."""
+    n = db.shape[0]
+    q = queries.shape[0]
+    dists = pairwise_distances(queries, db, metric, db_sq_norms=db_sq_norms,
+                               db_norms=db_norms)
+    dists = torch.where(valid[None, :], dists, float("inf"))
+    t = n // EXACT_TILE_ROWS
+    minima = dists.reshape(q, t, EXACT_TILE_ROWS).amin(dim=2)
+    kt = min(int(k), t)
+    tile_idx = torch.topk(minima, kt, dim=1, largest=False)[1]
+    offs = torch.arange(EXACT_TILE_ROWS, device=db.device)
+    cand = (tile_idx[:, :, None] * EXACT_TILE_ROWS + offs).reshape(
+        q, kt * EXACT_TILE_ROWS)
+    return _exact_rerank(queries, db, db_sq_norms, db_norms, valid, cand,
+                         metric, k)
+
+
+class SearchHandle:
+    """An in-flight batched search launched by flat_search_batched_submit.
+
+    Kernel launches are asynchronous on the current CUDA stream;
+    ``collect()`` waits for the results (the device-to-host copy
+    synchronises), runs the fallback tiers for any uncertified queries,
+    and returns host numpy (dists, idx)."""
+
+    __slots__ = ("_collect", "_done")
+
+    def __init__(self, collect_fn):
+        self._collect = collect_fn
+        self._done = None
+
+    def collect(self):
+        if self._done is None:
+            self._done = self._collect()
+        return self._done
+
+
+def _unsupported_storage(device_state: dict) -> None:
+    for key in ("int8_storage", "bf16_storage", "coarse_f32"):
+        if device_state.get(key):
+            raise NotImplementedError(
+                f"{key} needs the bf16/int8 storage slice and kernels K4-K7 "
+                "(ROADMAP queue 1 item 9)")
+
+
+def flat_search_batched_submit(queries_np: np.ndarray, device_state: dict,
+                               metric: DistanceMetric, k: int,
+                               mode: str = "exact") -> SearchHandle:
+    """Asynchronous entry point used by FlatIndex: launches the device
+    work and returns a SearchHandle without waiting for results.
+
+    collect() returns host numpy (dists, idx) with (Q, k') shape; entries
+    with dist == +inf are "missing" (fewer than k live rows). ``mode``
+    selects the certified exact ladder ("exact") or the 1-pass fast
+    pipeline ("fast": exact distances, approximate ids)."""
+    _unsupported_storage(device_state)
+    db = device_state["db"]
+    capacity = int(db.shape[0])
+    d = queries_np.shape[1]
+    queries = torch.from_numpy(
+        np.require(queries_np, np.float32, ["C", "W"])).to(db.device)
+    k_eff = min(int(k), capacity)
+    args = (queries, db, device_state["sq_norms"], device_state["norms"],
+            device_state["valid"])
+
+    if "hi" in device_state:
+        from . import coarse_kernel
+        # FlatIndex capacities are powers of two >= 1024, so supports()
+        # implies supports_1p() there; other shapes take the plain scans
+        if mode == "fast" and coarse_kernel.supports_1p(capacity, d, k_eff):
+            dists, idx = coarse_kernel.coarse_search_1p_fast(
+                *args, device_state["hi"], metric, k_eff)
+            return SearchHandle(functools.partial(_collect_plain, dists,
+                                                  idx))
+        if mode != "fast" and coarse_kernel.supports(capacity, d, k_eff):
+            if _use_exact1p(device_state, capacity, d, k_eff):
+                # tier 1; uncertified rows re-run through tier 2 (same
+                # state minus elo_max), which itself falls back to tier 3
+                dists, idx, certified = coarse_kernel.coarse_search_1p(
+                    *args, device_state["hi"], device_state["elo_max"],
+                    metric, k_eff)
+                drop = ("elo_max",)
+            else:
+                # tier 2: bf16x3; uncertified rows re-run through the
+                # plain scan (mirrors stripped)
+                dists, idx, certified = coarse_kernel.coarse_search(
+                    *args, device_state["hi"], device_state["lo"], metric,
+                    k_eff)
+                drop = ("hi", "lo", "elo_max")
+            fb_state = {kk: vv for kk, vv in device_state.items()
+                        if kk not in drop}
+            return SearchHandle(functools.partial(
+                _collect_certified, dists, idx, certified, queries_np,
+                fb_state, metric, k))
+
+    if mode == "fast":
+        search_fn = flat_search_fast
+    elif capacity % EXACT_TILE_ROWS == 0:
+        search_fn = flat_search_exact_tiled
+    else:
+        search_fn = flat_search
+    dists, idx = search_fn(*args, metric, k_eff)
+    return SearchHandle(functools.partial(_collect_plain, dists, idx))
+
+
+def flat_search_batched(queries_np: np.ndarray, device_state: dict,
+                        metric: DistanceMetric, k: int,
+                        mode: str = "exact"):
+    """Synchronous wrapper over flat_search_batched_submit (see there)."""
+    return flat_search_batched_submit(queries_np, device_state, metric, k,
+                                      mode=mode).collect()
+
+
+__all__ = ["flat_search", "flat_search_fast", "flat_search_exact_tiled",
+           "flat_search_batched", "flat_search_batched_submit",
+           "SearchHandle", "next_pow2"]
