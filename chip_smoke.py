@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's exact flat-search path once on one CUDA card.
+"""Drive the PyTorch port's flat-search paths once on one CUDA card.
 
     python3 chip_smoke.py [--rows N] [--queries Q] [--seed S]
 
-Phases (each prints one line; any failure exits non-zero, nothing is
-caught and passed over):
+Phases (each prints one line or a few; any failure exits non-zero,
+nothing is caught and passed over):
   1. card (nvidia-smi name and power limit), versions, kernel build time;
-  2. each hand-written kernel against its plain PyTorch version on the
-     same CUDA tensors (d=768, N=2^16, Q=256, all three metrics, 10% dead
-     rows), max error beside its limit (see ``limits``), and a control
-     per kernel that must break the limit;
-  3. the slice at full size through the public entry points:
+  2. each hand-written kernel (K1-K7, K2 over f32, bf16 and int8 rows)
+     against its plain PyTorch version on the same CUDA tensors (d=768,
+     N=2^16, Q=256, all three metrics, 10% dead rows), max error beside
+     its limit (see ``limits``), and a control per kernel that must break
+     the limit;
+  3. the f32 slice at full size through the public entry points:
      VectorStore.with_flat_index(EUCLIDEAN, device="cuda"), 2^20 x 768
      seeded rows through insert_batch, a Q=4096, k=10 search_batch exact
      and fast, checked against an on-card f32 chunked-matmul oracle;
@@ -18,20 +19,34 @@ caught and passed over):
      elo_max: tier 1 certifies nothing), both exact against the oracle;
   5. the port's HTTP server on 127.0.0.1:0: batch insert, search, batch
      search, health, metrics;
-  6. each kernel against its plain version again at the main path's
-     shapes (agreement within the same limits, and time by CUDA events),
-     and the JSON kernel table (max_abs_err: the worst of phases 2 and 6).
-The launch counters are zeroed just before the main path's run (the
-store searches of phases 3 and 4, once both stores are loaded) and read
-right after it, before any direct call, the fallback check or the HTTP
-phase; every kernel of the path must have launched in that run. The
-last line is the JSON contract line {"ok": true, "device": {...}}.
+  6. K1, K2, K3 against their plain versions at the main path's shapes
+     (agreement within the same limits, time by CUDA events beside the
+     plain version's, a bf16 torch.matmul of the same GEMM shape and the
+     bound);
+  7. the storage modes at full size: one seeded 2^20 x 768 row set into
+     VectorStore.with_flat_index(EUCLIDEAN, storage=...) for "bf16" (K1 +
+     K2 over bf16 rows), "int8" (K7 + K2 over int8 codes) and "f32" past
+     a lowered mirror gate (K4 + K2, fast mode K4 without the
+     certificate), 1024 rows deleted, Q=4096, k=10 exact and fast, each
+     held against an on-card f32 oracle over the STORED values; a forced
+     fallback per store (K5 at 3 passes, flat_search_bf16,
+     flat_search_int8), the legacy fast path on 256-row states (K6, K5 at
+     1 pass), and each new kernel against its plain version at its
+     path's shapes, timed as in phase 6.
+Launch counters are zeroed just before each path's run and read right
+after it: the store searches of phases 3 and 4 (K1, K2, K3); each
+storage store's searches (K4/K7 and K2 by source); each forced fallback
+(K5); the legacy fast runs (K6, K5). Every kernel of a path must have
+launched in its window; the direct comparison calls are outside them.
+The line before the last is the card, the one before it the JSON kernel
+table; the last line is the JSON contract line {"ok": true, ...}.
 It exits non-zero without a card, and when the package is not beside it.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -43,6 +58,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 D = 768
 K = 10
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores,
+# f32 outside the tensor cores (K2's IEEE fmaf), HBM bandwidth
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+HBM = 3.35e12
+SRC = "vectordb_tpu/ops/coarse_kernel.py"
+CSRC = "vectordb_tpu_torch/csrc/"
 
 
 def fail(msg: str) -> None:
@@ -132,10 +154,14 @@ def limits(mode, xmax, qmax):
     return 2.0 ** -16 * (1.0 if mode == "cosine" else s), 2.0 ** -20 * s
 
 
-def k1_control(qThi, qrow, hi, col, inv_col, mode, ck, torch):
-    """Plain K1 tile minima with every dot rounded to bf16: what a K1
-    whose accumulator or output passed through bf16 would return."""
-    dots = (hi.float() @ qThi.float()).to(torch.bfloat16).float()
+def rounded_control(h, qThi, qrow, col, inv_col, mode, ck, torch,
+                    scales=None):
+    """Plain 1-pass tile minima over f32 rows ``h`` (exact bf16 values)
+    with every dot rounded to bf16: what a coarse kernel whose accumulator
+    or output passed through bf16 would return."""
+    dots = (h @ qThi.float()).to(torch.bfloat16).float()
+    if scales is not None:
+        dots = dots * scales.reshape(-1, 1)
     score = ck._score_plain(dots, qrow, col, inv_col, mode)
     return score.reshape(-1, ck.SUB, qThi.shape[1]).amin(dim=1)
 
@@ -167,6 +193,415 @@ def cuda_time(fn, torch, iters=3):
     return start.elapsed_time(end) / iters, out
 
 
+def bound(flops, nbytes, peak):
+    """(least ms the card could take, what bounds it): operations over the
+    peak rate of their type, bytes (each input read once, each output
+    written once) over the HBM rate, whichever is larger."""
+    t_op, t_b = flops / peak * 1e3, nbytes / HBM * 1e3
+    return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
+
+
+def coarse_bound(n, d, q, passes, src_bytes, sup, scales=False):
+    """Bound of a coarse kernel: 2 n q d flops per pass; the source rows
+    (``src_bytes``), the bf16 query operands, the per-row and per-query
+    terms, the tile (and super) minima written."""
+    nbytes = (src_bytes + d * q * 2 * (2 if passes == 3 else 1) + q * 4
+              + n * 4 * (3 if scales else 2) + (n // 16) * q * 4
+              + ((n // 256) * q * 4 if sup else 0))
+    return bound(2.0 * n * q * d * passes, nbytes, PEAK_BF16)
+
+
+def refine_bound(tidx, d, itemsize, torch, scales=False):
+    """Bound of K2 on this run's tile ids: the distinct candidate rows it
+    needs (read once), the queries and tile ids, the dots written."""
+    q, m = tidx.shape
+    rows = int(torch.unique(tidx).numel()) * 16
+    nbytes = (rows * d * itemsize + (rows * 4 if scales else 0) + q * d * 4
+              + q * m * 8 + q * m * 16 * 4)
+    return bound(2.0 * q * m * 16 * d, nbytes, PEAK_F32)
+
+
+def library_ms(a, b, torch):
+    """One bf16 torch.matmul of the coarse kernel's GEMM shape (dots only;
+    timed as a yardstick, the port never calls it)."""
+    ms, out = cuda_time(lambda: torch.matmul(a, b), torch)
+    del out
+    return ms
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bnd,
+               lib_ms):
+    return {"name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": f"{SRC}:{replaces}", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
+
+
+def free(torch):
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def load_store(store, rows, dead, BatchInsertItem, Vector):
+    step = 1 << 16
+    for r0 in range(0, rows.shape[0], step):
+        store.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                            for i in range(r0, min(r0 + step,
+                                                   rows.shape[0]))])
+    for i in dead:
+        store.delete(str(int(i)))
+
+
+def phase2(rng, mode_of, card, np, torch, ck, cuda_kernels, flat, worst):
+    """Each kernel against its plain version, with a control per kernel
+    that must break the limit."""
+    dev = torch.device("cuda")
+    n2, q2, m2 = 1 << 16, 256, 32
+    for metric, mode in mode_of.items():
+        db_np = make_rows(rng, n2, D, np)
+        valid_np = rng.random(n2) >= 0.1
+        q_np = rng.standard_normal((q2, D), dtype=np.float32)
+        db = torch.from_numpy(db_np).to(dev)
+        sq = (db * db).sum(1)
+        valid = torch.from_numpy(valid_np).to(dev)
+        queries = torch.from_numpy(q_np).to(dev)
+        hi, lo = ck.split_hi_lo(db)
+        codes_np, scales_np = flat._int8_codes_scales(
+            flat._quantize_int8(db_np))
+        codes = torch.from_numpy(codes_np).to(dev)
+        scales = torch.from_numpy(scales_np).to(dev)
+        qThi, qlo, qsq, qn, qrow, col, inv_col = ck._query_terms(
+            queries, sq, torch.sqrt(sq), valid, mode)
+        qTlo = qlo.to(torch.bfloat16)
+        lim, lim2 = limits(mode, float(torch.sqrt(sq.max())),
+                           float(qn.max()))
+        e, c = {}, {}
+
+        def sup_pair(got, want):
+            return max(live_err(got[0], want[0]), live_err(got[1], want[1]))
+
+        # K1, K4, K7: one pass with super minima; control: bf16 dots
+        for key, src, arr, sc, h in (
+                ("coarse_minima_1p_sup", "mirrors", hi, None, hi.float()),
+                ("coarse_minima_f32_1p_sup", "f32", db, None,
+                 db.to(torch.bfloat16).float()),
+                ("coarse_minima_int8_1p_sup", "int8", codes,
+                 scales.reshape(1, -1), codes.float())):
+            plain = ck._minima_1p_sup_plain(qThi, qrow, arr, col, inv_col,
+                                            mode, src, sc)
+            got = ck._minima_1p_sup(qThi, qrow, arr, col, inv_col, mode,
+                                    src, sc)
+            e[key] = sup_pair(got, plain)
+            c[key] = live_err(rounded_control(h, qThi, qrow, col, inv_col,
+                                              mode, ck, torch, sc), plain[0])
+        # K3, K5 at 3 and 1 passes; control: the 1-pass kernel against
+        # the 3-pass plain version
+        for key, launch, plain_fn, args in (
+                ("coarse_minima", cuda_kernels.coarse_minima,
+                 ck._coarse_minima_plain, (hi, lo)),
+                ("coarse_minima_f32", cuda_kernels.coarse_minima_f32,
+                 ck._coarse_minima_f32_plain, (db,))):
+            out, plain = {}, {}
+            for passes in (3, 1):
+                out[passes] = launch(qThi, qTlo, qrow, *args, col, inv_col,
+                                     passes, mode).T
+                plain[passes] = plain_fn(qThi, qTlo, qrow, *args, col,
+                                         inv_col, passes, mode)
+            e[key] = max(live_err(out[p], plain[p]) for p in (3, 1))
+            c[key] = live_err(out[1], plain[3])
+            if key == "coarse_minima":
+                k3_plain3 = plain[3]
+        # K6; control: K6 held to the K3 3-pass plain version
+        k6 = cuda_kernels.coarse_minima_1p(qThi, qrow, hi, col, inv_col,
+                                           mode).T
+        e["coarse_minima_1p"] = live_err(k6, ck._coarse_minima_1p_plain(
+            qThi, qrow, hi, col, inv_col, mode))
+        c["coarse_minima_1p"] = live_err(k6, k3_plain3)
+        # K2 over f32, bf16 and int8 rows; control: TF32 operands
+        tidx = torch.from_numpy(rng.integers(0, n2 // 16, (q2, m2))).to(dev)
+        for key, rows, sc in (("refine_dots", db, None),
+                              ("refine_dots_bf16", hi, None),
+                              ("refine_dots_int8", codes, scales)):
+            plain = ck._refine_dots_plain(tidx, queries, rows, m2, sc)
+            got = cuda_kernels.refine_dots(tidx, queries, rows, m2, sc)
+            e[key] = float((got - plain).abs().max())
+            t_rows = to_tf32(rows, torch) if key == "refine_dots" else rows
+            c[key] = float((ck._refine_dots_plain(
+                tidx, to_tf32(queries, torch), t_rows, m2, sc)
+                - plain).abs().max())
+        torch.cuda.synchronize()
+        limit = {k: (lim2 if k.startswith("refine") else lim) for k in e}
+        say(f"phase 2 {metric.value}: " + "; ".join(
+            f"{k} {e[k]:.3e} (control {c[k]:.3e}, limit {limit[k]:.3e})"
+            for k in e) + f"  [{card}]")
+        bad = [k for k in e if not e[k] <= limit[k]]
+        if bad:
+            fail(f"kernel disagrees with its plain version ({metric.value}):"
+                 f" {bad}")
+        bad = [k for k in c if not c[k] > limit[k]]
+        if bad:
+            fail(f"a control passed its limit ({metric.value}): {bad}: the "
+                 f"limits cannot tell a sound kernel from a broken one")
+        for k in e:
+            worst[k] = max(worst.get(k, 0.0), e[k])
+        del db, hi, lo, codes, got, plain, out, k6, k3_plain3
+
+
+def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
+    """One storage mode at full size through the store (see the module
+    docstring, phase 7). Returns the kernel table's rows it measured."""
+    np, torch, ck, cuda_kernels, topk, flat = (
+        mods["np"], mods["torch"], mods["ck"], mods["cuda_kernels"],
+        mods["topk"], mods["flat"])
+    VectorStore, DistanceMetric = mods["VectorStore"], mods["DistanceMetric"]
+    Vector = mods["Vector"]
+    E = DistanceMetric.EUCLIDEAN
+    n, nq = rows.shape[0], qs.shape[0]
+    store = VectorStore.with_flat_index(E, storage=kind, device="cuda")
+    t0 = time.perf_counter()
+    load_store(store, rows, dead, mods["BatchInsertItem"], Vector)
+    load_s = time.perf_counter() - t0
+    batch = [(Vector(q), K) for q in qs]
+    index = store.index
+    gate = flat._MIRROR_MEM_LIMIT
+    if kind == "f32":
+        # past the mirror gate without a 2^24-row store: the f32 rows
+        # alone, as a store past 64 GB of rows + mirrors would hold them
+        flat._MIRROR_MEM_LIMIT = 0
+    # the path's run: only this store's searches between reset and read
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = store.search_batch(batch)       # first search builds the state
+    first_s = time.perf_counter() - t0
+    flat._MIRROR_MEM_LIMIT = gate
+    exact_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = store.search_batch(batch)
+        exact_s.append(time.perf_counter() - t0)
+    index.search_mode = "fast"
+    fast_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res_fast = store.search_batch(batch)
+        fast_s.append(time.perf_counter() - t0)
+    index.search_mode = "exact"
+    counts = dict(cuda_kernels.launches)
+    coarse_key, refine_key = {
+        "bf16": ("coarse_minima_1p_sup", "refine_dots_bf16"),
+        "int8": ("coarse_minima_int8_1p_sup", "refine_dots_int8"),
+        "f32": ("coarse_minima_f32_1p_sup", "refine_dots")}[kind]
+    say(f"phase 7 {kind} launch counts (this store's searches): "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if counts[coarse_key] < 1 or counts[refine_key] < 1:
+        fail(f"the {kind} store's searches did not launch {coarse_key} and "
+             f"{refine_key}: {counts}")
+
+    with index._lock:
+        state = dict(index._sync_device())
+    flag = {"bf16": "bf16_storage", "int8": "int8_storage",
+            "f32": "coarse_f32"}[kind]
+    if not state.get(flag) or (kind == "f32" and "hi" in state):
+        fail(f"the {kind} store's device state lacks {flag}: "
+             f"{sorted(state)}")
+    scales = state.get("scales")
+    db = state["db"]
+    # the stored values, widened exactly: the oracle's rows
+    stored = (db.float() * scales[:, None] if kind == "int8"
+              else db.float())
+    ora_d2, ora_i = oracle_sq(queries, stored, state["sq_norms"],
+                              state["valid"], K, torch)
+    del stored
+    ids, dists = store_ids(res, np)
+    ties, derr = check_exact(f"{kind} exact", ids, dists, ora_d2, ora_i, K,
+                             np)
+    fids, fdists = store_ids(res_fast, np)
+    if kind == "f32":          # K4 without the certificate: approximate ids
+        fast_note = "top-%d agreement %.4f" % (K, float(np.mean(
+            [len(set(a) & set(b)) / K for a, b in zip(fids, ora_i[:, :K])])))
+    else:                      # bf16 and int8 serve fast as exact
+        fties, _ = check_exact(f"{kind} fast", fids, fdists, ora_d2, ora_i,
+                               K, np)
+        fast_note = f"served as exact ({fties} boundary ties)"
+    hi = state.get("hi")
+    _, _, cert = ck.coarse_search_1p(queries, db, state["sq_norms"],
+                                     state["norms"], state["valid"], hi,
+                                     state["elo_max"], E, K, scales=scales)
+    rate = float(cert.float().mean())
+    say(f"phase 7 {kind} store N={n} ({len(dead)} deleted) Q={nq} k={K}: "
+        f"load "
+        f"{load_s:.3f} s (host); first batch (incl. device build) "
+        f"{first_s * 1e3:.3f} ms; exact per batch "
+        f"{[round(s * 1e3, 3) for s in exact_s]} ms, ids match the oracle "
+        f"over the stored values ({ties} boundary ties, max dist err "
+        f"{derr:.3e}); fast per batch {[round(s * 1e3, 3) for s in fast_s]}"
+        f" ms, {fast_note}; tier-1 certification rate {rate:.6f} "
+        f"({int(cert.sum())}/{nq}); elo_max {float(state['elo_max']):.6e}"
+        f"  [{card}]")
+
+    # forced fallback: tier 1 certifies nothing; the next tier serves
+    forced = dict(state)
+    forced["elo_max"] = torch.tensor(1e9, device=db.device)
+    reached = []
+    spied = {"bf16": "flat_search_bf16", "int8": "flat_search_int8"}.get(kind)
+    if spied:
+        real = getattr(topk, spied)
+        setattr(topk, spied,
+                lambda *a, **kw: reached.append(1) or real(*a, **kw))
+    cuda_kernels.reset_launches()
+    fd, fi = topk.flat_search_batched(qs[:256], forced, E, K)
+    fb_counts = dict(cuda_kernels.launches)
+    if spied:
+        setattr(topk, spied, real)
+        if not reached:
+            fail(f"the {kind} forced fallback did not reach {spied}")
+        via = spied
+    else:
+        if fb_counts["coarse_minima_f32"] < 1:
+            fail(f"the f32 forced fallback launched no K5: {fb_counts}")
+        via = (f"K5 at 3 passes ({fb_counts['coarse_minima_f32']} "
+               f"launches)")
+    fties, _ = check_exact(f"{kind} forced fallback", fi[:, :K], fd[:, :K],
+                           ora_d2[:256], ora_i[:256], K, np)
+    say(f"phase 7 {kind} forced fallback Q=256: exact via {via} ({fties} "
+        f"ties)  [{card}]")
+
+    # kernels at the path's shapes (not counted), timed; worst errors
+    out = {"fb_counts": fb_counts, "counts": counts}
+    mode = "euclidean"
+    qThi, qlo, qsq, qn, qrow, col, inv_col = ck._query_terms(
+        queries, state["sq_norms"], state["norms"], state["valid"], mode)
+    xmax = float(torch.sqrt(state["sq_norms"].max()))
+    lim, lim2 = limits(mode, xmax, float(qn.max()))
+    src, arr = ck._dispatch_src(db, hi, scales)
+    sc2 = None if scales is None else scales.reshape(1, -1)
+    itemsize = db.element_size()
+    launch = {"mirrors": cuda_kernels.coarse_minima_1p_sup,
+              "f32": cuda_kernels.coarse_minima_f32_1p_sup}.get(src)
+    if src == "int8":
+        def launch(a, b, c_, d_, e_, f_):
+            return cuda_kernels.coarse_minima_int8_1p_sup(a, b, c_, sc2, d_,
+                                                          e_, f_)
+    ms_c, (tile_tq, sup_tq) = cuda_time(
+        lambda: launch(qThi, qrow, arr, col, inv_col, mode), torch)
+    ms_cp, (tile_p, sup_p) = cuda_time(lambda: ck._minima_1p_sup_plain(
+        qThi, qrow, arr, col, inv_col, mode, src, sc2), torch)
+    e_c = max(live_err(tile_tq, tile_p), live_err(sup_tq, sup_p))
+    del tile_p, sup_p
+    a16 = arr if arr.dtype == torch.bfloat16 else arr.to(torch.bfloat16)
+    lib_c = library_ms(a16, qThi, torch)
+    del a16
+    mp2, mp = ck._exact1p_pool(K, n // 16)
+    tidx, _ = ck._select_tiles_1p(tile_tq, sup_tq, nq, n // 16, mp2, mp)
+    del tile_tq, sup_tq
+    ms_r, dots_k = cuda_time(lambda: cuda_kernels.refine_dots(
+        tidx, queries, db, mp, scales), torch)
+    ms_rp, dots_p = cuda_time(lambda: ck._refine_dots_plain(
+        tidx, queries, db, mp, scales), torch)
+    e_r = float((dots_k - dots_p).abs().max())
+    if not (e_c <= lim and e_r <= lim2):
+        fail(f"{kind}: kernel disagrees with its plain version at the "
+             f"path's shapes ({e_c:.3e} vs {lim:.3e}, {e_r:.3e} vs "
+             f"{lim2:.3e})")
+    worst[coarse_key] = max(worst.get(coarse_key, 0.0), e_c)
+    worst[refine_key] = max(worst.get(refine_key, 0.0), e_r)
+    out["coarse"] = (ms_c, ms_cp, lib_c, coarse_bound(
+        n, D, nq, 1, n * D * itemsize, True, scales is not None))
+    out["refine"] = (ms_r, ms_rp, refine_bound(tidx, D, itemsize, torch,
+                                               scales is not None))
+    say(f"phase 7 {kind} times [{card}]: {coarse_key} N={n} Q={nq} "
+        f"{ms_c:.3f} ms (plain {ms_cp:.3f}, bf16 matmul {lib_c:.3f}, bound "
+        f"{out['coarse'][3][0]:.3f}), max err {e_c:.3e} (limit {lim:.3e}); "
+        f"{refine_key} Q={nq} m={mp} {ms_r:.3f} ms (plain {ms_rp:.3f}, "
+        f"bound {out['refine'][2][0]:.3f}), max err {e_r:.3e} (limit "
+        f"{lim2:.3e})")
+    del dots_k, dots_p, tidx
+
+    if kind == "f32":
+        out.update(f32_extra(state, qs, queries, card, mods, worst, lim))
+    del store, index, state, forced, res, res_fast, db, arr, hi, scales
+    free(torch)
+    return out
+
+
+def f32_extra(state, qs, queries, card, mods, worst, lim):
+    """K5 at 3 passes at the fallback's shape (N, Q=256); the legacy fast
+    path on 256-row states: K6 over a mirror, K5 at 1 pass over f32."""
+    np, torch, ck, cuda_kernels, topk = (
+        mods["np"], mods["torch"], mods["ck"], mods["cuda_kernels"],
+        mods["topk"])
+    E = mods["DistanceMetric"].EUCLIDEAN
+    mode = "euclidean"
+    db = state["db"]
+    n = db.shape[0]
+    q256 = queries[:256]
+    qThi, qlo, _, _, qrow, col, inv_col = ck._query_terms(
+        q256, state["sq_norms"], state["norms"], state["valid"], mode)
+    qTlo = qlo.to(torch.bfloat16)
+    ms5, k5 = cuda_time(lambda: cuda_kernels.coarse_minima_f32(
+        qThi, qTlo, qrow, db, col, inv_col, 3, mode), torch)
+    ms5p, k5p = cuda_time(lambda: ck._coarse_minima_f32_plain(
+        qThi, qTlo, qrow, db, col, inv_col, 3, mode), torch)
+    e5 = live_err(k5.T, k5p)
+    del k5, k5p
+    hi, lo = ck.split_hi_lo(db)
+    a3 = torch.cat([hi, lo, hi], dim=1)
+    del hi, lo
+    lib5 = library_ms(a3, torch.cat([qThi, qThi, qTlo], dim=0), torch)
+    del a3
+    b5 = coarse_bound(n, D, 256, 3, n * D * 4, False)
+
+    # legacy fast on 256-row states (one super-tile: supports() holds,
+    # supports_1p() does not); every tile is refined, so the ids are exact
+    small = {k: state[k][:256] for k in ("db", "sq_norms", "norms",
+                                         "valid")}
+    mir = dict(small)
+    mir["hi"], mir["lo"] = ck.split_hi_lo(small["db"])
+    mir["elo_max"] = ck.residual_max_norm(small["db"], mir["hi"])
+    f32s = dict(small, coarse_f32=True,
+                elo_max=ck.residual_max_norm_f32(small["db"]))
+    o_d2, o_i = oracle_sq(queries, small["db"], small["sq_norms"],
+                          small["valid"], K, torch)
+    legacy = {}
+    for name, st, key in (("mirrors", mir, "coarse_minima_1p"),
+                          ("f32", f32s, "coarse_minima_f32")):
+        cuda_kernels.reset_launches()
+        ld, li = topk.flat_search_batched(qs, st, E, K, mode="fast")
+        legacy[key] = cuda_kernels.launches[key]
+        if legacy[key] < 1:
+            fail(f"the legacy fast path on a 256-row {name} state launched "
+                 f"no {key}: {dict(cuda_kernels.launches)}")
+        check_exact(f"legacy fast {name}", li[:, :K], ld[:, :K], o_d2, o_i,
+                    K, np)
+    sThi, _, _, _, sqrow, scol, sinv = ck._query_terms(
+        queries, small["sq_norms"], small["norms"], small["valid"], mode)
+    ms6, k6 = cuda_time(lambda: cuda_kernels.coarse_minima_1p(
+        sThi, sqrow, mir["hi"], scol, sinv, mode), torch)
+    ms6p, k6p = cuda_time(lambda: ck._coarse_minima_1p_plain(
+        sThi, sqrow, mir["hi"], scol, sinv, mode), torch)
+    e6 = live_err(k6.T, k6p)
+    lib6 = library_ms(mir["hi"], sThi, torch)
+    b6 = coarse_bound(256, D, queries.shape[0], 1, 256 * D * 2, False)
+    slim = limits(mode, float(torch.sqrt(small["sq_norms"].max())),
+                  float(torch.sqrt((queries * queries).sum(1)).max()))[0]
+    if not (e5 <= lim and e6 <= slim):
+        fail(f"K5/K6 disagree with their plain versions at the path's "
+             f"shapes ({e5:.3e}, {e6:.3e})")
+    worst["coarse_minima_f32"] = max(worst.get("coarse_minima_f32", 0.0), e5)
+    worst["coarse_minima_1p"] = max(worst.get("coarse_minima_1p", 0.0), e6)
+    say(f"phase 7 legacy fast Q={queries.shape[0]} on 256-row states: "
+        f"exact ids (every tile refined) via K6 ({legacy['coarse_minima_1p']}"
+        f" launches) and K5 at 1 pass ({legacy['coarse_minima_f32']}); times "
+        f"[{card}]: K5 3-pass N={n} Q=256 {ms5:.3f} ms (plain {ms5p:.3f}, "
+        f"bf16 matmul (N, 3d) x (3d, Q) {lib5:.3f}, bound {b5[0]:.3f}), max "
+        f"err {e5:.3e}; K6 N=256 Q={queries.shape[0]} {ms6:.3f} ms (plain "
+        f"{ms6p:.3f}, bf16 matmul {lib6:.3f}, bound {b6[0]:.3f}), max err "
+        f"{e6:.3e}")
+    return {"k5": (ms5, ms5p, lib5, b5), "k6": (ms6, ms6p, lib6, b6),
+            "legacy": legacy}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
@@ -185,6 +620,7 @@ def main() -> None:
         import numpy as np
         from vectordb_tpu_torch import (BatchInsertItem, DistanceMetric,
                                         Vector, VectorStore)
+        from vectordb_tpu_torch.index import flat
         from vectordb_tpu_torch.ops import coarse_kernel as ck
         from vectordb_tpu_torch.ops import cuda_kernels, topk
         from vectordb_tpu_torch.server.app import (AppState,
@@ -193,6 +629,7 @@ def main() -> None:
         fail(f"the vectordb_tpu_torch package is not beside this script "
              f"({e})")
     os.makedirs(OUT_DIR, exist_ok=True)
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     say(f"card: {card}")
@@ -204,7 +641,8 @@ def main() -> None:
     t0 = time.perf_counter()
     info = cuda_kernels.load()
     say(f"phase 1 build: {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {info['seconds']:.3f} s) -> {os.path.relpath(info['path'], ROOT)}")
+        f"(nvcc {info['seconds']:.3f} s, one process per source) -> "
+        f"{os.path.relpath(info['path'], ROOT)}")
     with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as f:
         f.write(info["log"])
     rng = np.random.default_rng(args.seed)
@@ -213,65 +651,9 @@ def main() -> None:
                DistanceMetric.COSINE: "cosine"}
 
     # -- phase 2: kernels against their plain versions ------------------
-    n2, q2, m2 = 1 << 16, 256, 32
-    worst = {"coarse_minima_1p_sup": 0.0, "coarse_minima": 0.0,
-             "refine_dots": 0.0}
-    for metric, mode in mode_of.items():
-        db_np = make_rows(rng, n2, D, np)
-        valid_np = rng.random(n2) >= 0.1
-        q_np = rng.standard_normal((q2, D), dtype=np.float32)
-        db = torch.from_numpy(db_np).to(dev)
-        sq = (db * db).sum(1)
-        valid = torch.from_numpy(valid_np).to(dev)
-        queries = torch.from_numpy(q_np).to(dev)
-        hi, lo = ck.split_hi_lo(db)
-        qThi, qlo, qsq, qn, qrow, col, inv_col = ck._query_terms(
-            queries, sq, torch.sqrt(sq), valid, mode)
-        qTlo = qlo.to(torch.bfloat16)
-        lim, lim2 = limits(mode, float(torch.sqrt(sq.max())),
-                           float(qn.max()))
-
-        t_k, s_k = cuda_kernels.coarse_minima_1p_sup(qThi, qrow, hi, col,
-                                                     inv_col, mode)
-        t_p, s_p = ck._minima_1p_sup_plain(qThi, qrow, hi, col, inv_col,
-                                           mode)
-        e1 = max(live_err(t_k, t_p), live_err(s_k, s_p))
-        c1 = live_err(k1_control(qThi, qrow, hi, col, inv_col, mode, ck,
-                                 torch), t_p)
-        k3_out, k3_plain, k3 = {}, {}, {}
-        for passes in (3, 1):
-            k3_out[passes] = cuda_kernels.coarse_minima(
-                qThi, qTlo, qrow, hi, lo, col, inv_col, passes, mode).T
-            k3_plain[passes] = ck._coarse_minima_plain(
-                qThi, qTlo, qrow, hi, lo, col, inv_col, passes, mode)
-            k3[passes] = live_err(k3_out[passes], k3_plain[passes])
-        # control: the 1-pass kernel held to the 3-pass plain version
-        c3 = live_err(k3_out[1], k3_plain[3])
-        tidx = torch.from_numpy(rng.integers(0, n2 // 16, (q2, m2))).to(dev)
-        dots_p = ck._refine_dots_plain(tidx, queries, db, m2)
-        e2 = float((cuda_kernels.refine_dots(tidx, queries, db, m2)
-                    - dots_p).abs().max())
-        c2 = float((ck._refine_dots_plain(tidx, to_tf32(queries, torch),
-                                          to_tf32(db, torch), m2)
-                    - dots_p).abs().max())
-        torch.cuda.synchronize()
-        say(f"phase 2 {metric.value}: K1 max_abs_err {e1:.3e} (control, "
-            f"dots rounded to bf16: {c1:.3e}), K3 3-pass {k3[3]:.3e} "
-            f"(control, 1-pass kernel: {c3:.3e}), K3 1-pass {k3[1]:.3e}; "
-            f"coarse limit {lim:.3e}; K2 {e2:.3e} (control, TF32 operands: "
-            f"{c2:.3e}), limit {lim2:.3e}  [{card}]")
-        if not (e1 <= lim and k3[1] <= lim and k3[3] <= lim
-                and e2 <= lim2):
-            fail(f"kernel disagrees with its plain version ({metric.value})")
-        if not (c1 > lim and c3 > lim and c2 > lim2):
-            fail(f"a control passed its limit ({metric.value}): the limits "
-                 f"cannot tell a sound kernel from a broken one")
-        worst["coarse_minima_1p_sup"] = max(worst["coarse_minima_1p_sup"],
-                                            e1)
-        worst["coarse_minima"] = max(worst["coarse_minima"], k3[1], k3[3])
-        worst["refine_dots"] = max(worst["refine_dots"], e2)
-        del k3_out, k3_plain, dots_p
-        del db, hi, lo, t_k, s_k, t_p, s_p
+    worst: dict = {}
+    phase2(rng, mode_of, card, np, torch, ck, cuda_kernels, flat, worst)
+    free(torch)
 
     # -- phase 3: the slice at full size through the entry points -------
     n, nq = args.rows, args.queries
@@ -282,13 +664,8 @@ def main() -> None:
                                         device="cuda")
     t0 = time.perf_counter()
     rows = make_rows(rng, n, D, np)
-    step = 1 << 16
-    for r0 in range(0, n, step):
-        store.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
-                            for i in range(r0, min(r0 + step, n))])
     dead = rng.choice(n, n // 1024, replace=False)
-    for i in dead:
-        store.delete(str(int(i)))
+    load_store(store, rows, dead, BatchInsertItem, Vector)
     say(f"phase 3 load: {len(store)} live rows x {D} in "
         f"{time.perf_counter() - t0:.3f} s (host)")
     small = VectorStore.with_flat_index(DistanceMetric.EUCLIDEAN,
@@ -349,9 +726,10 @@ def main() -> None:
         f"{[round(s * 1e3, 3) for s in fast_s]} ms (top-{K} agreement "
         f"{fast_agree:.4f}); plain tier-3 scan {plain_s * 1e3:.3f} ms  "
         f"[{card}]")
+    path_keys = ("coarse_minima_1p_sup", "coarse_minima", "refine_dots")
     say(f"launch counts (main path: the store searches of phases 3 and 4): "
-        f"{counts}")
-    if min(counts.values()) < 1:
+        f"{ {k: counts[k] for k in path_keys} }")
+    if min(counts[k] for k in path_keys) < 1:
         fail(f"a kernel of the path never launched: {counts}")
 
     # -- phase 4: small store (tier 2) and a forced fallback ------------
@@ -439,6 +817,7 @@ def main() -> None:
         qThi, qrow, state["hi"], col, inv_col, mode), torch)
     e1 = max(live_err(tile_tq, tile_p), live_err(sup_tq, sup_p))
     del tile_p, sup_p
+    lib1 = library_ms(state["hi"], qThi, torch)
     mp2, mp = ck._exact1p_pool(K, n // 16)
     tidx, _ = ck._select_tiles_1p(tile_tq, sup_tq, nq, n // 16, mp2, mp)
     del tile_tq, sup_tq
@@ -447,6 +826,8 @@ def main() -> None:
     ms2p, dots_p = cuda_time(lambda: ck._refine_dots_plain(
         tidx, queries, state["db"], mp), torch)
     e2 = float((dots_k - dots_p).abs().max())
+    b2 = refine_bound(tidx, D, 4, torch)
+    del dots_k, dots_p
     sq1024 = queries[:1024]
     sThi, slo, _, sqn, sqrow, scol, sinv = ck._query_terms(
         sq1024, sstate["sq_norms"], sstate["norms"], sstate["valid"], mode)
@@ -463,6 +844,10 @@ def main() -> None:
     c3 = live_err(cuda_kernels.coarse_minima(
         sThi, sTlo, sqrow, sstate["hi"], sstate["lo"], scol, sinv, 1,
         mode).T, min_p)
+    n3 = sstate["db"].shape[0]
+    lib3 = library_ms(
+        torch.cat([sstate["hi"], sstate["lo"], sstate["hi"]], dim=1),
+        torch.cat([sThi, sThi, sTlo], dim=0), torch)
     say(f"phase 6 agreement at the main path's shapes: K1 {e1:.3e} (limit "
         f"{lim:.3e}); K2 {e2:.3e} (limit {lim2:.3e}); K3 3-pass {e3:.3e} "
         f"(limit {slim:.3e}; control, 1-pass kernel: {c3:.3e})  [{card}]")
@@ -481,32 +866,73 @@ def main() -> None:
                                      state["elo_max"],
                                      DistanceMetric.EUCLIDEAN, K)
     rate = float(cert.float().mean())
+    b1 = coarse_bound(n, D, nq, 1, n * D * 2, True)
+    b3 = coarse_bound(n3, D, 1024, 3, 2 * n3 * D * 2, False)
     say(f"phase 6 times [{card}]: K1 N={n} Q={nq} {ms1:.3f} ms (plain "
-        f"{ms1p:.3f}); K2 Q={nq} m={mp} {ms2:.3f} ms (plain {ms2p:.3f}); "
-        f"K3 3-pass N={sstate['db'].shape[0]} Q=1024 {ms3:.3f} ms (plain "
-        f"{ms3p:.3f}); tier-1 certification rate {rate:.6f} "
-        f"({int(cert.sum())}/{nq})")
+        f"{ms1p:.3f}, bf16 matmul {lib1:.3f}, bound {b1[0]:.3f}); K2 Q={nq} "
+        f"m={mp} {ms2:.3f} ms (plain {ms2p:.3f}, bound {b2[0]:.3f}); K3 "
+        f"3-pass N={n3} Q=1024 {ms3:.3f} ms (plain {ms3p:.3f}, bf16 matmul "
+        f"(N, 3d) x (3d, Q) {lib3:.3f}, bound {b3[0]:.3f}); tier-1 "
+        f"certification rate {rate:.6f} ({int(cert.sum())}/{nq})")
+    table = [
+        kernel_row("K1 coarse_minima_1p_sup", "coarse_minima.cu", 261,
+                   counts["coarse_minima_1p_sup"],
+                   worst["coarse_minima_1p_sup"], ms1, ms1p, b1, lib1),
+        kernel_row("K2 refine_dots", "refine_dots.cu", 471,
+                   counts["refine_dots"], worst["refine_dots"], ms2, ms2p,
+                   b2, None),
+        kernel_row("K3 coarse_minima", "coarse_minima.cu", 96,
+                   counts["coarse_minima"], worst["coarse_minima"], ms3,
+                   ms3p, b3, lib3)]
+    del store, small, hstore, state, sstate, forced, res, res_fast, sres
+    del tidx, min_k, min_p, index
+    free(torch)
+
+    # -- phase 7: the storage modes at full size ------------------------
+    mods = dict(np=np, torch=torch, ck=ck, cuda_kernels=cuda_kernels,
+                topk=topk, flat=flat, VectorStore=VectorStore,
+                DistanceMetric=DistanceMetric, Vector=Vector,
+                BatchInsertItem=BatchInsertItem)
+    got = {kind: storage_phase(kind, rows, dead, qs, queries, card, mods,
+                               worst)
+           for kind in ("bf16", "int8", "f32")}
+    f32 = got["f32"]
+    table[2:2] = [
+        kernel_row("K2 refine_dots_bf16 (bf16 rows)", "refine_dots.cu", 471,
+                   got["bf16"]["counts"]["refine_dots_bf16"],
+                   worst["refine_dots_bf16"], *got["bf16"]["refine"][:2],
+                   got["bf16"]["refine"][2], None),
+        kernel_row("K2 refine_dots_int8 (int8 codes x pow2 scales)",
+                   "refine_dots.cu", 471,
+                   got["int8"]["counts"]["refine_dots_int8"],
+                   worst["refine_dots_int8"], *got["int8"]["refine"][:2],
+                   got["int8"]["refine"][2], None)]
+    k5_launches = (f32["fb_counts"]["coarse_minima_f32"]
+                   + f32["legacy"]["coarse_minima_f32"])
+    table += [
+        kernel_row("K4 coarse_minima_f32_1p_sup", "coarse_minima.cu", 295,
+                   f32["counts"]["coarse_minima_f32_1p_sup"],
+                   worst["coarse_minima_f32_1p_sup"], f32["coarse"][0],
+                   f32["coarse"][1], f32["coarse"][3], f32["coarse"][2]),
+        kernel_row("K5 coarse_minima_f32", "coarse_minima.cu", 704,
+                   k5_launches, worst["coarse_minima_f32"], f32["k5"][0],
+                   f32["k5"][1], f32["k5"][3], f32["k5"][2]),
+        kernel_row("K6 coarse_minima_1p", "coarse_minima.cu", 185,
+                   f32["legacy"]["coarse_minima_1p"],
+                   worst["coarse_minima_1p"], f32["k6"][0], f32["k6"][1],
+                   f32["k6"][3], f32["k6"][2]),
+        kernel_row("K7 coarse_minima_int8_1p_sup", "coarse_minima.cu", 329,
+                   got["int8"]["counts"]["coarse_minima_int8_1p_sup"],
+                   worst["coarse_minima_int8_1p_sup"],
+                   got["int8"]["coarse"][0], got["int8"]["coarse"][1],
+                   got["int8"]["coarse"][3], got["int8"]["coarse"][2])]
+    if min(r["launches"] for r in table) < 1:
+        fail(f"a kernel never launched on its path: "
+             f"{[(r['name'], r['launches']) for r in table]}")
     if "jax" in sys.modules:
         fail("jax was imported")
-
-    src = "vectordb_tpu/ops/coarse_kernel.py"
-    table = {"kernels": [
-        {"name": "K1 coarse_minima_1p_sup", "route": "cuda",
-         "source": "vectordb_tpu_torch/csrc/coarse_minima.cu",
-         "replaces": f"{src}:261", "launches": counts["coarse_minima_1p_sup"],
-         "max_abs_err": worst["coarse_minima_1p_sup"], "ms": ms1,
-         "plain_ms": ms1p},
-        {"name": "K2 refine_dots", "route": "cuda",
-         "source": "vectordb_tpu_torch/csrc/refine_dots.cu",
-         "replaces": f"{src}:471", "launches": counts["refine_dots"],
-         "max_abs_err": worst["refine_dots"], "ms": ms2, "plain_ms": ms2p},
-        {"name": "K3 coarse_minima", "route": "cuda",
-         "source": "vectordb_tpu_torch/csrc/coarse_minima.cu",
-         "replaces": f"{src}:96", "launches": counts["coarse_minima"],
-         "max_abs_err": worst["coarse_minima"], "ms": ms3,
-         "plain_ms": ms3p},
-    ]}
-    say(json.dumps(table))
+    say(f"total {time.perf_counter() - t_start:.3f} s")
+    say(json.dumps({"kernels": table}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -98,6 +98,82 @@ def test_k2_matches_plain(dev, d):
     assert float((got - want).abs().max()) <= dot_b
 
 
+def _int8_rows(db):
+    """(codes int8, scales (N,) f32, stored f32 rows) of pow2-scaled int8
+    storage (index/flat._int8_codes_scales of the quantized rows)."""
+    from vectordb_tpu_torch.index.flat import (_int8_codes_scales,
+                                               _quantize_int8)
+    codes, scales = _int8_codes_scales(_quantize_int8(db.cpu().numpy()))
+    codes = torch.from_numpy(codes).to(db.device)
+    scales = torch.from_numpy(scales).to(db.device)
+    return codes, scales, codes.float() * scales[:, None]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n, d, q", [(4096, 768, 100), (1024, 40, 7)])
+def test_k4_k7_match_plain(dev, mode, n, d, q):
+    """K4 (f32 rows rounded on chip) and K7 (int8 codes x pow2 scales)
+    against their plain versions; every launch is counted."""
+    db, _, _, queries, _, bound, _ = _operands(dev, n, d, q, mode, seed=7)
+    codes, scales, stored = _int8_rows(db)
+    for src, arr, rows in (("f32", db, db), ("int8", codes, stored)):
+        sq = (rows * rows).sum(1)
+        valid = torch.from_numpy(
+            np.random.default_rng(1).random(n) >= 0.1).to(dev)
+        qThi, _, _, qn, qrow, col, inv = ck._query_terms(
+            queries, sq, torch.sqrt(sq), valid, mode)
+        sc = scales.reshape(1, -1) if src == "int8" else None
+        key = {"f32": "coarse_minima_f32_1p_sup",
+               "int8": "coarse_minima_int8_1p_sup"}[src]
+        before = cuda_kernels.launches[key]
+        t_k, s_k = ck._minima_1p_sup(qThi, qrow, arr, col, inv, mode, src,
+                                     sc)
+        t_p, s_p = ck._minima_1p_sup_plain(qThi, qrow, arr, col, inv, mode,
+                                           src, sc)
+        torch.cuda.synchronize()
+        assert cuda_kernels.launches[key] == before + 1
+        lim = 2.0 ** -16 * (1.0 if mode == "cosine" else
+                            float(torch.sqrt(sq.max())) * float(qn.max()))
+        assert t_k.shape == (n // 16, q) and s_k.shape == (n // 256, q)
+        assert _live_err(t_k, t_p) <= lim, src
+        assert _live_err(s_k, s_p) <= lim, src
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("mode", MODES)
+def test_k5_k6_match_plain(dev, mode, passes):
+    db, hi, _, queries, terms, bound, _ = _operands(dev, 2048, 768, 65,
+                                                    mode, seed=8)
+    qThi, qlo, _, _, qrow, col, inv = terms
+    qTlo = qlo.to(torch.bfloat16)
+    got = ck._coarse_minima_f32(qThi, qTlo, qrow, db, col, inv, passes, mode)
+    want = ck._coarse_minima_f32_plain(qThi, qTlo, qrow, db, col, inv,
+                                       passes, mode)
+    got6 = ck._coarse_minima_1p(qThi, qrow, hi, col, inv, mode)
+    want6 = ck._coarse_minima_1p_plain(qThi, qrow, hi, col, inv, mode)
+    torch.cuda.synchronize()
+    assert got.shape == (65, 2048 // 16)
+    assert _live_err(got, want) <= bound
+    assert _live_err(got6, want6) <= bound
+
+
+@pytest.mark.parametrize("d", [768, 37])
+def test_k2_bf16_int8_match_plain(dev, d):
+    db, hi, _, queries, _, _, dot_b = _operands(dev, 4096, d, 9, "dot",
+                                                seed=9)
+    codes, scales, stored = _int8_rows(db)
+    tidx = torch.from_numpy(np.random.default_rng(10).integers(
+        0, 4096 // 16, (9, 33))).to(dev)
+    for rows, sc, key in ((hi, None, "refine_dots_bf16"),
+                          (codes, scales, "refine_dots_int8")):
+        before = cuda_kernels.launches[key]
+        got = ck._refine_dots(tidx, queries, rows, 33, sc)
+        want = ck._refine_dots_plain(tidx, queries, rows, 33, sc)
+        torch.cuda.synchronize()
+        assert cuda_kernels.launches[key] == before + 1
+        assert float((got - want).abs().max()) <= dot_b, key
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_controls_break_the_limits(dev, mode):
     """Each limit must reject a kernel that breaks the arithmetic the
@@ -138,16 +214,22 @@ def test_wrappers_check_their_inputs(dev):
             queries.T.contiguous().T, db, 4)
 
 
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8", "f32_big"])
 @pytest.mark.parametrize("metric", list(DistanceMetric))
-def test_store_on_card_matches_store_on_cpu(dev, metric, monkeypatch):
+def test_store_on_card_matches_store_on_cpu(dev, metric, storage,
+                                            monkeypatch):
+    from vectordb_tpu_torch.index import flat
     from vectordb_tpu_torch.ops import topk
     monkeypatch.setattr(topk, "_EXACT1P_MIN_N", 512)
+    if storage == "f32_big":      # past the mirror gate: K4 / K5 serve
+        monkeypatch.setattr(flat, "_MIRROR_MEM_LIMIT", 1000)
     rng = np.random.default_rng(4)
     rows = rng.standard_normal((3000, 128), dtype=np.float32)
     qs = rng.standard_normal((16, 128), dtype=np.float32)
     out = []
     for device in ("cuda", "cpu"):
-        s = VectorStore.with_flat_index(metric, device=device)
+        s = VectorStore.with_flat_index(
+            metric, storage=storage.replace("_big", ""), device=device)
         s.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
                         for i in range(3000)])
         res = s.search_batch([(Vector(q), 10) for q in qs])

@@ -2,7 +2,7 @@
 (convert.store_from_reference) must answer the same: same ids, distances
 at rtol 2e-5 / atol 2e-5, same certified flags — through upserts,
 deletes, filters, radius search, fast mode, an in-flight search, the
-HTTP routes and the CLI.
+HTTP routes and the CLI (with its --storage modes).
 
 The JAX side runs as its own tests run it on the CPU: Pallas in interpret
 mode and the 1-pass tier's capacity gate lowered to 512 rows
@@ -22,6 +22,7 @@ import torch
 import jax.numpy as jnp
 
 import vectordb_tpu as J
+from vectordb_tpu.index import flat as jflat
 from vectordb_tpu.ops import coarse_kernel as jck
 from vectordb_tpu.ops import topk as jtopk
 from vectordb_tpu.server import test_api as jax_test_api
@@ -322,9 +323,36 @@ def test_cli_in_memory_verbs(capsys):
     assert cli.main(["--device", "cpu", "list"]) == 0
 
 
+@pytest.mark.parametrize("storage", ["bf16", "int8"])
+def test_cli_storage_insert_then_search(storage, monkeypatch, capsys):
+    made = []
+    real = cli.VectorStore.with_flat_index
+
+    def capture(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+    monkeypatch.setattr(cli.VectorStore, "with_flat_index", capture)
+    assert cli.main(["--device", "cpu", "--storage", storage, "insert", "a",
+                     "--vector", "1.1,2.3,3.7"]) == 0
+    assert "Inserted vector with ID: a" in capsys.readouterr().out
+    store = made[-1]
+    assert store.index.storage == storage
+    store.insert("b", T.Vector([9.0, 9.0, 9.0]))
+    args = cli.build_parser().parse_args(
+        ["--device", "cpu", "--storage", storage, "search", "1.1,2.3,3.7"])
+    assert cli._run_commands(store, args) == 0
+    out = capsys.readouterr().out
+    assert "Top 2 results:" in out and "1. a (distance:" in out
+    stored = store.get("a").as_array()
+    want = {"bf16": jflat._quantize_bf16,
+            "int8": jflat._quantize_int8}[storage](
+        np.array([1.1, 2.3, 3.7], np.float32))
+    np.testing.assert_array_equal(stored, want)
+
+
 @pytest.mark.parametrize("argv", [
     ["--data-dir", "d", "list"], ["--index", "hnsw", "list"],
-    ["--storage", "bf16", "list"], ["serve", "--durable-dir", "d"],
+    ["--index", "ivf", "list"], ["serve", "--durable-dir", "d"],
     ["serve", "--http", "native"], ["serve", "--batch-window-ms", "2"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert cli.main(["--device", "cpu", *argv]) == 1

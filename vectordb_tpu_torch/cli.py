@@ -8,10 +8,12 @@ src/main.rs:10-198):
     "cuda"; asking for CUDA without a card is an error)
   * same user-facing output strings as the reference handlers
 
+  * ``--storage f32|bf16|int8`` picks the flat index's row storage
+
 Refused with a clear error until their slices land (ROADMAP queue 1):
 ``--data-dir`` and ``serve --durable-dir`` (persistence), ``--index``
-other than flat, ``--storage`` other than f32, ``--http native`` and
-``--batch-window-ms`` (native HTTP + batcher).
+other than flat, ``--http native`` and ``--batch-window-ms`` (native
+HTTP + batcher).
 """
 
 from __future__ import annotations
@@ -49,8 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "approximate ids)")
     parser.add_argument("--storage", choices=["f32", "bf16", "int8"],
                         default="f32",
-                        help="Flat-index vector storage (only f32 is "
-                             "ported so far)")
+                        help="Flat-index vector storage: f32 (default) or "
+                             "bf16/int8 (quantized at insert; search is "
+                             "exact over the stored values)")
     parser.add_argument("--device", default="cuda",
                         help="Device for the index's state: cuda (default; "
                              "runs the CUDA kernels), cuda:N, or cpu (plain "
@@ -139,9 +142,6 @@ def _refusal(args) -> Optional[str]:
     if args.index != "flat":
         return (f"--index {args.index} is not ported yet (ROADMAP queue 1); "
                 "use --index flat")
-    if args.storage != "f32":
-        return (f"--storage {args.storage} needs kernels K4-K7 (ROADMAP "
-                "queue 1 item 9)")
     if args.command == "serve":
         if args.durable_dir:
             return ("serve --durable-dir needs the persistence slice "
@@ -165,10 +165,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.command == "serve":
             from .server.app import start_flat
             start_flat(args.addr, metric, search_mode=args.search_mode,
-                       device=args.device)
+                       device=args.device, storage=args.storage)
             return 0
         store = VectorStore.with_flat_index(metric,
                                             search_mode=args.search_mode,
+                                            storage=args.storage,
                                             device=args.device)
         return _run_commands(store, args)
     except (VectorDbError, RuntimeError) as e:

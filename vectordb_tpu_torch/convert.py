@@ -5,7 +5,9 @@ layout from the numpy arrays ``vectordb_tpu`` exports:
 ``FlatIndex.packed_arrays()`` gives (vectors, valid, id_of_slot) and
 ``VectorStore.internal_to_string_ids()`` the id map. Same slots give the
 same candidate tiles, so the two packages' results compare position by
-position. Only numpy crosses over: this module imports no JAX.
+position. Only numpy crosses over: this module imports no JAX, and a bf16
+store's rows (ml_dtypes' bfloat16) are read by their bits, so the port
+needs no ml_dtypes.
 """
 
 from __future__ import annotations
@@ -24,13 +26,16 @@ def store_from_reference(vectors: np.ndarray, valid: np.ndarray,
                          internal_to_string: Dict[int, str],
                          metric: DistanceMetric, device="cuda",
                          search_mode: str = "exact",
-                         metadata: Optional[Dict[int, Dict[str, str]]] = None
-                         ) -> VectorStore:
+                         metadata: Optional[Dict[int, Dict[str, str]]] = None,
+                         storage: str = "f32") -> VectorStore:
     """A port ``VectorStore`` over ``FlatIndex(metric, search_mode,
-    device=device)`` holding the exported rows in their original slots,
-    under their original internal and string ids. ``metadata`` maps
-    internal id -> fields (the JAX store's ``get_metadata`` per id)."""
-    index = FlatIndex(metric, search_mode=search_mode, device=device)
+    storage, device=device)`` holding the exported rows in their original
+    slots, under their original internal and string ids. ``metadata`` maps
+    internal id -> fields (the JAX store's ``get_metadata`` per id).
+    ``storage`` should be the exporting index's own mode: its stored
+    values then pass through unchanged."""
+    index = FlatIndex(metric, search_mode=search_mode, storage=storage,
+                      device=device)
     index.adopt_packed(vectors, valid, id_of_slot)
     live_ids = set(np.asarray(id_of_slot)[np.asarray(valid, bool)].tolist())
     id_map = {int(iid): str(sid) for iid, sid in internal_to_string.items()}

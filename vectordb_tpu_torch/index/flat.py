@@ -1,14 +1,23 @@
 """Exact brute-force k-NN over a packed device matrix.
 
-Port of ``vectordb_tpu/index/flat.py`` for ``storage="f32"`` on one
-device. Capability parity with reference src/flat_index.rs:12-74
+Port of ``vectordb_tpu/index/flat.py`` on one device, with its three
+storage modes. Capability parity with reference src/flat_index.rs:12-74
 (add/remove/search/get_vector/len/iter):
 
-  * rows live in a packed ``f32[capacity, d]`` host matrix mirrored to the
+  * rows live in a packed ``[capacity, d]`` host matrix mirrored to the
     device, with a ``bool[capacity]`` validity mask and precomputed row
     norms; capacity grows by powers of two;
-  * the device state carries bf16 hi/lo mirrors and the residual bound
-    ``elo_max``, so search runs the certified coarse ladder
+  * ``storage="f32"``: the device state carries bf16 hi/lo mirrors and
+    the residual bound ``elo_max``; past ``_MIRROR_MEM_LIMIT`` it keeps
+    the f32 rows alone (``coarse_f32``) and the coarse kernels round
+    them on chip;
+  * ``storage="bf16"``: rows are rounded to bf16 at insert (get_vector
+    returns the stored values); host and device hold 2 bytes per element
+    and the device buffer is its own hi mirror (``elo_max = 0``);
+  * ``storage="int8"``: rows are quantized at insert to int8 codes times
+    a per-row power-of-two scale; the host keeps the f32 stored values,
+    the device 1-byte codes plus a scale per row (``elo_max = 0``);
+  * search runs the certified coarse ladder
     (ops/topk.flat_search_batched_submit) on every device: the plain
     kernel versions on a CPU tensor, the CUDA kernels on a CUDA one;
   * insert/delete patch the device state by scatter; a write that races
@@ -17,8 +26,8 @@ device. Capability parity with reference src/flat_index.rs:12-74
   * ``search_masked`` applies a precompiled metadata mask *before* top-k,
     making filtered search exact.
 
-Not in this slice: ``storage="bf16"/"int8"``, mesh sharding,
-``host_backing`` and progressive hydration (ROADMAP queue 1).
+Not in this slice: mesh sharding, ``host_backing`` and progressive
+hydration (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -48,8 +57,73 @@ _FULL_SYNC_FRACTION = 8
 # Device footprint gate for the f32 rows + bf16 hi/lo mirrors (8 bytes per
 # element), picked for an 80 GB H100: 64 GB leaves room for the query-side
 # temporaries (the K1 tile minima alone are 1.07 GB at N=2^20, Q=4096).
-# A store past it needs the f32-source kernels K4/K5, not yet ported.
+# A store past it keeps the f32 rows alone and runs the f32-source kernels
+# K4/K5 (coarse_f32). Read at each full device build, so a caller may
+# lower it.
 _MIRROR_MEM_LIMIT = 64 * 10 ** 9
+_STORAGES = ("f32", "bf16", "int8")
+_QUANT_CHUNK = 1 << 20   # rows per chunk: bounds f32 temps to ~3 GB @ 768-d
+
+
+def _bf16_bits(arr: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 bit patterns (np.uint16), rounded to nearest even by
+    torch's cast, as the JAX package's ml_dtypes cast rounds."""
+    arr = np.ascontiguousarray(arr, dtype=np.float32)
+    if not arr.flags.writeable:      # torch.from_numpy wants a writable one
+        arr = arr.copy()
+    t = torch.from_numpy(arr).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def _bf16_widen(bits: np.ndarray) -> np.ndarray:
+    """bf16 bit patterns -> the f32 values they hold (exact)."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _quantize_bf16(arr: np.ndarray) -> np.ndarray:
+    """Round-trip f32 -> bf16 -> f32 (the stored value set for
+    storage="bf16"), without ml_dtypes."""
+    return _bf16_widen(_bf16_bits(arr))
+
+
+def _int8_row_scales(mat: np.ndarray) -> np.ndarray:
+    """Per-row POWER-OF-TWO int8 scale: s = 2^ceil(log2(max|row|/127)).
+
+    A pow2 scale makes the scheme exact in f32 arithmetic: code * s is
+    exact, so quantization is idempotent, and the scale is recoverable
+    from a stored row (max|code| lands in (63.5, 127], so max|stored|/127
+    is in (s/2, s] and ceils back to exactly s) — no side table."""
+    mx = np.abs(mat).max(axis=1)
+    mx = np.where(mx > 0.0, mx, np.float32(127.0))  # zero rows -> s = 1
+    return np.exp2(np.ceil(np.log2(mx / np.float32(127.0)))
+                   ).astype(np.float32)
+
+
+def _quantize_int8(arr: np.ndarray) -> np.ndarray:
+    """Round-trip a row/matrix through per-row pow2-scaled int8 (the
+    stored value set for storage="int8"), chunked over rows so the f32
+    temporaries stay bounded."""
+    squeeze = arr.ndim == 1
+    mat = np.atleast_2d(np.asarray(arr, dtype=np.float32))
+    out = np.empty_like(mat)
+    for lo in range(0, mat.shape[0], _QUANT_CHUNK):
+        blk = mat[lo:lo + _QUANT_CHUNK]
+        s = _int8_row_scales(blk)
+        out[lo:lo + _QUANT_CHUNK] = np.round(blk / s[:, None]) * s[:, None]
+    return out[0] if squeeze else out
+
+
+def _int8_codes_scales(rows: np.ndarray):
+    """(int8 codes, f32 pow2 scales) recovered exactly from stored rows."""
+    n = rows.shape[0]
+    codes = np.empty(rows.shape, np.int8)
+    scales = np.empty(n, np.float32)
+    for lo in range(0, n, _QUANT_CHUNK):
+        blk = rows[lo:lo + _QUANT_CHUNK]
+        s = _int8_row_scales(blk)
+        codes[lo:lo + _QUANT_CHUNK] = np.round(blk / s[:, None])
+        scales[lo:lo + _QUANT_CHUNK] = s
+    return codes, scales
 
 
 class SearchBatchHandle:
@@ -119,19 +193,29 @@ class FlatIndex(Index):
     """Exact k-NN via the certified device flat scan."""
 
     def __init__(self, metric: DistanceMetric, search_mode: str = "exact",
-                 device="cuda"):
+                 storage: str = "f32", device="cuda"):
         if search_mode not in ("exact", "fast"):
             raise ValueError(f"unknown search_mode: {search_mode!r}")
+        if storage not in _STORAGES:
+            raise ValueError(f"unknown storage: {storage!r}")
         # "exact": the certified ladder (tiers 1-3). "fast": the 1-pass
         # coarse scan + exact refine (exact distances, approximate ids).
         self.search_mode = search_mode
+        # "bf16"/"int8": rows quantized AT INSERT, search certified-exact
+        # over the stored values (module docstring). bf16 host rows live
+        # as bf16 bit patterns (np.uint16: half the host RAM, and the
+        # device upload is the stored bytes); int8 keeps f32 host rows and
+        # derives codes and scales per sync, as the JAX package does.
+        self.storage = storage
+        self._host_dtype = np.dtype(np.uint16 if storage == "bf16"
+                                    else np.float32)
         self._device_t = prepare_device(device)
         self._metric = metric
         self._dim: Optional[int] = None
         self._capacity = 0
         self._len = 0
         # host-side packed storage (source of truth)
-        self._vectors: Optional[np.ndarray] = None   # f32[capacity, d]
+        self._vectors: Optional[np.ndarray] = None   # host_dtype[cap, d]
         self._valid: Optional[np.ndarray] = None     # bool[capacity]
         self._sq_norms: Optional[np.ndarray] = None  # f32[capacity]
         self._norms: Optional[np.ndarray] = None     # f32[capacity]
@@ -167,6 +251,23 @@ class FlatIndex(Index):
     def slot_of(self, internal_id: int) -> Optional[int]:
         return self._slot_of_id.get(internal_id)
 
+    def _quantize(self, arr: np.ndarray) -> np.ndarray:
+        """The storage mode's insert-time quantization (identity for
+        f32): the f32 values the index will store."""
+        if self.storage == "bf16":
+            return _quantize_bf16(arr)
+        if self.storage == "int8":
+            return _quantize_int8(arr)
+        return arr
+
+    def _host_rows(self, vals: np.ndarray) -> np.ndarray:
+        """Stored f32 values -> the host container's rows."""
+        return _bf16_bits(vals) if self.storage == "bf16" else vals
+
+    def _stored(self, rows: np.ndarray) -> np.ndarray:
+        """Host container rows -> the f32 values they hold."""
+        return _bf16_widen(rows) if self.storage == "bf16" else rows
+
     # -- storage management -------------------------------------------------
 
     def _ensure_storage(self, dim: int, want_rows: int) -> None:
@@ -177,7 +278,7 @@ class FlatIndex(Index):
         if self._capacity >= needed:
             return
         new_cap = next_pow2(needed, floor=_MIN_CAPACITY)
-        new_vectors = np.zeros((new_cap, self._dim), dtype=np.float32)
+        new_vectors = np.zeros((new_cap, self._dim), dtype=self._host_dtype)
         new_valid = np.zeros(new_cap, dtype=bool)
         new_sq = np.zeros(new_cap, dtype=np.float32)
         new_norms = np.zeros(new_cap, dtype=np.float32)
@@ -270,7 +371,8 @@ class FlatIndex(Index):
         slots = np.fromiter((self._take_slot() for _ in range(n)),
                             dtype=np.int64, count=n)
         try:
-            self._vectors[slots] = mat
+            mat = self._quantize(mat)   # norms below see the stored values
+            self._vectors[slots] = self._host_rows(mat)
             sq = np.einsum("ij,ij->i", mat, mat).astype(np.float32)
             self._sq_norms[slots] = sq
             self._norms[slots] = np.sqrt(sq)
@@ -291,10 +393,16 @@ class FlatIndex(Index):
         only): row ``s`` of ``vectors`` lands in slot ``s``, so the same
         slots give the same candidate tiles as the exporting index
         (convert.store_from_reference). The capacity must be a power of
-        two >= 1024, as the index itself allocates it."""
+        two >= 1024, as the index itself allocates it. ``vectors`` are f32
+        rows, or bf16 rows (the JAX package's ml_dtypes bfloat16, or their
+        np.uint16 bit patterns), read by their bits; they pass through
+        this index's quantization (the identity on stored values)."""
         with self._lock:
             if self._len or self._slot_of_id:
                 raise ValueError("adopt_packed requires an empty index")
+            vectors = np.asarray(vectors)
+            if vectors.dtype.itemsize == 2 and vectors.dtype.kind != "f":
+                vectors = _bf16_widen(vectors.view(np.uint16))
             vectors = np.ascontiguousarray(vectors, dtype=np.float32)
             valid = np.ascontiguousarray(valid, dtype=bool)
             id_of_slot = np.ascontiguousarray(id_of_slot, dtype=np.int64)
@@ -313,11 +421,12 @@ class FlatIndex(Index):
                 raise ValueError("live slots need distinct ids >= 0")
             self._dim = dim
             self._capacity = cap
-            self._vectors = vectors.copy()
-            self._vectors[~valid] = 0.0
+            vals = self._quantize(vectors.copy())
+            vals[~valid] = 0.0
+            self._vectors = self._host_rows(vals)
             self._valid = valid.copy()
-            self._sq_norms = np.einsum("ij,ij->i", self._vectors,
-                                       self._vectors).astype(np.float32)
+            self._sq_norms = np.einsum("ij,ij->i", vals,
+                                       vals).astype(np.float32)
             self._norms = np.sqrt(self._sq_norms)
             self._id_of_slot = np.where(valid, id_of_slot, -1)
             self._slot_of_id = dict(zip(ids.tolist(), live.tolist()))
@@ -330,7 +439,8 @@ class FlatIndex(Index):
             self._dirty_slots.clear()
 
     def _write_slot(self, slot: int, internal_id: int, arr: np.ndarray) -> None:
-        self._vectors[slot] = arr
+        arr = self._quantize(arr)   # norms below see the stored values
+        self._vectors[slot] = self._host_rows(arr)
         sq = float(np.dot(arr, arr))
         self._sq_norms[slot] = sq
         self._norms[slot] = math.sqrt(sq)
@@ -369,13 +479,13 @@ class FlatIndex(Index):
             slot = self._slot_of_id.get(internal_id)
             if slot is None:
                 return None
-            return Vector(self._vectors[slot].copy())
+            return Vector(self._stored(self._vectors[slot]))
 
     def iter_items(self) -> Iterator[Tuple[int, Vector]]:
         with self._lock:
             slots = np.nonzero(self._valid)[0] if self._valid is not None else []
-            pairs = [(int(self._id_of_slot[s]), Vector(self._vectors[s].copy()))
-                     for s in slots]
+            pairs = [(int(self._id_of_slot[s]),
+                      Vector(self._stored(self._vectors[s]))) for s in slots]
         return iter(pairs)
 
     # -- device state -------------------------------------------------------
@@ -387,24 +497,44 @@ class FlatIndex(Index):
             self._device_t, copy=True)
 
     def _build_device_full(self) -> dict:
-        """A complete device state from the host arrays: f32 rows, norms,
-        validity, bf16 hi/lo mirrors and the residual bound elo_max."""
-        if self._capacity * self._dim * 8 > _MIRROR_MEM_LIMIT:
-            raise NotImplementedError(
-                f"{self._capacity} x {self._dim} rows with bf16 mirrors "
-                f"exceed the {_MIRROR_MEM_LIMIT} B device gate; larger "
-                "stores need the f32-source kernels K4/K5 (ROADMAP queue 2)")
-        db = self._to_device(self._vectors)
-        hi, lo = coarse_kernel.split_hi_lo(db)
-        return {
-            "db": db,
-            "sq_norms": self._to_device(self._sq_norms),
-            "norms": self._to_device(self._norms),
-            "valid": self._to_device(self._valid),
-            "hi": hi,
-            "lo": lo,
-            "elo_max": coarse_kernel.residual_max_norm(db, hi),
-        }
+        """A complete device state from the host arrays: rows, norms,
+        validity, and what the certified ladder reads for this storage
+        (see the module docstring)."""
+        dev = {"sq_norms": self._to_device(self._sq_norms),
+               "norms": self._to_device(self._norms),
+               "valid": self._to_device(self._valid)}
+        if self.storage == "int8":
+            # host-side requantization (exact: values were pow2-quantized
+            # at insert): 1-byte codes plus a 4-byte scale per row; the
+            # codes cast to bf16 exactly, so no database-side residual
+            codes, scales = _int8_codes_scales(self._vectors)
+            dev.update(db=self._to_device(codes),
+                       scales=self._to_device(scales), int8_storage=True,
+                       elo_max=self._zero())
+        elif self.storage == "bf16":
+            # the stored bytes go up as they are; the db IS its own hi
+            # mirror, certified-exact over the stored values
+            db16 = self._bf16_to_device(self._vectors)
+            dev.update(db=db16, hi=db16, bf16_storage=True,
+                       elo_max=self._zero())
+        elif self._capacity * self._dim * 8 > _MIRROR_MEM_LIMIT:
+            # past the mirror gate: the f32 rows alone; the coarse kernels
+            # round them on chip (K4, K5)
+            db = self._to_device(self._vectors)
+            dev.update(db=db, coarse_f32=True,
+                       elo_max=coarse_kernel.residual_max_norm_f32(db))
+        else:
+            db = self._to_device(self._vectors)
+            hi, lo = coarse_kernel.split_hi_lo(db)
+            dev.update(db=db, hi=hi, lo=lo,
+                       elo_max=coarse_kernel.residual_max_norm(db, hi))
+        return dev
+
+    def _zero(self) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=self._device_t)
+
+    def _bf16_to_device(self, bits: np.ndarray) -> torch.Tensor:
+        return self._to_device(bits.view(np.int16)).view(torch.bfloat16)
 
     def _sync_device(self) -> dict:
         """Bring the device state up to date. Called with the lock held."""
@@ -426,21 +556,33 @@ class FlatIndex(Index):
             else:
                 s_rows, s_vals = scatter_rows, scatter_values
                 s_hl = coarse_kernel.scatter_hi_lo
-            # one host-to-device transfer of the patched rows, shared by
-            # the row scatter, the mirror scatter and the residual bound
-            rows = self._to_device(self._vectors[idx_np])
-            dev["db"] = s_rows(dev["db"], idx, rows)
-            dev["sq_norms"] = s_vals(dev["sq_norms"], idx,
-                                     self._to_device(self._sq_norms[idx_np]))
-            dev["norms"] = s_vals(dev["norms"], idx,
-                                  self._to_device(self._norms[idx_np]))
-            dev["valid"] = s_vals(dev["valid"], idx,
-                                  self._to_device(self._valid[idx_np]))
-            dev["hi"], dev["lo"] = s_hl(dev["hi"], dev["lo"], idx, rows)
-            # patched rows can only RAISE the recorded residual bound
-            # (stale-high is safe: the 1-pass margin just widens)
-            dev["elo_max"] = torch.maximum(
-                dev["elo_max"], coarse_kernel.residual_max_norm_f32(rows))
+            for key, host in (("sq_norms", self._sq_norms),
+                              ("norms", self._norms),
+                              ("valid", self._valid)):
+                dev[key] = s_vals(dev[key], idx,
+                                  self._to_device(host[idx_np]))
+            if self.storage == "int8":
+                # patched rows as codes + scales (1-byte transfer)
+                codes, scales = _int8_codes_scales(self._vectors[idx_np])
+                dev["db"] = s_rows(dev["db"], idx, self._to_device(codes))
+                dev["scales"] = s_vals(dev["scales"], idx,
+                                       self._to_device(scales))
+            elif self.storage == "bf16":
+                # db and hi alias one buffer: both keys track the new one
+                rows16 = self._bf16_to_device(self._vectors[idx_np])
+                dev["db"] = dev["hi"] = s_rows(dev["db"], idx, rows16)
+            else:
+                # one host-to-device transfer of the patched rows, shared
+                # by the row scatter, the mirror scatter and the bound
+                rows = self._to_device(self._vectors[idx_np])
+                dev["db"] = s_rows(dev["db"], idx, rows)
+                if "hi" in dev:
+                    dev["hi"], dev["lo"] = s_hl(dev["hi"], dev["lo"], idx,
+                                                rows)
+                # patched rows can only RAISE the recorded residual bound
+                # (stale-high is safe: the 1-pass margin just widens)
+                dev["elo_max"] = torch.maximum(
+                    dev["elo_max"], coarse_kernel.residual_max_norm_f32(rows))
             self._dirty_slots.clear()
         return self._device
 
@@ -535,16 +677,16 @@ class FlatIndex(Index):
     # -- introspection ------------------------------------------------------
 
     def packed_arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(vectors[capacity,d], valid[capacity], id_of_slot[capacity])
-        host copies."""
+        """(vectors[capacity,d] f32 stored values, valid[capacity],
+        id_of_slot[capacity]) host copies."""
         with self._lock:
             if self._vectors is None:
                 return (np.zeros((0, 0), np.float32), np.zeros(0, bool),
                         np.zeros(0, np.int64))
-            return (self._vectors.copy(), self._valid.copy(),
-                    self._id_of_slot.copy())
+            return (np.array(self._stored(self._vectors), np.float32),
+                    self._valid.copy(), self._id_of_slot.copy())
 
     def __repr__(self) -> str:
         return (f"FlatIndex(metric={self._metric.value}, len={self._len}, "
                 f"dim={self._dim}, capacity={self._capacity}, "
-                f"device={self._device_t})")
+                f"storage={self.storage}, device={self._device_t})")

@@ -1,16 +1,22 @@
 """Certified coarse scan: the flat index's hot path on the GPU.
 
 Port of ``vectordb_tpu/ops/coarse_kernel.py`` (host logic, both
-certificates, and the kernels K1, K2, K3 on the main path). The pipeline
-is the JAX package's, step for step:
+certificates, and the kernels K1-K7). The pipeline is the JAX package's,
+step for step:
 
-  1. one bf16 pass over the hi mirror emits 16-row tile minima and
-     256-row super-tile minima (K1, ``_minima_1p_sup``), or the bf16x3
-     pass emits tile minima only (K3, ``_coarse_minima``);
+  1. one bf16 pass over the database emits 16-row tile minima and
+     256-row super-tile minima (``_minima_1p_sup``: K1 over the hi mirror
+     or a bf16-stored database, K4 over f32 rows rounded on chip, K7 over
+     int8 codes), or the bf16x3 pass emits tile minima only (K3 over the
+     mirrors, ``_coarse_minima``; K5 over f32 rows, ``_coarse_minima_f32``);
   2. a hierarchical exact top-k picks each query's m candidate tiles;
-  3. exact f32 dots over the gathered tiles (K2, ``_refine_dots``);
+  3. exact f32 dots over the gathered tiles (K2, ``_refine_dots``, over
+     f32 rows, bf16 rows or int8 codes times their pow2 scales);
   4. top-k plus a rigorous per-query exactness certificate; uncertified
      queries are re-run by the caller (ops/topk.py) through the next tier.
+The single-pass legacy fast pipeline (``coarse_search(exact=False)``)
+runs K6 (``_coarse_minima_1p``) over the mirrors or K5 at one pass over
+f32 rows.
 
 Each kernel has a plain PyTorch version beside it with the same signature
 and layout. The launchers dispatch on the tensor's device: a CPU tensor
@@ -21,9 +27,11 @@ from a kernel to its plain version.
 Constants that change answers are the JAX package's: ``SUB``, ``SUPER``,
 ``SUPER2``, ``PENALTY``, the margin scales and the pool formulas.
 ``_BLOCK_ROWS`` replaces the TPU's ``_tile_cols`` (a VMEM fact): on Hopper
-one coarse-kernel block owns one 256-row super-tile. ``_QB_MAX``,
-``_VMEM_BUDGET``, ``_REFINE_QBR`` and ``_REFINE_M_CHUNK`` have no
-counterpart: the CUDA kernels take any query count and any m.
+one coarse-kernel block owns one 256-row super-tile, for every d, so the
+JAX package's wide-d fallback inside ``_minima_1p_sup`` has no
+counterpart. ``_QB_MAX``, ``_VMEM_BUDGET``, ``_REFINE_QBR`` and
+``_REFINE_M_CHUNK`` have none either: the CUDA kernels take any query
+count and any m.
 """
 
 from __future__ import annotations
@@ -70,8 +78,17 @@ def supports_1p(capacity: int, d: int, k_eff: int) -> bool:
             and capacity // (SUB * SUPER) >= 2)
 
 
+def supports_1p_int8(capacity: int, d: int, k_eff: int) -> bool:
+    """The int8-source tier's gate. In the JAX package it also needs
+    whole super-tiles per TPU grid step (its wide-d fallback has no int8
+    kernel); on Hopper a coarse block is always one 256-row super-tile,
+    for any d, so this is ``supports_1p``."""
+    return supports_1p(capacity, d, k_eff)
+
+
 def _accum_coeff(t: torch.Tensor) -> float:
-    """Scale of the coarse accumulation term in both certificates.
+    """Scale of the coarse accumulation term in both certificates, keyed
+    on the tensor the coarse kernel read (hi mirror, f32 rows or codes).
 
     The JAX package's margins assume round-to-nearest f32 accumulation.
     The CUDA coarse kernel accumulates on tensor cores with mma.sync,
@@ -85,8 +102,9 @@ def _accum_coeff(t: torch.Tensor) -> float:
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch versions of K1, K3, K2 (same signatures and layouts as the
-# JAX launchers _minima_1p_sup, _coarse_minima, _refine_dots)
+# plain PyTorch versions of K1-K7 and K2 (same signatures and layouts as
+# the JAX launchers _minima_1p_sup, _coarse_minima, _coarse_minima_f32,
+# _coarse_minima_1p, _refine_dots)
 # ---------------------------------------------------------------------------
 
 def _score_plain(dots, qrow, col, inv_col, mode: str):
@@ -108,54 +126,85 @@ def _row_chunk(qp: int) -> int:
                (_PLAIN_ELEMS // max(qp, 1)) // _BLOCK_ROWS * _BLOCK_ROWS)
 
 
-def _tile_minima_plain(passes: int, qThi, qTlo, qrow, hi, lo, col, inv_col,
-                       mode: str):
-    """(N/16, Qp) tile minima. bf16 operands are widened to f32 BEFORE the
-    matmul (torch's bf16 matmul would round its output to bf16); the
-    products are then exact and only the summation order differs from
-    the kernels'."""
+def _tile_minima_plain(passes: int, qThi, qTlo, qrow, db, db_lo, col,
+                       inv_col, mode: str, src: str = "mirrors",
+                       scales=None):
+    """(N/16, Qp) tile minima. ``src``: "mirrors" (``db`` the bf16 hi
+    mirror, ``db_lo`` the lo one), "f32" (``db`` the f32 rows, split
+    here by round to nearest even, as the kernel splits them) or "int8"
+    (``db`` the codes, exact in bf16; each dot times its row's scale in
+    ``scales`` (1, N)). bf16 operands are widened to f32 BEFORE the matmul
+    (torch's bf16 matmul would round its output to bf16); the products are
+    then exact and only the summation order differs from the kernels'."""
     qp = qThi.shape[1]
     qhi = qThi.float()
     qlo = qTlo.float() if passes == 3 else None
     step = _row_chunk(qp)
     parts = []
-    for r0 in range(0, hi.shape[0], step):
-        h = hi[r0:r0 + step].float()
+    for r0 in range(0, db.shape[0], step):
+        x = db[r0:r0 + step]
+        h = x.to(torch.bfloat16).float() if src == "f32" else x.float()
         dots = h @ qhi
         if passes == 3:
-            dots = dots + lo[r0:r0 + step].float() @ qhi
+            lo = ((x - h).to(torch.bfloat16) if src == "f32"
+                  else db_lo[r0:r0 + step])
+            dots = dots + lo.float() @ qhi
             dots = dots + h @ qlo
+        if scales is not None:
+            dots = dots * scales[:, r0:r0 + step].reshape(-1, 1)
         score = _score_plain(dots, qrow, col[:, r0:r0 + step],
                              inv_col[:, r0:r0 + step], mode)
         parts.append(score.reshape(-1, SUB, qp).amin(dim=1))
     return torch.cat(parts, dim=0)
 
 
-def _minima_1p_sup_plain(qThi, qrow, db_hi, col, inv_col, mode: str):
-    """Plain K1: (tile minima (T, Qp), super minima (T2, Qp))."""
-    tile_tq = _tile_minima_plain(1, qThi, None, qrow, db_hi, None, col,
-                                 inv_col, mode)
+def _minima_1p_sup_plain(qThi, qrow, dbarr, col, inv_col, mode: str,
+                         src: str = "mirrors", scales=None):
+    """Plain K1 (src "mirrors"), K4 ("f32"), K7 ("int8"): (tile minima
+    (T, Qp), super minima (T2, Qp))."""
+    tile_tq = _tile_minima_plain(1, qThi, None, qrow, dbarr, None, col,
+                                 inv_col, mode, src, scales)
     qp = qThi.shape[1]
     return tile_tq, tile_tq.reshape(-1, SUPER, qp).amin(dim=1)
 
 
 def _coarse_minima_plain(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col,
                          passes: int, mode: str):
-    """Plain K3: (Qp, T) tile minima, 3 passes (bf16x3) or 1."""
+    """Plain K3: (Qp, T) tile minima over the mirrors, 3 passes (bf16x3)
+    or 1."""
     return _tile_minima_plain(passes, qThi, qTlo, qrow, db_hi, db_lo, col,
                               inv_col, mode).T.contiguous()
 
 
-def _refine_dots_plain(tile_idx, queries, db, m: int):
+def _coarse_minima_f32_plain(qThi, qTlo, qrow, db, col, inv_col,
+                             passes: int, mode: str):
+    """Plain K5: (Qp, T) tile minima over f32 rows, 3 passes or 1."""
+    return _tile_minima_plain(passes, qThi, qTlo, qrow, db, None, col,
+                              inv_col, mode, "f32").T.contiguous()
+
+
+def _coarse_minima_1p_plain(qThi, qrow, db_hi, col, inv_col, mode: str):
+    """Plain K6: (Qp, T) tile minima, one bf16 pass over the hi mirror."""
+    return _tile_minima_plain(1, qThi, None, qrow, db_hi, None, col,
+                              inv_col, mode).T.contiguous()
+
+
+def _refine_dots_plain(tile_idx, queries, db, m: int, scales=None):
     """Plain K2: (Qp, m*SUB) f32 dots of each query with the rows of its
-    m selected tiles (gathered, then one batched f32 product)."""
+    m selected tiles (gathered, widened exactly to f32, then one batched
+    f32 product); with int8 codes, the dots times the rows' pow2
+    ``scales`` (N,)."""
     qp, d = queries.shape
     db3 = db.reshape(-1, SUB, d)
     step = max(1, _PLAIN_ELEMS // max(m * SUB * d, 1))
     parts = []
     for q0 in range(0, qp, step):
-        rows = db3[tile_idx[q0:q0 + step]].reshape(-1, m * SUB, d)
-        parts.append(torch.bmm(rows, queries[q0:q0 + step, :, None])[..., 0])
+        t_i = tile_idx[q0:q0 + step]
+        rows = db3[t_i].reshape(-1, m * SUB, d).float()
+        dots = torch.bmm(rows, queries[q0:q0 + step, :, None])[..., 0]
+        if scales is not None:
+            dots = dots * scales.reshape(-1, SUB)[t_i].reshape(-1, m * SUB)
+        parts.append(dots)
     return torch.cat(parts, dim=0)
 
 
@@ -163,17 +212,28 @@ def _refine_dots_plain(tile_idx, queries, db, m: int):
 # launchers: plain version for CPU tensors, the CUDA kernel for CUDA ones
 # ---------------------------------------------------------------------------
 
-def _minima_1p_sup(qThi, qrow, db_hi, col, inv_col, mode: str):
-    """K1: (tile minima (T, Qp), super minima (T2, Qp)) in one pass."""
-    if db_hi.is_cuda:
-        return cuda_kernels.coarse_minima_1p_sup(qThi, qrow, db_hi, col,
+def _minima_1p_sup(qThi, qrow, dbarr, col, inv_col, mode: str,
+                   src: str = "mirrors", scales=None):
+    """(tile minima (T, Qp), super minima (T2, Qp)) in one pass. ``dbarr``
+    is the bf16 hi mirror or bf16-stored database (src "mirrors": K1),
+    the f32 rows ("f32": K4) or the int8 codes ("int8": K7, with the
+    per-row pow2 ``scales`` as (1, N))."""
+    if dbarr.is_cuda:
+        if src == "f32":
+            return cuda_kernels.coarse_minima_f32_1p_sup(qThi, qrow, dbarr,
+                                                         col, inv_col, mode)
+        if src == "int8":
+            return cuda_kernels.coarse_minima_int8_1p_sup(
+                qThi, qrow, dbarr, scales, col, inv_col, mode)
+        return cuda_kernels.coarse_minima_1p_sup(qThi, qrow, dbarr, col,
                                                  inv_col, mode)
-    return _minima_1p_sup_plain(qThi, qrow, db_hi, col, inv_col, mode)
+    return _minima_1p_sup_plain(qThi, qrow, dbarr, col, inv_col, mode, src,
+                                scales)
 
 
 def _coarse_minima(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col,
                    passes: int, mode: str):
-    """K3: (Qp, T) coarse tile minima."""
+    """K3: (Qp, T) coarse tile minima over the mirrors."""
     if db_hi.is_cuda:
         return cuda_kernels.coarse_minima(
             qThi, qTlo, qrow, db_hi, db_lo, col, inv_col, passes,
@@ -182,11 +242,29 @@ def _coarse_minima(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col,
                                 inv_col, passes, mode)
 
 
-def _refine_dots(tile_idx, queries, db, m: int):
+def _coarse_minima_f32(qThi, qTlo, qrow, db, col, inv_col, passes: int,
+                       mode: str):
+    """K5: (Qp, T) coarse tile minima streaming the f32 rows."""
+    if db.is_cuda:
+        return cuda_kernels.coarse_minima_f32(
+            qThi, qTlo, qrow, db, col, inv_col, passes, mode).T.contiguous()
+    return _coarse_minima_f32_plain(qThi, qTlo, qrow, db, col, inv_col,
+                                    passes, mode)
+
+
+def _coarse_minima_1p(qThi, qrow, db_hi, col, inv_col, mode: str):
+    """K6: (Qp, T) single-pass coarse tile minima over the hi mirror."""
+    if db_hi.is_cuda:
+        return cuda_kernels.coarse_minima_1p(qThi, qrow, db_hi, col,
+                                             inv_col, mode).T.contiguous()
+    return _coarse_minima_1p_plain(qThi, qrow, db_hi, col, inv_col, mode)
+
+
+def _refine_dots(tile_idx, queries, db, m: int, scales=None):
     """K2: (Qp, m*SUB) exact f32 candidate dots."""
     if db.is_cuda:
-        return cuda_kernels.refine_dots(tile_idx, queries, db, m)
-    return _refine_dots_plain(tile_idx, queries, db, m)
+        return cuda_kernels.refine_dots(tile_idx, queries, db, m, scales)
+    return _refine_dots_plain(tile_idx, queries, db, m, scales)
 
 
 # ---------------------------------------------------------------------------
@@ -274,15 +352,20 @@ def _candidates(tile_idx):
 
 
 def _refine_topk(tile_idx, queries, qsq, qn, db, db_sq, db_norms, valid,
-                 mode: str, m: int, k: int):
+                 mode: str, m: int, k: int, scales=None):
     """Exact f32 re-rank of each query's m candidate tiles.
+
+    ``scales`` (int8 storage only): per-row pow2 scale vector. The dot
+    runs over the raw integer codes and the scale multiplies the finished
+    dot — bit-identical to dotting the dequantized rows, because a pow2
+    multiply only shifts exponents.
 
     Returns (sk, pos, w): the k best refined scores ascending, their
     positions within the (m*SUB) candidate pool, and the refined minimum
     of the LAST (m-th) tile (the bf16x3 certificate's boundary term)."""
     qp = queries.shape[0]
     t_all = db.shape[0] // SUB
-    dots = _refine_dots(tile_idx, queries, db, m)
+    dots = _refine_dots(tile_idx, queries, db, m, scales)
     vld = valid.reshape(t_all, SUB)[tile_idx].reshape(qp, m * SUB)
     if mode == "euclidean":
         sq = db_sq.reshape(t_all, SUB)[tile_idx].reshape(qp, m * SUB)
@@ -322,6 +405,24 @@ def _xnmin(db_norms, valid):
                        float("inf")).min()
 
 
+def _dispatch_src(db, db_hi, scales):
+    """(src, array the coarse kernel reads): int8 codes (scales given),
+    a bf16-stored database (its own hi mirror), an explicit hi mirror, or
+    the f32 rows (split on chip). The JAX package's ladder; its "bf16"
+    source runs the mirrors kernel over ``db``, as here."""
+    if scales is not None:
+        if db.dtype != torch.int8:
+            raise ValueError("scales= requires an int8 code matrix")
+        return "int8", db
+    if db.dtype == torch.int8:
+        raise ValueError("int8 code matrix requires scales=")
+    if db.dtype == torch.bfloat16 and (db_hi is None or db_hi is db):
+        return "mirrors", db
+    if db_hi is not None:
+        return "mirrors", db_hi
+    return "f32", db
+
+
 # ---------------------------------------------------------------------------
 # 1-pass certified exact pipeline (tier 1) and 1-pass fast mode
 # ---------------------------------------------------------------------------
@@ -347,16 +448,19 @@ def _fast1p_pool(k: int, t_all: int) -> tuple[int, int]:
     return m2, min(m, m2 * SUPER)
 
 
-def _coarse_search_1p(queries, db, db_sq, db_norms, valid, db_hi, elo_max,
-                      mode: str, k: int, m2: int, m: int, with_cert: bool):
+def _coarse_search_1p(queries, db, db_sq, db_norms, valid, src, src_arr,
+                      elo_max, mode: str, k: int, m2: int, m: int,
+                      with_cert: bool, scales=None):
     qp, d = queries.shape
     t_all = db.shape[0] // SUB
     qThi, qlo, qsq, qn, qrow, col, inv_col = _query_terms(
         queries, db_sq, db_norms, valid, mode)
-    tile_tq, sup_tq = _minima_1p_sup(qThi, qrow, db_hi, col, inv_col, mode)
+    tile_tq, sup_tq = _minima_1p_sup(
+        qThi, qrow, src_arr, col, inv_col, mode, src,
+        None if scales is None else scales.reshape(1, -1))
     tile_idx, b = _select_tiles_1p(tile_tq, sup_tq, qp, t_all, m2, m)
     sk, pos, _ = _refine_topk(tile_idx, queries, qsq, qn, db, db_sq,
-                              db_norms, valid, mode, m, k)
+                              db_norms, valid, mode, m, k, scales)
     idx_out = torch.gather(_candidates(tile_idx), 1, pos)
     dists = _scores_to_dists(sk, mode)
     if not with_cert:
@@ -369,7 +473,7 @@ def _coarse_search_1p(queries, db, db_sq, db_norms, valid, db_hi, elo_max,
     # one term; _accum_coeff doubles it for tensor-core coarse results.
     qlo_n = torch.sqrt((qlo * qlo).sum(dim=0))                  # (Qp,)
     xmax = _xmax(db_sq, valid)
-    acc = 4.0 * _accum_coeff(db_hi)
+    acc = 4.0 * _accum_coeff(src_arr)
     err_dot = (elo_max * (qn + qlo_n) + xmax * qlo_n
                + acc * d * 2.0 ** -24 * (xmax + elo_max) * (qn + qlo_n))
     if mode == "euclidean":
@@ -396,74 +500,100 @@ def _coarse_search_1p(queries, db, db_sq, db_norms, valid, db_hi, elo_max,
 
 
 def coarse_search_1p(queries, db, db_sq, db_norms, valid, db_hi, elo_max,
-                     metric: DistanceMetric, k: int):
+                     metric: DistanceMetric, k: int, scales=None):
     """1-pass certified-exact search: (dists, idx, certified).
 
     ``elo_max`` is an upper bound on max_r |row_r - bf16(row_r)| (the
     index maintains it; stale-high is safe — the margin only widens).
-    Uncertified queries must be re-run by the caller through the next
-    exact tier. ``db_hi`` is the bf16 hi mirror; streaming the f32
-    database instead needs kernel K4, not yet ported."""
-    if db_hi is None:
-        raise NotImplementedError(
-            "coarse search without a bf16 mirror needs kernel K4 "
-            "(ROADMAP queue 2)")
+    With ``db_hi is None`` the f32-source kernel K4 streams the f32 rows
+    and rounds them on chip; a bf16 ``db`` is its own hi mirror. With
+    ``scales`` given (int8 storage), ``db`` is the int8 code matrix and
+    K7 searches the stored values code * pow2-scale exactly (pass
+    elo_max = 0). Uncertified queries must be re-run by the caller
+    through the next exact tier."""
+    src, src_arr = _dispatch_src(db, db_hi, scales)
     m2, m = _exact1p_pool(k, db.shape[0] // SUB)
-    return _coarse_search_1p(queries, db, db_sq, db_norms, valid, db_hi,
-                             elo_max, _metric_mode(metric.value), int(k),
-                             m2, m, True)
+    return _coarse_search_1p(queries, db, db_sq, db_norms, valid, src,
+                             src_arr, elo_max, _metric_mode(metric.value),
+                             int(k), m2, m, True, scales)
 
 
 def coarse_search_1p_fast(queries, db, db_sq, db_norms, valid, db_hi,
                           metric: DistanceMetric, k: int):
     """1-pass FAST search: (dists, idx) — approximate ids (exact top-m
     tile selection over single-bf16-pass coarse scores), exact distances
-    over the refined pool, no certificate."""
-    if db_hi is None:
-        raise NotImplementedError(
-            "coarse search without a bf16 mirror needs kernel K4 "
-            "(ROADMAP queue 2)")
+    over the refined pool, no certificate. Same source dispatch as
+    coarse_search_1p minus int8 (int8 storage always serves the certified
+    tier — it is already a single pass)."""
+    if db.dtype == torch.int8:
+        raise ValueError(
+            "int8 codes serve the certified tier (coarse_search_1p with "
+            "scales=) — it is already a single pass")
+    src, src_arr = _dispatch_src(db, db_hi, None)
     m2, m = _fast1p_pool(k, db.shape[0] // SUB)
     dists, idx, _ = _coarse_search_1p(
-        queries, db, db_sq, db_norms, valid, db_hi, 0.0,
+        queries, db, db_sq, db_norms, valid, src, src_arr, 0.0,
         _metric_mode(metric.value), int(k), m2, m, False)
     return dists, idx
 
 
 # ---------------------------------------------------------------------------
-# bf16x3 certified pipeline (tier 2)
+# bf16x3 certified pipeline (tier 2) and the single-pass legacy fast one
 # ---------------------------------------------------------------------------
 
 def coarse_search(queries, db, db_sq, db_norms, valid, db_hi, db_lo,
-                  metric: DistanceMetric, k: int):
-    """bf16x3 certified search: (dists (Q,k) asc, idx (Q,k), certified
-    (Q,) bool). The JAX package's ``exact=False`` single-pass variant has
-    no counterpart: the port's fast mode is coarse_search_1p_fast."""
-    if db_hi is None or db_lo is None:
-        raise NotImplementedError(
-            "coarse search without bf16 hi/lo mirrors needs kernel K5 "
-            "(ROADMAP queue 2)")
+                  metric: DistanceMetric, k: int, exact: bool = True):
+    """(dists (Q,k) asc, idx (Q,k), certified (Q,) bool).
+
+    ``exact=True`` runs the bf16x3 certified pipeline (K3 over the
+    mirrors, or K5 at 3 passes over the f32 rows when ``db_hi is None``);
+    ``exact=False`` the single-pass legacy fast pipeline (K6 over the hi
+    mirror, or K5 at 1 pass), whose certified output is all False. The
+    JAX package's fast variant selects tiles with ``approx_min_k``; the
+    port selects them exactly, so its recall is no lower."""
     mode = _metric_mode(metric.value)
     d = queries.shape[1]
     t = db.shape[0] // SUB
-    slack = max(6, int(1.5 * (SUB * int(k)) ** 0.5) + 1)
-    m_tiles = min(max(16, int(k) + slack), t)
+    if exact:
+        # order-statistics cushion (the bf16x3 margin is tiny, so a
+        # ~1.5x-sqrt slack suffices; uncertified queries still fall back)
+        slack = max(6, int(1.5 * (SUB * int(k)) ** 0.5) + 1)
+        m_tiles = min(max(16, int(k) + slack), t)
+        if db_hi is not None and db_lo is None:
+            # bf16 storage has no lo mirror: lo = hi would double-count
+            # hi.qhi under a certificate that still passes
+            raise ValueError("the bf16x3 pipeline needs a lo mirror")
+    else:
+        slack = max(2, int((SUB * int(k)) ** 0.5))
+        m_tiles = min(max(12, int(k) + slack), t)
     qThi, qlo, qsq, qn, qrow, col, inv_col = _query_terms(
         queries, db_sq, db_norms, valid, mode)
     qTlo = qlo.to(torch.bfloat16)
-    minima = _coarse_minima(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col, 3,
-                            mode)
+    if db_hi is None:
+        read = db
+        minima = _coarse_minima_f32(qThi, qTlo, qrow, db, col, inv_col,
+                                    3 if exact else 1, mode)
+    elif exact:
+        read = db_hi
+        minima = _coarse_minima(qThi, qTlo, qrow, db_hi, db_lo, col,
+                                inv_col, 3, mode)
+    else:
+        read = db_hi
+        minima = _coarse_minima_1p(qThi, qrow, db_hi, col, inv_col, mode)
     # the certificate's proof needs the TRUE m best tiles: exact top-k
     tile_idx = torch.topk(minima, m_tiles, dim=1, largest=False)[1]
     sk, pos, w = _refine_topk(tile_idx, queries, qsq, qn, db, db_sq,
                               db_norms, valid, mode, m_tiles, int(k))
     idx_out = torch.gather(_candidates(tile_idx), 1, pos)
     dists = _scores_to_dists(sk, mode)
+    if not exact:
+        return dists, idx_out, torch.zeros(qsq.shape[0], dtype=torch.bool,
+                                           device=queries.device)
 
     # per-query certification (bf16x3): non-selected tiles' true minima
     # >= (m-th tile's refined min) - margin. The d·2^-24 accumulation term
     # is doubled for tensor-core coarse results (_accum_coeff).
-    eps = 2.0 ** -17 + _accum_coeff(db_hi) * d * 2.0 ** -24
+    eps = 2.0 ** -17 + _accum_coeff(read) * d * 2.0 ** -24
     xmax = _xmax(db_sq, valid)
     if mode == "euclidean":
         margin = 8.0 * eps * qn * xmax                  # d2 error x2, safety 2
@@ -502,7 +632,8 @@ def residual_max_norm(db: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 
 
 def residual_max_norm_f32(db: torch.Tensor) -> torch.Tensor:
-    """residual_max_norm with the bf16 split done on the fly."""
+    """residual_max_norm with the bf16 split done on the fly (the
+    f32-source store keeps no hi mirror)."""
     return residual_max_norm(db, db.to(torch.bfloat16))
 
 
@@ -519,5 +650,5 @@ def scatter_hi_lo_copy(hi, lo, idx, rows_f32):
 
 __all__ = ["coarse_search", "coarse_search_1p", "coarse_search_1p_fast",
            "split_hi_lo", "scatter_hi_lo", "scatter_hi_lo_copy", "supports",
-           "supports_1p", "residual_max_norm", "residual_max_norm_f32",
-           "SUB", "SUPER", "MAX_K", "PENALTY"]
+           "supports_1p", "supports_1p_int8", "residual_max_norm",
+           "residual_max_norm_f32", "SUB", "SUPER", "MAX_K", "PENALTY"]

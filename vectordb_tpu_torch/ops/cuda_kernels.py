@@ -11,9 +11,14 @@ outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
 raises if the C function reports a CUDA error, and adds one to its entry
 of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
 
-    K1  coarse_minima_1p_sup  csrc/coarse_minima.cu  PASSES=1, EMIT_SUPER
-    K3  coarse_minima         csrc/coarse_minima.cu  PASSES=3 or 1
-    K2  refine_dots           csrc/refine_dots.cu
+    K1  coarse_minima_1p_sup       coarse_minima.cu  mirrors, 1 pass, super
+    K3  coarse_minima              coarse_minima.cu  mirrors, 3 or 1 passes
+    K4  coarse_minima_f32_1p_sup   coarse_minima.cu  f32, 1 pass, super
+    K5  coarse_minima_f32          coarse_minima.cu  f32, 3 or 1 passes
+    K6  coarse_minima_1p           coarse_minima.cu  mirrors, 1 pass
+    K7  coarse_minima_int8_1p_sup  coarse_minima.cu  int8, 1 pass, super
+    K2  refine_dots                refine_dots.cu    f32, bf16 or int8 rows
+        (launch keys refine_dots, refine_dots_bf16, refine_dots_int8)
 """
 
 from __future__ import annotations
@@ -35,11 +40,21 @@ _ROWS_PER_BLOCK = SUB * SUPER          # coarse kernel: one super-tile
 _REFINE_QPB = 4                        # refine kernel: queries per block
 _MAX_SMEM = 227 * 1024                 # Hopper per-block shared memory
 _MODES = {"euclidean": 0, "dot": 1, "cosine": 2}
+# coarse source: (C code, row dtype)
+_COARSE_SRC = {"mirrors": (0, torch.bfloat16), "f32": (1, torch.float32),
+               "int8": (2, torch.int8)}
+# refine source by row dtype: (C code, launch key)
+_REFINE_SRC = {torch.float32: (0, "refine_dots"),
+               torch.bfloat16: (1, "refine_dots_bf16"),
+               torch.int8: (2, "refine_dots_int8")}
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = ("coarse_minima.cu", "refine_dots.cu")
 _ARCH = "arch=compute_90a,code=sm_90a"
 
-launches = {"coarse_minima_1p_sup": 0, "coarse_minima": 0, "refine_dots": 0}
+launches = {"coarse_minima_1p_sup": 0, "coarse_minima": 0,
+            "coarse_minima_f32_1p_sup": 0, "coarse_minima_f32": 0,
+            "coarse_minima_1p": 0, "coarse_minima_int8_1p_sup": 0,
+            "refine_dots": 0, "refine_dots_bf16": 0, "refine_dots_int8": 0}
 # build facts of the loaded library (path, seconds, compiler output)
 build_info: dict = {}
 
@@ -59,9 +74,17 @@ def _nvcc() -> str:
     return path
 
 
+def _compile(src: Path, obj: Path) -> subprocess.Popen:
+    return subprocess.Popen(
+        [_nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-Xcompiler",
+         "-fPIC", "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash) and load the kernel library. Each
+    source compiles in its own nvcc process, all started together."""
     srcs = [_PKG / "csrc" / name for name in _SOURCES]
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs))
     build = _PKG / "_build"
@@ -69,23 +92,31 @@ def _lib() -> ctypes.CDLL:
     so = build / f"libvdb_kernels_{digest.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not so.exists():
-        tmp = build / f".{so.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-               *map(str, srcs)]
+        tag = f"{os.getpid()}.tmp"
+        objs = [build / f".{p.stem}.{tag}.o" for p in srcs]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [_compile(p, o) for p, o in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        tmp = build / f".{so.name}.{tag}"
+        proc = subprocess.run(
+            [_nvcc(), "-gencode", _ARCH, "-shared", "-o", str(tmp),
+             *map(str, objs)], capture_output=True, text=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        log += proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.vdb_coarse_minima.argtypes = [p, p, p, p, p, p, p, p, p, l, i, i, i,
-                                      i, i, p]
+    lib.vdb_coarse_minima.argtypes = [p, p, p, p, p, p, p, p, p, p, l, i, i,
+                                      i, i, i, i, p]
     lib.vdb_coarse_minima.restype = i
-    lib.vdb_refine_dots.argtypes = [p, p, p, p, i, i, i, p]
+    lib.vdb_refine_dots.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.vdb_refine_dots.restype = i
     build_info.update(path=str(so), seconds=seconds, log=log)
     return lib
@@ -118,11 +149,11 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _coarse(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col, mode: str,
-            passes: int, emit_super: bool):
+def _coarse(src: str, qThi, qTlo, qrow, db, db_lo, scales, col, inv_col,
+            mode: str, passes: int, emit_super: bool):
     d, qp = qThi.shape
-    n = db_hi.shape[0]
-    dev = db_hi.device
+    n = db.shape[0]
+    dev = db.device
     if dev.type != "cuda":
         raise ValueError(f"coarse kernel needs CUDA tensors, got {dev}")
     if n % _ROWS_PER_BLOCK or n == 0:
@@ -131,51 +162,96 @@ def _coarse(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col, mode: str,
     if passes not in (1, 3) or (passes == 3 and emit_super):
         raise ValueError(f"unsupported passes={passes}, "
                          f"emit_super={emit_super}")
+    code, row_dtype = _COARSE_SRC[src]
     bf, f32 = torch.bfloat16, torch.float32
     _check("qThi", qThi, bf, (d, qp), dev)
     _check("qrow", qrow, f32, (1, qp), dev)
-    _check("db_hi", db_hi, bf, (n, d), dev)
+    _check("db", db, row_dtype, (n, d), dev)
     _check("col", col, f32, (1, n), dev)
     _check("inv_col", inv_col, f32, (1, n), dev)
     if passes == 3:
         _check("qTlo", qTlo, bf, (d, qp), dev)
-        _check("db_lo", db_lo, bf, (n, d), dev)
+        if src == "mirrors":
+            _check("db_lo", db_lo, bf, (n, d), dev)
+    if src == "int8":
+        _check("scales", scales, f32, (1, n), dev)
     tile = torch.empty((n // SUB, qp), dtype=f32, device=dev)
     sup = (torch.empty((n // _ROWS_PER_BLOCK, qp), dtype=f32, device=dev)
            if emit_super else None)
-    lo_q = qTlo if passes == 3 else qThi
-    lo_db = db_lo if passes == 3 else db_hi
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     rc = _lib().vdb_coarse_minima(
-        qThi.data_ptr(), lo_q.data_ptr(), qrow.data_ptr(), db_hi.data_ptr(),
-        lo_db.data_ptr(), col.data_ptr(), inv_col.data_ptr(),
-        tile.data_ptr(), sup.data_ptr() if sup is not None else None,
-        n, d, qp, _MODES[mode], passes, int(emit_super), _stream(dev))
+        qThi.data_ptr(), ptr(qTlo if passes == 3 else None), qrow.data_ptr(),
+        db.data_ptr(), ptr(db_lo if passes == 3 else None), ptr(scales),
+        col.data_ptr(), inv_col.data_ptr(), tile.data_ptr(), ptr(sup), n, d,
+        qp, _MODES[mode], code, passes, int(emit_super), _stream(dev))
     _raise_on(rc, "coarse_minima")
     return tile, sup
 
 
 def coarse_minima_1p_sup(qThi, qrow, db_hi, col, inv_col, mode: str):
-    """K1: one bf16 pass -> (tile minima (N/16, Qp), super minima
-    (N/256, Qp)) f32, tile-major, as vectordb_tpu's _minima_1p_sup."""
-    out = _coarse(qThi, None, qrow, db_hi, None, col, inv_col, mode, 1,
-                  True)
+    """K1: one bf16 pass over the hi mirror (or a bf16-stored database)
+    -> (tile minima (N/16, Qp), super minima (N/256, Qp)) f32, tile-major,
+    as vectordb_tpu's _minima_1p_sup."""
+    out = _coarse("mirrors", qThi, None, qrow, db_hi, None, None, col,
+                  inv_col, mode, 1, True)
     launches["coarse_minima_1p_sup"] += 1
     return out
 
 
 def coarse_minima(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col,
                   passes: int, mode: str):
-    """K3: bf16x3 (passes=3) or one bf16 pass -> tile minima
-    (N/16, Qp) f32, tile-major (the caller transposes)."""
-    tile, _ = _coarse(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col, mode,
-                      passes, False)
+    """K3: bf16x3 (passes=3) or one bf16 pass over the hi/lo mirrors ->
+    tile minima (N/16, Qp) f32, tile-major (the caller transposes)."""
+    tile, _ = _coarse("mirrors", qThi, qTlo, qrow, db_hi, db_lo, None, col,
+                      inv_col, mode, passes, False)
     launches["coarse_minima"] += 1
     return tile
 
 
-def refine_dots(tile_idx, queries, db, m: int):
+def coarse_minima_f32_1p_sup(qThi, qrow, db, col, inv_col, mode: str):
+    """K4: K1 over the f32 rows, rounded to bf16 on chip -> (tile minima,
+    super minima), as _minima_1p_sup(src="f32")."""
+    out = _coarse("f32", qThi, None, qrow, db, None, None, col, inv_col,
+                  mode, 1, True)
+    launches["coarse_minima_f32_1p_sup"] += 1
+    return out
+
+
+def coarse_minima_f32(qThi, qTlo, qrow, db, col, inv_col, passes: int,
+                      mode: str):
+    """K5: K3 over the f32 rows, hi/lo split on chip -> tile minima
+    (N/16, Qp), tile-major (the caller transposes)."""
+    tile, _ = _coarse("f32", qThi, qTlo, qrow, db, None, None, col, inv_col,
+                      mode, passes, False)
+    launches["coarse_minima_f32"] += 1
+    return tile
+
+
+def coarse_minima_1p(qThi, qrow, db_hi, col, inv_col, mode: str):
+    """K6: one bf16 pass over the hi mirror, tile minima only (N/16, Qp),
+    tile-major, as _coarse_minima_1p_tq."""
+    tile, _ = _coarse("mirrors", qThi, None, qrow, db_hi, None, None, col,
+                      inv_col, mode, 1, False)
+    launches["coarse_minima_1p"] += 1
+    return tile
+
+
+def coarse_minima_int8_1p_sup(qThi, qrow, codes, scales, col, inv_col,
+                              mode: str):
+    """K7: K1 over int8 codes (cast exactly to bf16), each dot times its
+    row's pow2 scale ``scales`` (1, N) -> (tile minima, super minima), as
+    _minima_1p_sup(src="int8")."""
+    out = _coarse("int8", qThi, None, qrow, codes, None, scales, col,
+                  inv_col, mode, 1, True)
+    launches["coarse_minima_int8_1p_sup"] += 1
+    return out
+
+
+def refine_dots(tile_idx, queries, db, m: int, scales=None):
     """K2: (Qp, m*16) f32 dots of each query with the rows of its m
-    selected 16-row tiles, IEEE f32 FMA."""
+    selected 16-row tiles, IEEE f32 FMA. ``db`` holds f32 rows, bf16 rows
+    (widened exactly) or int8 codes; for codes, ``scales`` (N,) f32 pow2
+    row scales multiply the finished dots."""
     qp, d = queries.shape
     n = db.shape[0]
     dev = db.device
@@ -185,19 +261,30 @@ def refine_dots(tile_idx, queries, db, m: int):
         raise ValueError(f"rows {n} must be a multiple of {SUB}")
     if _REFINE_QPB * d * 4 > _MAX_SMEM:
         raise ValueError(f"d={d} too wide for the refine kernel")
+    if db.dtype not in _REFINE_SRC:
+        raise ValueError(f"db: dtype {db.dtype}, expected float32, bfloat16 "
+                         "or int8")
+    code, key = _REFINE_SRC[db.dtype]
     _check("tile_idx", tile_idx, torch.int64, (qp, m), dev)
     _check("queries", queries, torch.float32, (qp, d), dev)
-    _check("db", db, torch.float32, (n, d), dev)
+    _check("db", db, db.dtype, (n, d), dev)
+    if (scales is not None) != (db.dtype == torch.int8):
+        raise ValueError("scales= goes with int8 codes, and only with them")
+    if scales is not None:
+        _check("scales", scales, torch.float32, (n,), dev)
     out = torch.empty((qp, m * SUB), dtype=torch.float32, device=dev)
     if qp == 0 or m == 0:
         return out
-    rc = _lib().vdb_refine_dots(tile_idx.data_ptr(), queries.data_ptr(),
-                                db.data_ptr(), out.data_ptr(), qp, m, d,
-                                _stream(dev))
+    rc = _lib().vdb_refine_dots(
+        tile_idx.data_ptr(), queries.data_ptr(), db.data_ptr(),
+        scales.data_ptr() if scales is not None else None, out.data_ptr(),
+        qp, m, d, code, _stream(dev))
     _raise_on(rc, "refine_dots")
-    launches["refine_dots"] += 1
+    launches[key] += 1
     return out
 
 
-__all__ = ["coarse_minima_1p_sup", "coarse_minima", "refine_dots",
-           "launches", "reset_launches", "load", "build_info"]
+__all__ = ["coarse_minima_1p_sup", "coarse_minima", "coarse_minima_f32_1p_sup",
+           "coarse_minima_f32", "coarse_minima_1p",
+           "coarse_minima_int8_1p_sup", "refine_dots", "launches",
+           "reset_launches", "load", "build_info"]

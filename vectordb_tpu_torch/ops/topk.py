@@ -1,19 +1,32 @@
 """Flat-scan distance + top-k on the device, and the exact tier ladder.
 
-Port of ``vectordb_tpu/ops/topk.py`` (f32 tiers only). The plain f32 scan
-(tier 3 and the in-package oracle) is ``torch.matmul`` at "highest"
-precision — IEEE f32, never TF32 (distance.prepare_device) — followed by
-exact ``torch.topk``. The JAX package's ``approx_min_k`` (a TPU
+Port of ``vectordb_tpu/ops/topk.py``. The plain f32 scan (tier 3 and the
+in-package oracle) is ``torch.matmul`` at "highest" precision — IEEE f32,
+never TF32 (distance.prepare_device) — followed by exact ``torch.topk``.
+``flat_search_bf16`` and ``flat_search_int8`` are the exact scans of the
+bf16- and int8-stored databases: each widens one row block at a time to
+f32 and keeps a running top-k. The JAX package's ``approx_min_k`` (a TPU
 PartialReduce unit) has no counterpart; the fast scan uses exact top-k.
 
 There is no jit and so no power-of-two bucketing of Q or k: PyTorch runs
 eagerly and the CUDA kernels take any query count.
 
-``flat_search_batched_submit`` is the dispatch point. With bf16 hi/lo
-mirrors in the device state it runs the certified ladder:
-  tier 1  1-pass certified (coarse_kernel.coarse_search_1p; K1 + K2)
-  tier 2  bf16x3 certified (coarse_kernel.coarse_search; K3 + K2)
-  tier 3  plain f32 scan (flat_search_exact_tiled)
+``flat_search_batched_submit`` is the dispatch point, with the JAX
+package's branch order:
+  int8 storage   tier 1 coarse_search_1p(scales=) (K7 + K2-int8) in both
+                 modes; uncertified rows -> flat_search_int8
+  bf16 storage   fast is served as exact; tier 1 coarse_search_1p over
+                 db as its own hi (K1 + K2-bf16) at any capacity;
+                 uncertified rows -> flat_search_bf16 (never bf16x3: with
+                 no lo mirror it would double-count hi.qhi)
+  mirrors        tier 1 coarse_search_1p (K1 + K2) -> tier 2 bf16x3
+                 coarse_search (K3 + K2) -> tier 3 plain f32 scan
+  coarse_f32     tier 1 coarse_search_1p (K4 + K2) -> tier 2
+                 coarse_search (K5 at 3 passes + K2) -> tier 3
+  fast mode      coarse_search_1p_fast (K1 or K4 + K2, no certificate);
+                 where supports() holds and supports_1p() does not (a
+                 256-row state), the legacy coarse_search(exact=False)
+                 (K6 or K5 at 1 pass)
 Each tier's uncertified queries re-run through the next one.
 """
 
@@ -122,8 +135,12 @@ _EXACT1P_MIN_N = 1 << 18
 def _use_exact1p(device_state: dict, capacity: int, d: int,
                  k_eff: int) -> bool:
     from . import coarse_kernel
+    # bf16 storage ignores the capacity gate: tier 1 IS its exact path
+    # (the stored db is its own hi mirror, elo_max = 0)
+    big_enough = (capacity >= _EXACT1P_MIN_N
+                  or bool(device_state.get("bf16_storage")))
     return ("elo_max" in device_state
-            and capacity >= _EXACT1P_MIN_N
+            and big_enough
             and coarse_kernel.supports_1p(capacity, d, k_eff))
 
 
@@ -187,6 +204,56 @@ def flat_search_exact_tiled(queries, db, db_sq_norms, db_norms, valid,
                          metric, k)
 
 
+# Row-block size of the bf16/int8 scans: each block is widened to f32 on
+# the fly, so the peak extra memory is block * d * 4 bytes plus one
+# (Q, block) distance block.
+_WIDEN_SCAN_BLOCK = 1 << 16
+
+
+def _widening_scan(queries, widen, n: int, db_sq_norms, db_norms, valid,
+                   metric: DistanceMetric, k: int):
+    """Exact scan over a database stored narrower than f32: ``widen(a, b)``
+    returns rows a:b as f32 (exactly: the stored values). Full-precision
+    distances per row block and a running top-k across blocks; exact with
+    respect to the stored values."""
+    q = queries.shape[0]
+    kk = min(int(k), n)
+    run_d = torch.full((q, kk), float("inf"), dtype=torch.float32,
+                       device=queries.device)
+    run_i = torch.zeros((q, kk), dtype=torch.int64, device=queries.device)
+    for b0 in range(0, n, _WIDEN_SCAN_BLOCK):
+        b1 = min(b0 + _WIDEN_SCAN_BLOCK, n)
+        dists = pairwise_distances(queries, widen(b0, b1), metric,
+                                   db_sq_norms=db_sq_norms[b0:b1],
+                                   db_norms=db_norms[b0:b1])
+        dists = torch.where(valid[None, b0:b1], dists, float("inf"))
+        v, i = torch.topk(dists, min(kk, b1 - b0), dim=1, largest=False)
+        all_d = torch.cat([run_d, v], dim=1)
+        all_i = torch.cat([run_i, i + b0], dim=1)
+        run_d, pos = torch.topk(all_d, kk, dim=1, largest=False)
+        run_i = torch.gather(all_i, 1, pos)
+    return run_d, run_i
+
+
+def flat_search_bf16(queries, db16, db_sq_norms, db_norms, valid,
+                     metric: DistanceMetric, k: int):
+    """Blockwise exact scan for bf16-stored databases (storage="bf16"):
+    rows widened exactly to f32 one block at a time."""
+    return _widening_scan(queries, lambda a, b: db16[a:b].float(),
+                          db16.shape[0], db_sq_norms, db_norms, valid,
+                          metric, k)
+
+
+def flat_search_int8(queries, db8, scales, db_sq_norms, db_norms, valid,
+                     metric: DistanceMetric, k: int):
+    """Blockwise exact scan for int8-stored databases (storage="int8"):
+    rows dequantized one block at a time (code * pow2 row scale, exact in
+    f32)."""
+    return _widening_scan(
+        queries, lambda a, b: db8[a:b].float() * scales[a:b, None],
+        db8.shape[0], db_sq_norms, db_norms, valid, metric, k)
+
+
 class SearchHandle:
     """An in-flight batched search launched by flat_search_batched_submit.
 
@@ -207,12 +274,12 @@ class SearchHandle:
         return self._done
 
 
-def _unsupported_storage(device_state: dict) -> None:
-    for key in ("int8_storage", "bf16_storage", "coarse_f32"):
-        if device_state.get(key):
-            raise NotImplementedError(
-                f"{key} needs the bf16/int8 storage slice and kernels K4-K7 "
-                "(ROADMAP queue 1 item 9)")
+def _certified_handle(out, queries_np, device_state, drop, metric, k):
+    """Handle of a certified tier whose uncertified rows re-run through
+    the state minus ``drop`` (the next tier)."""
+    fb_state = {kk: vv for kk, vv in device_state.items() if kk not in drop}
+    return SearchHandle(functools.partial(_collect_certified, *out,
+                                          queries_np, fb_state, metric, k))
 
 
 def flat_search_batched_submit(queries_np: np.ndarray, device_state: dict,
@@ -224,8 +291,9 @@ def flat_search_batched_submit(queries_np: np.ndarray, device_state: dict,
     collect() returns host numpy (dists, idx) with (Q, k') shape; entries
     with dist == +inf are "missing" (fewer than k live rows). ``mode``
     selects the certified exact ladder ("exact") or the 1-pass fast
-    pipeline ("fast": exact distances, approximate ids)."""
-    _unsupported_storage(device_state)
+    pipeline ("fast": exact distances, approximate ids). The tiers by
+    storage are in the module docstring."""
+    from . import coarse_kernel
     db = device_state["db"]
     capacity = int(db.shape[0])
     d = queries_np.shape[1]
@@ -235,37 +303,63 @@ def flat_search_batched_submit(queries_np: np.ndarray, device_state: dict,
     args = (queries, db, device_state["sq_norms"], device_state["norms"],
             device_state["valid"])
 
-    if "hi" in device_state:
-        from . import coarse_kernel
-        # FlatIndex capacities are powers of two >= 1024, so supports()
-        # implies supports_1p() there; other shapes take the plain scans
-        if mode == "fast" and coarse_kernel.supports_1p(capacity, d, k_eff):
-            dists, idx = coarse_kernel.coarse_search_1p_fast(
-                *args, device_state["hi"], metric, k_eff)
+    if device_state.get("int8_storage"):
+        # tier 1 in both modes: a single pass over the only stored
+        # precision; uncertified rows re-run through the dequantizing scan
+        if ("elo_max" in device_state
+                and coarse_kernel.supports_1p_int8(capacity, d, k_eff)):
+            out = coarse_kernel.coarse_search_1p(
+                *args, None, device_state["elo_max"], metric, k_eff,
+                scales=device_state["scales"])
+            return _certified_handle(out, queries_np, device_state,
+                                     ("elo_max",), metric, k)
+        dists, idx = flat_search_int8(
+            queries, db, device_state["scales"], *args[2:], metric, k_eff)
+        return SearchHandle(functools.partial(_collect_plain, dists, idx))
+
+    if (("hi" in device_state or device_state.get("coarse_f32"))
+            and coarse_kernel.supports(capacity, d, k_eff)):
+        hi = device_state.get("hi")
+        if device_state.get("bf16_storage"):
+            mode = "exact"       # tier 1 is already a single pass
+        if mode == "fast":
+            if coarse_kernel.supports_1p(capacity, d, k_eff):
+                dists, idx = coarse_kernel.coarse_search_1p_fast(
+                    *args, hi, metric, k_eff)
+            else:
+                # legacy single-pass pipeline: K6 over the mirror, K5 at
+                # one pass over f32 rows
+                dists, idx, _ = coarse_kernel.coarse_search(
+                    *args, hi, device_state.get("lo"), metric, k_eff,
+                    exact=False)
             return SearchHandle(functools.partial(_collect_plain, dists,
                                                   idx))
-        if mode != "fast" and coarse_kernel.supports(capacity, d, k_eff):
-            if _use_exact1p(device_state, capacity, d, k_eff):
-                # tier 1; uncertified rows re-run through tier 2 (same
-                # state minus elo_max), which itself falls back to tier 3
-                dists, idx, certified = coarse_kernel.coarse_search_1p(
-                    *args, device_state["hi"], device_state["elo_max"],
-                    metric, k_eff)
-                drop = ("elo_max",)
-            else:
-                # tier 2: bf16x3; uncertified rows re-run through the
-                # plain scan (mirrors stripped)
-                dists, idx, certified = coarse_kernel.coarse_search(
-                    *args, device_state["hi"], device_state["lo"], metric,
-                    k_eff)
-                drop = ("hi", "lo", "elo_max")
-            fb_state = {kk: vv for kk, vv in device_state.items()
-                        if kk not in drop}
-            return SearchHandle(functools.partial(
-                _collect_certified, dists, idx, certified, queries_np,
-                fb_state, metric, k))
+        if _use_exact1p(device_state, capacity, d, k_eff):
+            # tier 1; uncertified rows re-run through tier 2 (same state
+            # minus elo_max), which itself falls back to tier 3. bf16
+            # storage has no lo mirror: its rows go straight to the
+            # blockwise bf16 scan
+            out = coarse_kernel.coarse_search_1p(
+                *args, hi, device_state["elo_max"], metric, k_eff)
+            drop = (("hi", "lo", "elo_max", "coarse_f32", "bf16_storage")
+                    if device_state.get("bf16_storage") else ("elo_max",))
+            return _certified_handle(out, queries_np, device_state, drop,
+                                     metric, k)
+        if not device_state.get("bf16_storage"):
+            # tier 2: bf16x3 (K3 over the mirrors, K5 over f32 rows);
+            # uncertified rows re-run through the plain scan
+            out = coarse_kernel.coarse_search(
+                *args, hi, device_state.get("lo"), metric, k_eff,
+                exact=True)
+            return _certified_handle(out, queries_np, device_state,
+                                     ("hi", "lo", "elo_max", "coarse_f32"),
+                                     metric, k)
 
-    if mode == "fast":
+    if db.dtype == torch.bfloat16:
+        # bf16 storage off the coarse path: the widening scan, exact over
+        # the stored values, serves both modes
+        search_fn = flat_search_bf16
+    elif mode == "fast":
         search_fn = flat_search_fast
     elif capacity % EXACT_TILE_ROWS == 0:
         search_fn = flat_search_exact_tiled
@@ -284,5 +378,5 @@ def flat_search_batched(queries_np: np.ndarray, device_state: dict,
 
 
 __all__ = ["flat_search", "flat_search_fast", "flat_search_exact_tiled",
-           "flat_search_batched", "flat_search_batched_submit",
-           "SearchHandle", "next_pow2"]
+           "flat_search_bf16", "flat_search_int8", "flat_search_batched",
+           "flat_search_batched_submit", "SearchHandle", "next_pow2"]

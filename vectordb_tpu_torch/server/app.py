@@ -139,13 +139,15 @@ def _split_addr(addr: str) -> Tuple[str, int]:
 
 def start_flat(addr: str, metric: DistanceMetric,
                batch_window_ms: float = 0.0, backend: str = "auto",
-               search_mode: str = "exact", device="cuda") -> None:
+               search_mode: str = "exact", device="cuda",
+               storage: str = "f32") -> None:
     """Serve an in-memory flat-index store (reference:
     src/server/mod.rs:19-31) with its device state on ``device``."""
     _check_serving_options(batch_window_ms, backend)
     serve(addr,
           AppState(VectorStore.with_flat_index(metric,
                                                search_mode=search_mode,
+                                               storage=storage,
                                                device=device)),
           batch_window_ms=batch_window_ms, backend=backend)
 

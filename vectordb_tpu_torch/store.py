@@ -135,13 +135,15 @@ class VectorStore:
 
     @classmethod
     def with_flat_index(cls, metric: DistanceMetric,
-                        search_mode: str = "exact",
+                        search_mode: str = "exact", storage: str = "f32",
                         device="cuda") -> "VectorStore":
-        """A store over an f32 ``FlatIndex`` whose device state lives on
+        """A store over a ``FlatIndex`` whose device state lives on
         ``device`` (a CUDA device runs the hand-written kernels; "cpu"
-        runs their plain versions)."""
+        runs their plain versions). ``storage="bf16"`` halves the bytes
+        per row and ``"int8"`` quarters them; vectors are quantized at
+        insert and search is certified-exact over the stored values."""
         return cls(FlatIndex(metric, search_mode=search_mode,
-                             device=device))
+                             storage=storage, device=device))
 
     @classmethod
     def with_index(cls, index: Index) -> "VectorStore":
