@@ -32,12 +32,28 @@ nothing is caught and passed over):
      fallback per store (K5 at 3 passes, flat_search_bf16,
      flat_search_int8), the legacy fast path on 256-row states (K6, K5 at
      1 pass), and each new kernel against its plain version at its
-     path's shapes, timed as in phase 6.
+     path's shapes, timed as in phase 6;
+  8. PQ-Flat at full width: the intrinsic-dim-32 row set of
+     benchmarks/pq_bench.py (2^20 x 768, 1024 rows deleted, Q=4096, k=10)
+     into VectorStore.with_index(PqFlatIndex(EUCLIDEAN, device="cuda"))
+     (m=96, ksub=256, OPQ), trained, searched at refine 64 and 32 and over
+     HTTP; every returned distance equal to the on-card f32 distance of
+     its id, recall@10 >= 0.95 against an on-card f32 oracle at refine 64,
+     the scan's pool with K8 identical to the pool with the plain decode,
+     the pool's scores within PQ_SCORE_LIMIT of their f64 recomputation
+     (controls: a bf16-output score GEMM, a dropped q_lo term), the
+     "mirror" and "host" re-rank venues in agreement; K8 timed at the
+     scan chunk beside its plain version, F.embedding and its bound;
+  9. the two-phase exact scan (ops.flat_kernel.two_phase_search, K9) at
+     2^20 x 768 f32, Q=1024, k=10, all three metrics, 10% dead rows,
+     exact against an on-card f32 oracle; K9 against its plain version
+     (control: bf16 operands), timed beside an f32 torch.matmul.
 Launch counters are zeroed just before each path's run and read right
 after it: the store searches of phases 3 and 4 (K1, K2, K3); each
 storage store's searches (K4/K7 and K2 by source); each forced fallback
-(K5); the legacy fast runs (K6, K5). Every kernel of a path must have
-launched in its window; the direct comparison calls are outside them.
+(K5); the legacy fast runs (K6, K5); the PQ store's searches (K8); the
+two-phase searches (K9). Every kernel of a path must have launched in its
+window; the direct comparison calls are outside them.
 The line before the last is the card, the one before it the JSON kernel
 table; the last line is the JSON contract line {"ok": true, ...}.
 It exits non-zero without a card, and when the package is not beside it.
@@ -57,6 +73,8 @@ import urllib.request
 ROOT = os.path.dirname(os.path.abspath(__file__))
 D = 768
 K = 10
+PQ_REFINES = (64, 32)      # PqFlatIndex's default refine, and half of it
+K9_QUERIES = 1024
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores,
 # f32 outside the tensor cores (K2's IEEE fmaf), HBM bandwidth
@@ -65,6 +83,18 @@ PEAK_F32 = 67e12
 HBM = 3.35e12
 SRC = "vectordb_tpu/ops/coarse_kernel.py"
 CSRC = "vectordb_tpu_torch/csrc/"
+# K9's limit on |kernel - plain| per tile minimum, times S (S as in
+# ``limits``; 1 for cosine). Readings on an H100 (phases 2 and 9): sound
+# 0 (cuBLAS's f32 GEMM in the plain version sums in the kernel's order at
+# those shapes), the control on bf16 operands >= 3.6e-4 S; the limit
+# leaves room for other summation orders, a few f32 ulps of S
+K9_LIMIT = 2.0 ** -18
+# The PQ scan's score |x_hat|^2 - 2 q.x_hat against its f64 value, per
+# (query, candidate), times S = |x_hat|^2 + 2 |q| |x_hat|: the bf16 GEMMs
+# sum in f32 and q_hi + q_lo holds q to ~2^-17, so a sound scan sits far
+# below; a bf16 output (8 mantissa bits) or a dropped q_lo (2^-9 of q)
+# lands far above (phase 8 prints all three)
+PQ_SCORE_LIMIT = 2.0 ** -16
 
 
 def fail(msg: str) -> None:
@@ -113,7 +143,13 @@ def check_exact(name, got_ids, got_d, ora_d2, ora_ids, k, np):
     """Ids must equal the oracle's, except where the oracle's k-th and
     (k+1)-th distances tie within the tolerance (or two returned
     distances tie and swap); distances at rtol 2e-5 / atol 2e-5."""
-    ora_d = np.sqrt(np.maximum(ora_d2, 0.0))
+    return check_exact_d(name, got_ids, got_d, np.sqrt(np.maximum(ora_d2,
+                                                                  0.0)),
+                         ora_ids, k, np)
+
+
+def check_exact_d(name, got_ids, got_d, ora_d, ora_ids, k, np):
+    """check_exact over oracle distances ``ora_d`` of any metric."""
     tol = 2e-5 * np.abs(ora_d) + 2e-5
     ties = 0
     for qi in range(got_ids.shape[0]):
@@ -230,9 +266,9 @@ def library_ms(a, b, torch):
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bnd,
-               lib_ms):
+               lib_ms, src=SRC):
     return {"name": name, "route": "cuda", "source": CSRC + source,
-            "replaces": f"{SRC}:{replaces}", "launches": launches,
+            "replaces": f"{src}:{replaces}", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
 
@@ -256,6 +292,8 @@ def load_store(store, rows, dead, BatchInsertItem, Vector):
 def phase2(rng, mode_of, card, np, torch, ck, cuda_kernels, flat, worst):
     """Each kernel against its plain version, with a control per kernel
     that must break the limit."""
+    from vectordb_tpu_torch.ops import flat_kernel as fk
+    from vectordb_tpu_torch.ops import pq as pq_ops
     dev = torch.device("cuda")
     n2, q2, m2 = 1 << 16, 256, 32
     for metric, mode in mode_of.items():
@@ -330,8 +368,32 @@ def phase2(rng, mode_of, card, np, torch, ck, cuda_kernels, flat, worst):
             c[key] = float((ck._refine_dots_plain(
                 tidx, to_tf32(queries, torch), t_rows, m2, sc)
                 - plain).abs().max())
+        # K9: tile minima of IEEE-f32 scores; control: bf16 operands
+        qa, ra = {"euclidean": (qsq, sq), "dot": (qsq * 0.0, sq * 0.0),
+                  "cosine": (qn, torch.sqrt(sq))}[mode]
+        inv = inv_col.reshape(-1).contiguous()
+        k9p = fk._tile_minima_plain(queries, qa, db, ra, inv, mode, 512)
+        e["scan_min"] = live_err(cuda_kernels.scan_min(
+            queries, qa, db, ra, inv, mode, 512), k9p)
+        c["scan_min"] = live_err(fk._tile_minima_plain(
+            queries.bfloat16().float(), qa, db.bfloat16().float(), ra, inv,
+            mode, 512), k9p)
+        # K8: bit for bit (limit 0); control: every code off by one
+        cb8 = torch.from_numpy(rng.standard_normal(
+            (96, 256, 8), dtype=np.float32)).to(dev).to(torch.bfloat16)
+        codes8 = torch.from_numpy(rng.integers(0, 256, (4096, 96),
+                                               dtype=np.uint8)).to(dev)
+        k8p = pq_ops._decode_rows_plain(codes8, cb8).float()
+        e["pq_decode"] = float((cuda_kernels.pq_decode(codes8, cb8).float()
+                                - k8p).abs().max())
+        c["pq_decode"] = float((pq_ops._decode_rows_plain(
+            codes8 ^ 1, cb8).float() - k8p).abs().max())
         torch.cuda.synchronize()
+        s9 = 1.0 if mode == "cosine" else float(
+            torch.sqrt(sq.max()) * qn.max())
         limit = {k: (lim2 if k.startswith("refine") else lim) for k in e}
+        limit["scan_min"] = K9_LIMIT * s9
+        limit["pq_decode"] = 0.0
         say(f"phase 2 {metric.value}: " + "; ".join(
             f"{k} {e[k]:.3e} (control {c[k]:.3e}, limit {limit[k]:.3e})"
             for k in e) + f"  [{card}]")
@@ -345,7 +407,7 @@ def phase2(rng, mode_of, card, np, torch, ck, cuda_kernels, flat, worst):
                  f"limits cannot tell a sound kernel from a broken one")
         for k in e:
             worst[k] = max(worst.get(k, 0.0), e[k])
-        del db, hi, lo, codes, got, plain, out, k6, k3_plain3
+        del db, hi, lo, codes, got, plain, out, k6, k3_plain3, k9p, k8p
 
 
 def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
@@ -601,6 +663,359 @@ def f32_extra(state, qs, queries, card, mods, worst, lim):
     return {"k5": (ms5, ms5p, lib5, b5), "k6": (ms6, ms6p, lib6, b6),
             "legacy": legacy}
 
+def http_call(port, method, path, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data, method=method,
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read())
+
+
+def venue_ties(res_a, res_b, rtol, np):
+    """Two re-rank venues' results: distances within ``rtol``, the same
+    ids but where neighbouring distances tie within it (the venues sum
+    in different orders). Returns the number of tied positions."""
+    ties = 0
+    for qi, (a, b) in enumerate(zip(res_a, res_b)):
+        ia, ib = [i for i, _ in a], [i for i, _ in b]
+        da = np.array([d for _, d in a])
+        db_ = np.array([d for _, d in b])
+        tol = rtol * np.abs(da) + 1e-7
+        if len(ia) != len(ib) or not np.all(np.abs(da - db_) <= tol):
+            fail(f"venues disagree on query {qi}: {a} vs {b}")
+        for j in np.nonzero(np.array(ia) != np.array(ib))[0]:
+            near = [jj for jj in (j - 1, j + 1) if 0 <= jj < len(da)
+                    and abs(da[jj] - da[j]) <= 2 * tol[j]]
+            if not (near or j == len(da) - 1):
+                fail(f"venues return other ids on query {qi}: {ia} vs {ib}")
+            ties += 1
+    return ties
+
+
+def pq_phase(args, rng, card, mods):
+    """Phase 8 (module docstring). Returns the K8 row's numbers."""
+    import torch.nn.functional as F
+
+    from vectordb_tpu_torch.index.pq import PqFlatIndex
+    from vectordb_tpu_torch.ops import pq as pq_ops
+    from vectordb_tpu_torch.server.app import (AppState,
+                                               start_server_background)
+    np, torch, cuda_kernels = mods["np"], mods["torch"], mods["cuda_kernels"]
+    VectorStore, Vector = mods["VectorStore"], mods["Vector"]
+    E = mods["DistanceMetric"].EUCLIDEAN
+    dev = torch.device("cuda")
+    n, nq = args.rows, args.queries
+    # the intrinsic-dim-32 protocol of benchmarks/pq_bench.py:103-108
+    basis = (rng.standard_normal((32, D), dtype=np.float32)
+             / np.float32(np.sqrt(32)))
+    rows = np.empty((n, D), np.float32)
+    step = 1 << 16
+    for r0 in range(0, n, step):
+        rows[r0:r0 + step] = rng.standard_normal(
+            (min(step, n - r0), 32), dtype=np.float32) @ basis
+    qs = rng.standard_normal((nq, 32), dtype=np.float32) @ basis
+    dead = rng.choice(n, 1024, replace=False)
+    store = VectorStore.with_index(PqFlatIndex(E, device="cuda"))
+    index = store.index
+    t0 = time.perf_counter()
+    load_store(store, rows, dead, mods["BatchInsertItem"], Vector)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    batch = [(Vector(q), K) for q in qs]
+
+    # the path's run: only this store's searches between reset and read
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    store.search_batch(batch)             # first batch: the full encode
+    first_s = time.perf_counter() - t0
+    results, batch_s = {}, {}
+    for refine in PQ_REFINES:
+        batch_s[refine] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            results[refine] = store.search_batch(batch, refine=refine)
+            batch_s[refine].append(time.perf_counter() - t0)
+    counts = dict(cuda_kernels.launches)
+    say(f"phase 8 launch counts (the PQ store's searches): "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if counts["pq_decode"] < 1:
+        fail(f"the PQ store's searches launched no K8: {counts}")
+
+    # (a) distances exact for their ids, (b) recall against an on-card
+    # f32 oracle over the rows as inserted (dead rows masked)
+    queries = torch.from_numpy(qs).to(dev)
+    db_t = torch.from_numpy(rows).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[torch.from_numpy(dead).to(dev)] = False
+    ora_d2, ora_i = oracle_sq(queries, db_t, (db_t * db_t).sum(1), valid, K,
+                              torch)
+    recall, derr = {}, {}
+    for refine, res in results.items():
+        ids, dists = store_ids(res, np)
+        if ids.shape != (nq, K) or np.isin(ids, dead).any():
+            fail(f"PQ refine {refine}: {ids.shape} results, or a deleted "
+                 f"row returned")
+        sel = torch.from_numpy(ids).to(dev)
+        true = torch.sqrt(((db_t[sel] - queries[:, None, :]) ** 2).sum(-1))
+        true = true.cpu().numpy()
+        err = np.abs(dists - true)
+        if not np.all(err <= 2e-5 * true + 1e-6):
+            fail(f"PQ refine {refine}: a returned distance is off its id's "
+                 f"f32 distance by {err.max():.3e}")
+        derr[refine] = float(err.max())
+        recall[refine] = float(np.mean([len(set(a) & set(b)) / K for a, b
+                                        in zip(ids, ora_i[:, :K])]))
+    if recall[64] < 0.95:
+        fail(f"PQ recall@{K} at refine 64 is {recall[64]:.4f} < 0.95")
+
+    # (c) at Q=256 the scan's pool with K8 is the pool with the plain decode
+    with index._lock:
+        state = dict(index._scan_state())
+        rr_rows = index._sync_device()["db"]
+    chunk, rot, m = index._scan_chunk(), index._rot_dev_arr(), index._m
+    q256 = queries[:256]
+
+    def scan(qb, r=64):
+        return pq_ops.pq_scan_topr(qb, state["codes"], state["codebook"],
+                                   state["cnorm"], state["valid"], E, r=r,
+                                   chunk=chunk, rot=rot)
+
+    sv_k, sl_k = scan(q256)
+    real = pq_ops.pq_decode_rows
+    pq_ops.pq_decode_rows = pq_ops._decode_rows_plain
+    try:
+        sv_p, sl_p = scan(q256)
+    finally:
+        pq_ops.pq_decode_rows = real
+    if not (torch.equal(sl_k, sl_p) and torch.equal(sv_k, sv_p)):
+        fail("the scan's pool with K8 differs from the plain decode's")
+
+    # (e) the pool's scores are the f32 surrogate |x_hat|^2 - 2 q.x_hat:
+    # held against an f64 recomputation from the decoded rows. The limit
+    # (PQ_SCORE_LIMIT) must break for a bf16-output score GEMM and for a
+    # dropped q_lo term, the two losses of precision recall cannot see here
+    qr = pq_ops._maybe_rotate(q256, rot)
+    xh = pq_ops._decode_rows_plain(state["codes"][sl_k.reshape(-1)],
+                                   state["codebook"]).reshape(256, 64, D)
+    x64, q64 = xh.double(), qr.double()
+    xsq64 = (x64 * x64).sum(-1)
+    ref = xsq64 - 2.0 * torch.bmm(x64, q64[:, :, None])[..., 0]
+    lim = PQ_SCORE_LIMIT * (xsq64 + 2.0 * torch.sqrt(xsq64)
+                            * torch.sqrt((q64 * q64).sum(1))[:, None])
+    live = torch.isfinite(sv_k)
+
+    def off(scores):
+        return float(((scores.double() - ref).abs() / lim)[live].max())
+
+    q_hi, q_lo = pq_ops._split_query(qr)
+    d_bf = (torch.bmm(xh, q_hi[:, :, None])
+            + torch.bmm(xh, q_lo[:, :, None]))[..., 0]        # bf16 out
+    d_nolo = torch.bmm(xh.float(), q_hi.float()[:, :, None])[..., 0]
+    score_off = {"scan": off(sv_k), "bf16 GEMM": off(xsq64 - 2.0 * d_bf),
+                 "no q_lo": off(xsq64 - 2.0 * d_nolo)}
+    if score_off["scan"] > 1.0:
+        fail(f"the scan's scores are off their f64 recomputation: "
+             f"{score_off} (in units of the limit)")
+    if min(score_off["bf16 GEMM"], score_off["no q_lo"]) <= 1.0:
+        fail(f"a score control passed the limit: {score_off}")
+    del xh, x64, ref, lim, d_bf, d_nolo
+
+    # (d) the "mirror" and "host" re-rank venues agree at Q=256
+    if index._rerank_venue() != "mirror":
+        fail(f"PQ on the card re-ranks on {index._rerank_venue()!r}")
+    res_m = index.search_batch(qs[:256], K)
+    index.rerank_mode = "host"
+    res_h = index.search_batch(qs[:256], K)
+    index.rerank_mode = "auto"
+    vties = venue_ties(res_m, res_h, 1e-6, np)
+
+    # HTTP: one /search with "refine": 32
+    server, thread = start_server_background("127.0.0.1:0", AppState(store))
+    try:
+        st, hits = http_call(server.server_address[1], "POST", "/search",
+                             {"vector": qs[0].tolist(), "k": K,
+                              "refine": 32})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if st != 200 or [h["id"] for h in hits] != [r.id for r in
+                                                results[32][0]]:
+        fail(f"PQ HTTP /search refine 32: {st} {hits[:2]}")
+
+    # one batch at refine 64, split: scan, device re-rank, host mapping
+    # (twice, after a collection: a collector pause over ~1M stored ids
+    # would land in whichever step it hits)
+    splits = []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sv, sl = index._scan_call(state, queries, 64)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dv, ds = pq_ops.pq_rerank_topk(queries, rr_rows, sl, sv,
+                                       state["valid"], E, K)
+        dv_h, ds_h = dv.cpu().numpy(), ds.cpu().numpy()
+        t2 = time.perf_counter()
+        raw = index._collect_device_rerank(qs, [(dv_h, ds_h, sv, sl, nq)],
+                                           K, index._tick,
+                                           index.slot_layout_version, None)
+        mapped = [store._map_results(r) for r in raw]
+        t3 = time.perf_counter()
+        if [r.id for r in mapped[0]] != [r.id for r in results[64][0]]:
+            fail("the split batch disagrees with the store's batch")
+        splits.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+
+    # K8 at the scan chunk, and the scan's other per-chunk steps
+    cb_bf = state["codebook"]
+    ksub, dsub = cb_bf.shape[1], cb_bf.shape[2]
+    cc = state["codes"][:chunk]
+    ms8, dec_k = cuda_time(lambda: cuda_kernels.pq_decode(cc, cb_bf), torch,
+                           iters=20)
+    ms8p, dec_p = cuda_time(lambda: pq_ops._decode_rows_plain(cc, cb_bf),
+                            torch, iters=20)
+    flat_cb = cb_bf.reshape(m * ksub, dsub)
+    emb_idx = cc.long() + torch.arange(m, device=dev) * ksub
+    ms8l, dec_l = cuda_time(lambda: F.embedding(emb_idx, flat_cb), torch,
+                            iters=20)
+    if not (torch.equal(dec_k.view(torch.int16), dec_p.view(torch.int16))
+            and torch.equal(dec_l.reshape(chunk, -1).view(torch.int16),
+                            dec_p.view(torch.int16))):
+        fail("K8 (or F.embedding) differs from the plain decode at the "
+             "scan chunk")
+    b8 = bound(0.0, chunk * m + m * ksub * dsub * 2 + chunk * D * 2,
+               PEAK_BF16)
+    q_hi, q_lo = pq_ops._split_query(pq_ops._maybe_rotate(queries, rot))
+    ms_gemm, scores = cuda_time(lambda: pq_ops._score_dots(q_hi, q_lo,
+                                                           dec_k), torch)
+    if scores.dtype != torch.float32:
+        fail(f"the score GEMM returned {scores.dtype}")
+    ms_topk, _ = cuda_time(lambda: torch.topk(scores, 64, dim=1,
+                                              largest=False), torch)
+    nc = n // chunk
+    say(f"phase 8 PQ store N={n} ({len(dead)} deleted) x {D}, m={m}, "
+        f"ksub={ksub}, OPQ, Q={nq} k={K}: load {load_s:.3f} s (host); train "
+        f"{train_s:.3f} s; first batch (incl. the full encode) "
+        f"{first_s * 1e3:.3f} ms; per batch at refine 64 "
+        f"{[round(t * 1e3, 3) for t in batch_s[64]]} ms, at refine 32 "
+        f"{[round(t * 1e3, 3) for t in batch_s[32]]} ms; recall@{K} "
+        f"{recall[64]:.4f} (refine 64), {recall[32]:.4f} (refine 32) "
+        f"against the f32 oracle; returned distances = their ids' f32 "
+        f"distances (max err {max(derr.values()):.3e}); Q=256 pool with K8 "
+        f"= plain decode's; pool scores vs f64, in units of the limit "
+        f"{PQ_SCORE_LIMIT:.3g} S: "
+        f"{ {k: round(v, 4) for k, v in score_off.items()} }; mirror vs host venues agree ({vties} tied "
+        f"positions); HTTP /search refine 32 -> {st}  [{card}]")
+    say(f"phase 8 times [{card}]: one refine-64 batch = scan "
+        f"{[round(x[0], 3) for x in splits]} ms + device re-rank "
+        f"{[round(x[1], 3) for x in splits]} ms + host mapping "
+        f"{[round(x[2], 3) for x in splits]} ms; per scan chunk ({chunk} "
+        f"rows, {nc} "
+        f"chunks): K8 {ms8:.4f} ms (plain {ms8p:.4f}, F.embedding "
+        f"{ms8l:.4f}, bound {b8[0]:.4f}), score GEMMs bf16->f32 "
+        f"{ms_gemm:.3f} ms ({4.0 * nq * chunk * D / ms_gemm / 1e9:.1f} "
+        f"TFLOP/s), top-64 {ms_topk:.3f} ms")
+    out = {"launches": counts["pq_decode"], "ms": ms8, "plain_ms": ms8p,
+           "bound": b8, "library_ms": ms8l}
+    del store, index, state, rr_rows, db_t, queries, scores, dec_k, dec_p
+    del dec_l, sv, sl, dv, ds, sv_k, sl_k, sv_p, sl_p, results, res_m, res_h
+    free(torch)
+    return out
+
+
+def oracle_metric(queries, db, sq, valid, metric, k, torch):
+    """On-card f32 oracle of any metric (chunked matmul at "highest"
+    precision, dead rows masked, exact top-(k+1)): (dists, ids)."""
+    outs_d, outs_i = [], []
+    norms = torch.sqrt(sq)
+    for q0 in range(0, queries.shape[0], 256):
+        q = queries[q0:q0 + 256]
+        dots = q @ db.T
+        if metric == "euclidean":
+            d = torch.sqrt(torch.clamp((q * q).sum(1, keepdim=True)
+                                       + sq[None, :] - 2.0 * dots, min=0.0))
+        elif metric == "dot_product":
+            d = -dots
+        else:
+            den = torch.sqrt((q * q).sum(1, keepdim=True)) * norms[None, :]
+            den = torch.where(den == 0.0, torch.ones_like(den), den)
+            d = 1.0 - torch.clamp(dots / den, -1.0, 1.0)
+        d = torch.where(valid[None, :], d, float("inf"))
+        v, i = torch.topk(d, k + 1, dim=1, largest=False)
+        outs_d.append(v)
+        outs_i.append(i)
+    return torch.cat(outs_d).cpu().numpy(), torch.cat(outs_i).cpu().numpy()
+
+
+def k9_phase(rows, qs, rng, card, mods):
+    """Phase 9 (module docstring). Returns the K9 row's numbers."""
+    from vectordb_tpu_torch.ops import flat_kernel as fk
+    np, torch, cuda_kernels = mods["np"], mods["torch"], mods["cuda_kernels"]
+    dev = torch.device("cuda")
+    n, nq = rows.shape[0], min(K9_QUERIES, qs.shape[0])
+    db = torch.from_numpy(rows).to(dev)
+    valid = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+    queries = torch.from_numpy(qs[:nq]).to(dev)
+    sq = (db * db).sum(1)
+    norms = torch.sqrt(sq)
+    metrics = ("euclidean", "dot_product", "cosine")
+    got = {}
+    # the path's run: the three searches between reset and read
+    cuda_kernels.reset_launches()
+    for metric in metrics:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_, i_ = fk.two_phase_search(queries, db, sq, norms, valid, metric, K)
+        got[metric] = (d_.cpu().numpy(), i_.cpu().numpy(),
+                       time.perf_counter() - t0)
+    launches = cuda_kernels.launches["scan_min"]
+    if launches < len(metrics):
+        fail(f"the two-phase searches launched K9 {launches} times")
+    notes = []
+    for metric in metrics:
+        ora_d, ora_i = oracle_metric(queries, db, sq, valid, metric, K,
+                                     torch)
+        d_, i_, secs = got[metric]
+        ties, err = check_exact_d(f"two-phase {metric}", i_[:, :K],
+                                  d_[:, :K], ora_d, ora_i, K, np)
+        notes.append(f"{metric} {secs * 1e3:.3f} ms ({ties} ties, max err "
+                     f"{err:.3e})")
+    # K9 against its plain version at the path's shape (euclidean)
+    inv = 1.0 - valid.float()
+    qsq = (queries * queries).sum(1)
+    ms9, t9 = cuda_time(lambda: cuda_kernels.scan_min(
+        queries, qsq, db, sq, inv, "euclidean", 512), torch)
+    ms9p, t9p = cuda_time(lambda: fk._tile_minima_plain(
+        queries, qsq, db, sq, inv, "euclidean", 512), torch)
+    e9 = live_err(t9, t9p)
+    del t9
+    s9 = float(torch.sqrt(sq.max() * qsq.max()))
+    c9 = live_err(fk._tile_minima_plain(
+        queries.bfloat16().float(), qsq, db.bfloat16().float(), sq, inv,
+        "euclidean", 512), t9p)
+    if not e9 <= K9_LIMIT * s9 < c9:
+        fail(f"K9 at the path's shape: err {e9:.3e}, control {c9:.3e}, "
+             f"limit {K9_LIMIT * s9:.3e}")
+    lib9, _ = cuda_time(lambda: queries @ db.T, torch)
+    b9 = bound(2.0 * nq * n * D, n * D * 4 + nq * D * 4 + 3 * n * 4
+               + nq * 4 + nq * (n // 512) * 4, PEAK_F32)
+    say(f"phase 9 two-phase search N={n} x {D} f32 (10% dead) Q={nq} k={K}:"
+        f" exact against the f32 oracle: {'; '.join(notes)}; K9 launches "
+        f"{launches}  [{card}]")
+    say(f"phase 9 times [{card}]: K9 N={n} Q={nq} {ms9:.3f} ms (plain "
+        f"{ms9p:.3f}, f32 matmul {lib9:.3f}, bound {b9[0]:.3f}, "
+        f"{2.0 * nq * n * D / ms9 / 1e9:.1f} TFLOP/s), max err {e9:.3e} "
+        f"(limit {K9_LIMIT * s9:.3e}, bf16-operand control {c9:.3e})")
+    del db, valid, queries, sq, norms, t9p, inv
+    free(torch)
+    return {"launches": launches, "err": e9, "ms": ms9, "plain_ms": ms9p,
+            "bound": b9, "library_ms": lib9}
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -770,12 +1185,7 @@ def main() -> None:
     port = server.server_address[1]
 
     def call(method, path, body=None):
-        data = None if body is None else json.dumps(body).encode()
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{port}{path}", data=data, method=method,
-            headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=120) as r:
-            return r.status, json.loads(r.read())
+        return http_call(port, method, path, body)
 
     try:
         hrows = srows[:512]
@@ -926,6 +1336,19 @@ def main() -> None:
                    worst["coarse_minima_int8_1p_sup"],
                    got["int8"]["coarse"][0], got["int8"]["coarse"][1],
                    got["int8"]["coarse"][3], got["int8"]["coarse"][2])]
+
+    # -- phase 8: PQ-Flat at full width ----------------------------------
+    k8 = pq_phase(args, rng, card, mods)
+    # -- phase 9: the two-phase exact scan (K9) ---------------------------
+    k9 = k9_phase(rows, qs, rng, card, mods)
+    table += [
+        kernel_row("K8 pq_decode", "pq_decode.cu", 286, k8["launches"],
+                   worst["pq_decode"], k8["ms"], k8["plain_ms"], k8["bound"],
+                   k8["library_ms"], src="vectordb_tpu/ops/pq.py"),
+        kernel_row("K9 scan_min", "scan_min.cu", 43, k9["launches"],
+                   max(worst["scan_min"], k9["err"]), k9["ms"],
+                   k9["plain_ms"], k9["bound"], k9["library_ms"],
+                   src="vectordb_tpu/ops/flat_kernel.py")]
     if min(r["launches"] for r in table) < 1:
         fail(f"a kernel never launched on its path: "
              f"{[(r['name'], r['launches']) for r in table]}")

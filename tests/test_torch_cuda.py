@@ -237,3 +237,120 @@ def test_store_on_card_matches_store_on_cpu(dev, metric, storage,
                     [[r.distance for r in row] for row in res]))
     assert out[0][0] == out[1][0]
     np.testing.assert_allclose(out[0][1], out[1][1], rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# K8 (PQ decode) and K9 (per-tile minima); the PQ store and the two-phase
+# scan on the card against the same on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows, m, dsub, ksub", [
+    (16384, 96, 8, 256), (1000, 16, 16, 256), (333, 768, 1, 7),
+    (77, 3, 5, 200), (50, 192, 4, 256)])
+def test_k8_matches_plain_bitwise(dev, rows, m, dsub, ksub):
+    from vectordb_tpu_torch.ops import pq
+    rng = np.random.default_rng(11)
+    cb = torch.from_numpy(rng.standard_normal((m, ksub, dsub)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    codes = torch.from_numpy(rng.integers(0, ksub, (rows, m),
+                                          dtype=np.uint8)).to(dev)
+    before = cuda_kernels.launches["pq_decode"]
+    got = pq.pq_decode_rows(codes, cb)
+    want = pq._decode_rows_plain(codes, cb)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["pq_decode"] == before + 1
+    assert got.shape == (rows, m * dsub)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n, d, q, tile_rows", [
+    (4096, 768, 100, 512), (2048, 40, 7, 128), (1024, 64, 130, 64)])
+def test_k9_matches_plain(dev, mode, n, d, q, tile_rows):
+    """K9 against its plain version within 2^-18 S; a control on bf16
+    operands breaks it (chip_smoke.py's K9_LIMIT and its readings)."""
+    from vectordb_tpu_torch.ops import flat_kernel as fk
+    rng = np.random.default_rng(12)
+    db = torch.from_numpy(rng.standard_normal((n, d)).astype(
+        np.float32)).to(dev)
+    qs = torch.from_numpy(rng.standard_normal((q, d)).astype(
+        np.float32)).to(dev)
+    inv = torch.from_numpy((rng.random(n) < 0.1).astype(np.float32)).to(dev)
+    sq, qsq = (db * db).sum(1), (qs * qs).sum(1)
+    qa, ra = {"euclidean": (qsq, sq),
+              "dot": (torch.zeros_like(qsq), torch.zeros_like(sq)),
+              "cosine": (torch.sqrt(qsq), torch.sqrt(sq))}[mode]
+    before = cuda_kernels.launches["scan_min"]
+    got = fk.tile_minima(qs, qa, db, ra, inv, mode, tile_rows)
+    want = fk._tile_minima_plain(qs, qa, db, ra, inv, mode, tile_rows)
+    ctrl = fk._tile_minima_plain(qs.bfloat16().float(), qa,
+                                 db.bfloat16().float(), ra, inv, mode,
+                                 tile_rows)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["scan_min"] == before + 1
+    assert got.shape == (q, n // tile_rows)
+    s = 1.0 if mode == "cosine" else float(torch.sqrt(sq.max() * qsq.max()))
+    limit = 2.0 ** -18 * s
+    assert _live_err(got, want) <= limit
+    assert _live_err(ctrl, want) > limit
+
+
+def test_score_gemm_is_f32_on_card(dev):
+    from vectordb_tpu_torch.ops import pq
+    rng = np.random.default_rng(13)
+    q = torch.from_numpy(rng.standard_normal((64, 768)).astype(
+        np.float32)).to(dev)
+    dec = torch.from_numpy(rng.standard_normal((500, 768)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    q_hi, q_lo = pq._split_query(q)
+    dots = pq._score_dots(q_hi, q_lo, dec)
+    assert dots.dtype == torch.float32
+    exact = (q_hi.double() + q_lo.double()) @ dec.double().T
+    assert float((dots.double() - exact).abs().max()) <= 1e-5 * float(
+        exact.abs().max())
+
+
+@pytest.mark.parametrize("metric", list(DistanceMetric))
+def test_pq_store_on_card_matches_store_on_cpu(dev, metric):
+    """One trained state and one set of codes (trained and encoded on the
+    card) on both devices: same ids, distances at rtol 2e-5 (the card
+    re-ranks on its "mirror" venue, the CPU on the host)."""
+    from vectordb_tpu_torch import PqFlatIndex
+    rng = np.random.default_rng(14)
+    rows = rng.standard_normal((3000, 64), dtype=np.float32) + (
+        2.0 if metric is DistanceMetric.COSINE else 0.0)
+    qs = rng.standard_normal((16, 64), dtype=np.float32)
+    card = PqFlatIndex(metric, m=16, ksub=64, refine=64, device="cuda")
+    cpu = PqFlatIndex(metric, m=16, ksub=64, refine=64, device="cpu")
+    for idx in (card, cpu):
+        idx.add_batch([(i, rows[i]) for i in range(3000)])
+    card.train()
+    before = cuda_kernels.launches["pq_decode"]
+    want = card.search_batch(qs, 10)
+    assert cuda_kernels.launches["pq_decode"] > before
+    assert card._rerank_venue() == "mirror"
+    cpu.import_trained_state(card.export_trained_state())
+    cpu.adopt_codes(card._codes)
+    got = cpu.search_batch(qs, 10)
+    for w, g in zip(want, got):
+        assert [i for i, _ in g] == [i for i, _ in w]
+        np.testing.assert_allclose([x for _, x in g], [x for _, x in w],
+                                   rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
+def test_two_phase_on_card_matches_cpu(dev, metric):
+    from vectordb_tpu_torch.ops import flat_kernel as fk
+    rng = np.random.default_rng(15)
+    db = rng.standard_normal((4096, 96), dtype=np.float32) + 0.5
+    qs = rng.standard_normal((20, 96), dtype=np.float32) + 0.5
+    valid = rng.random(4096) >= 0.1
+    sq = (db * db).sum(1)
+    out = []
+    for device in ("cuda", "cpu"):
+        t = [torch.from_numpy(x).to(device)
+             for x in (qs, db, sq, np.sqrt(sq), valid)]
+        d_, i_ = fk.two_phase_search(*t, metric, 10, tile_rows=512)
+        out.append((d_.cpu().numpy(), i_.cpu().numpy()))
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=2e-5, atol=1e-6)

@@ -16,13 +16,15 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "vectordb_tpu_torch"
 MODULES = sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")
-                 if "_build" not in p.parts)
+                 if "_build" not in p.parts) + ["chip_smoke.py"]
 
 _PROBE = """
 import sys
 import vectordb_tpu_torch
 import vectordb_tpu_torch.cli, vectordb_tpu_torch.convert
 import vectordb_tpu_torch.server, vectordb_tpu_torch.ops.cuda_kernels
+import vectordb_tpu_torch.index.pq, vectordb_tpu_torch.ops.pq
+import vectordb_tpu_torch.ops.flat_kernel
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'vectordb_tpu'))
 print(repr(bad))

@@ -6,9 +6,12 @@ kernels (``csrc/``) for what the JAX package wrote in Pallas. It imports
 ``torch`` and never ``jax``; the kernels are built with ``nvcc`` at first
 use, never at import.
 
-Ported so far: the exact flat-search slice — ``VectorStore`` over an f32
-``FlatIndex`` with the certified coarse ladder (kernels K1, K2, K3),
-metadata filters, radius search, the stdlib HTTP server and the CLI.
+Ported so far: the exact flat-search slice — ``VectorStore`` over a
+``FlatIndex`` (f32, bf16 or int8 storage) with the certified coarse
+ladder (kernels K1-K7), metadata filters, radius search, the stdlib HTTP
+server and the CLI; ``PqFlatIndex`` (PQ codes, decode kernel K8, exact
+re-rank); and the first-generation two-phase scan
+(``ops.flat_kernel``, kernel K9).
 """
 
 from .distance import (DistanceMetric, cosine_distance, dot_product,  # noqa: F401
@@ -16,7 +19,7 @@ from .distance import (DistanceMetric, cosine_distance, dot_product,  # noqa: F4
 from .errors import (DimensionMismatchError, IndexOpError,  # noqa: F401
                      InvalidVectorError, SerializationError, StorageError,
                      VdbIoError, VectorDbError, VectorNotFoundError)
-from .index import FlatIndex, Index  # noqa: F401
+from .index import FlatIndex, Index, PqFlatIndex  # noqa: F401
 from .metadata import Metadata, MetadataFilter  # noqa: F401
 from .metrics import MetricsCollector  # noqa: F401
 from .store import BatchInsertItem, SearchResult, VectorStore  # noqa: F401

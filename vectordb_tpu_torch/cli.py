@@ -9,10 +9,13 @@ src/main.rs:10-198):
   * same user-facing output strings as the reference handlers
 
   * ``--storage f32|bf16|int8`` picks the flat index's row storage
+  * ``--index pq`` serves a PQ-Flat store (PqFlatIndex: codes on the
+    device, exact re-rank); it owns its device representation, so
+    ``--storage`` other than f32 is refused, as the JAX package does
 
 Refused with a clear error until their slices land (ROADMAP queue 1):
 ``--data-dir`` and ``serve --durable-dir`` (persistence), ``--index``
-other than flat, ``--http native`` and ``--batch-window-ms`` (native
+hnsw, ivf and ivfpq, ``--http native`` and ``--batch-window-ms`` (native
 HTTP + batcher).
 """
 
@@ -36,8 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--index",
                         choices=["flat", "hnsw", "ivf", "pq", "ivfpq"],
                         default="flat",
-                        help="Index type to use for search (only flat is "
-                             "ported so far)")
+                        help="Index type to use for search (flat and pq "
+                             "are ported so far)")
     parser.add_argument("--data-dir", default=None,
                         help="Data directory for persistence (not ported "
                              "yet)")
@@ -139,9 +142,12 @@ def _refusal(args) -> Optional[str]:
     """Why this command line needs a slice that is not ported yet."""
     if args.data_dir:
         return "--data-dir needs the persistence slice (ROADMAP queue 1 item 7)"
-    if args.index != "flat":
+    if args.index not in ("flat", "pq"):
         return (f"--index {args.index} is not ported yet (ROADMAP queue 1); "
-                "use --index flat")
+                "use --index flat or pq")
+    if args.index == "pq" and args.storage != "f32":
+        return (f"--index {args.index} owns its device representation "
+                "(codes); --storage does not compose with it.")
     if args.command == "serve":
         if args.durable_dir:
             return ("serve --durable-dir needs the persistence slice "
@@ -163,14 +169,28 @@ def main(argv: Optional[List[str]] = None) -> int:
     metric = DistanceMetric.from_name(args.metric)
     try:
         if args.command == "serve":
+            if args.index == "pq":
+                from .index.pq import PqFlatIndex
+                from .server.app import AppState, serve
+                serve(args.addr,
+                      AppState(VectorStore.with_index(
+                          PqFlatIndex(metric, device=args.device))),
+                      batch_window_ms=args.batch_window_ms,
+                      backend=args.http)
+                return 0
             from .server.app import start_flat
             start_flat(args.addr, metric, search_mode=args.search_mode,
                        device=args.device, storage=args.storage)
             return 0
-        store = VectorStore.with_flat_index(metric,
-                                            search_mode=args.search_mode,
-                                            storage=args.storage,
-                                            device=args.device)
+        if args.index == "pq":
+            from .index.pq import PqFlatIndex
+            store = VectorStore.with_index(PqFlatIndex(metric,
+                                                       device=args.device))
+        else:
+            store = VectorStore.with_flat_index(metric,
+                                                search_mode=args.search_mode,
+                                                storage=args.storage,
+                                                device=args.device)
         return _run_commands(store, args)
     except (VectorDbError, RuntimeError) as e:
         print(f"Error: {e}", file=sys.stderr)

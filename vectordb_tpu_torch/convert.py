@@ -8,6 +8,11 @@ same candidate tiles, so the two packages' results compare position by
 position. Only numpy crosses over: this module imports no JAX, and a bf16
 store's rows (ml_dtypes' bfloat16) are read by their bits, so the port
 needs no ml_dtypes.
+
+``pq_store_from_reference`` does the same for a ``PqFlatIndex`` store and
+adds its trained state (``export_trained_state()``: codebook, rotation)
+and, optionally, the JAX index's per-slot ``_codes``, so the two scans
+read the same codes slot for slot.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 
 from .distance import DistanceMetric
 from .index.flat import FlatIndex
+from .index.pq import PqFlatIndex
 from .store import VectorStore
 
 
@@ -37,6 +43,37 @@ def store_from_reference(vectors: np.ndarray, valid: np.ndarray,
     index = FlatIndex(metric, search_mode=search_mode, storage=storage,
                       device=device)
     index.adopt_packed(vectors, valid, id_of_slot)
+    return _wrap(index, valid, id_of_slot, internal_to_string, metadata)
+
+
+def pq_store_from_reference(vectors: np.ndarray, valid: np.ndarray,
+                            id_of_slot: np.ndarray,
+                            internal_to_string: Dict[int, str],
+                            metric: DistanceMetric,
+                            trained_state: Optional[dict],
+                            codes: Optional[np.ndarray] = None,
+                            device="cuda",
+                            metadata: Optional[Dict[int, Dict[str, str]]]
+                            = None, **pq_kwargs) -> VectorStore:
+    """A port ``VectorStore`` over ``PqFlatIndex(metric, device=device,
+    **pq_kwargs)`` with the exported rows in their original slots and
+    ids, trained with the JAX index's ``export_trained_state()`` (None:
+    left untrained). ``codes`` (capacity, m) uint8, the JAX index's
+    ``_codes``, are taken as they are; without them the port encodes the
+    rows itself at the first search."""
+    index = PqFlatIndex(metric, device=device, **pq_kwargs)
+    index.adopt_packed(vectors, valid, id_of_slot)
+    if trained_state is not None:
+        index.import_trained_state(trained_state)
+        if codes is not None:
+            index.adopt_codes(codes)
+    elif codes is not None:
+        raise ValueError("codes need the trained state they came from")
+    return _wrap(index, valid, id_of_slot, internal_to_string, metadata)
+
+
+def _wrap(index, valid, id_of_slot, internal_to_string, metadata
+          ) -> VectorStore:
     live_ids = set(np.asarray(id_of_slot)[np.asarray(valid, bool)].tolist())
     id_map = {int(iid): str(sid) for iid, sid in internal_to_string.items()}
     if set(id_map) != live_ids:
@@ -49,4 +86,4 @@ def store_from_reference(vectors: np.ndarray, valid: np.ndarray,
     return store
 
 
-__all__ = ["store_from_reference"]
+__all__ = ["store_from_reference", "pq_store_from_reference"]

@@ -223,6 +223,10 @@ class FlatIndex(Index):
         self._slot_of_id: dict[int, int] = {}
         self._free_slots: list[int] = []
         self._zero_norm_live = 0  # live rows with zero norm (cosine validation)
+        # subclasses that never run the coarse kernels (PQ) set this False:
+        # the f32 device state then carries no bf16 mirrors, no residual
+        # bound, and the exact fallback is the plain f32 scan
+        self._want_mirrors = True
         # device state + dirty tracking
         self._device: Optional[dict] = None
         self._dirty_slots: set[int] = set()
@@ -386,6 +390,13 @@ class FlatIndex(Index):
             # recorded (stale-dirty is safe; missed-dirty is not)
             if self._device is not None:
                 self._dirty_slots.update(slots.tolist())
+            self._note_appended(slots)
+
+    def _note_appended(self, slots: np.ndarray) -> None:
+        """Subclass seam: called (lock held) with the slot array the
+        append path just touched — PQ stamps per-slot mutation ticks and
+        marks codes dirty here. Kept apart from ``_dirty_slots`` (device
+        state bookkeeping, skipped while no device state exists)."""
 
     def adopt_packed(self, vectors: np.ndarray, valid: np.ndarray,
                      id_of_slot: np.ndarray) -> None:
@@ -493,7 +504,7 @@ class FlatIndex(Index):
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         # always a copy: on the CPU a from_numpy view would alias the host
         # arrays that later writes mutate under in-flight searches
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+        return torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(
             self._device_t, copy=True)
 
     def _build_device_full(self) -> dict:
@@ -517,6 +528,8 @@ class FlatIndex(Index):
             db16 = self._bf16_to_device(self._vectors)
             dev.update(db=db16, hi=db16, bf16_storage=True,
                        elo_max=self._zero())
+        elif not self._want_mirrors:
+            dev["db"] = self._to_device(self._vectors)
         elif self._capacity * self._dim * 8 > _MIRROR_MEM_LIMIT:
             # past the mirror gate: the f32 rows alone; the coarse kernels
             # round them on chip (K4, K5)
@@ -581,8 +594,10 @@ class FlatIndex(Index):
                                                 rows)
                 # patched rows can only RAISE the recorded residual bound
                 # (stale-high is safe: the 1-pass margin just widens)
-                dev["elo_max"] = torch.maximum(
-                    dev["elo_max"], coarse_kernel.residual_max_norm_f32(rows))
+                if "elo_max" in dev:
+                    dev["elo_max"] = torch.maximum(
+                        dev["elo_max"],
+                        coarse_kernel.residual_max_norm_f32(rows))
             self._dirty_slots.clear()
         return self._device
 
@@ -598,8 +613,10 @@ class FlatIndex(Index):
                      ) -> List[List[Tuple[int, float]]]:
         """Q queries in one device submission; optional pre-top-k slot
         mask (``mask_layout_version``: see search_batch_submit)."""
-        return self.search_batch_submit(
-            queries, k, slot_mask=slot_mask,
+        # non-polymorphic: PqFlatIndex serves its submit through its own
+        # search_batch, so dispatching here would recurse
+        return FlatIndex.search_batch_submit(
+            self, queries, k, slot_mask=slot_mask,
             mask_layout_version=mask_layout_version).collect()
 
     def search_batch_submit(self, queries: np.ndarray, k: int,

@@ -19,6 +19,8 @@ of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
     K7  coarse_minima_int8_1p_sup  coarse_minima.cu  int8, 1 pass, super
     K2  refine_dots                refine_dots.cu    f32, bf16 or int8 rows
         (launch keys refine_dots, refine_dots_bf16, refine_dots_int8)
+    K8  pq_decode                  pq_decode.cu      uint8 codes -> bf16 rows
+    K9  scan_min                   scan_min.cu       f32 per-tile minima
 """
 
 from __future__ import annotations
@@ -48,13 +50,15 @@ _REFINE_SRC = {torch.float32: (0, "refine_dots"),
                torch.bfloat16: (1, "refine_dots_bf16"),
                torch.int8: (2, "refine_dots_int8")}
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = ("coarse_minima.cu", "refine_dots.cu")
+_SOURCES = ("coarse_minima.cu", "refine_dots.cu", "pq_decode.cu",
+            "scan_min.cu")
 _ARCH = "arch=compute_90a,code=sm_90a"
 
 launches = {"coarse_minima_1p_sup": 0, "coarse_minima": 0,
             "coarse_minima_f32_1p_sup": 0, "coarse_minima_f32": 0,
             "coarse_minima_1p": 0, "coarse_minima_int8_1p_sup": 0,
-            "refine_dots": 0, "refine_dots_bf16": 0, "refine_dots_int8": 0}
+            "refine_dots": 0, "refine_dots_bf16": 0, "refine_dots_int8": 0,
+            "pq_decode": 0, "scan_min": 0}
 # build facts of the loaded library (path, seconds, compiler output)
 build_info: dict = {}
 
@@ -118,6 +122,10 @@ def _lib() -> ctypes.CDLL:
     lib.vdb_coarse_minima.restype = i
     lib.vdb_refine_dots.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.vdb_refine_dots.restype = i
+    lib.vdb_pq_decode.argtypes = [p, p, p, l, i, i, i, p]
+    lib.vdb_pq_decode.restype = i
+    lib.vdb_scan_min.argtypes = [p, p, p, p, p, p, l, i, i, i, i, p]
+    lib.vdb_scan_min.restype = i
     build_info.update(path=str(so), seconds=seconds, log=log)
     return lib
 
@@ -284,7 +292,67 @@ def refine_dots(tile_idx, queries, db, m: int, scales=None):
     return out
 
 
+def pq_decode(codes, cb):
+    """K8: (rows, m) uint8 codes, (m, ksub, dsub) bf16 codebook -> (rows,
+    m*dsub) bf16 rows, row i's subspace c = codeword codes[i, c] bit for
+    bit. Any row count, any dsub, ksub <= 256; every code must be < ksub
+    (pq_encode emits them so, PqFlatIndex.adopt_codes checks)."""
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"pq_decode kernel needs CUDA tensors, got {dev}")
+    if codes.dim() != 2 or cb.dim() != 3:
+        raise ValueError("pq_decode: codes must be (rows, m), cb (m, ksub, "
+                         "dsub)")
+    rows, m = codes.shape
+    _, ksub, dsub = cb.shape
+    if not 1 <= ksub <= 256:
+        raise ValueError(f"pq_decode: ksub {ksub} must be in [1, 256]")
+    _check("codes", codes, torch.uint8, (rows, m), dev)
+    _check("cb", cb, torch.bfloat16, (m, ksub, dsub), dev)
+    out = torch.empty((rows, m * dsub), dtype=torch.bfloat16, device=dev)
+    if rows == 0 or m == 0:
+        return out
+    rc = _lib().vdb_pq_decode(codes.data_ptr(), cb.data_ptr(),
+                              out.data_ptr(), rows, m, ksub, dsub,
+                              _stream(dev))
+    _raise_on(rc, "pq_decode")
+    launches["pq_decode"] += 1
+    return out
+
+
+def scan_min(queries, qaux, db, raux, invalidf, mode: str, tile_rows: int):
+    """K9: (Q, N / tile_rows) f32 per-tile minima of the f32 scores of
+    ``queries`` (Q, d) against ``db`` (N, d) rows (IEEE fmaf dots; the
+    euclidean / dot / cosine forms of vectordb_tpu's _scan_min_kernel,
+    1e30 added where ``invalidf`` (N,) is 1)."""
+    dev = db.device
+    if dev.type != "cuda":
+        raise ValueError(f"scan_min kernel needs CUDA tensors, got {dev}")
+    q, d = queries.shape
+    n = db.shape[0]
+    if tile_rows < 1 or n % tile_rows:
+        raise ValueError(f"rows {n} must be a multiple of tile_rows "
+                         f"{tile_rows}")
+    f32 = torch.float32
+    _check("queries", queries, f32, (q, d), dev)
+    _check("qaux", qaux, f32, (q,), dev)
+    _check("db", db, f32, (n, d), dev)
+    _check("raux", raux, f32, (n,), dev)
+    _check("invalidf", invalidf, f32, (n,), dev)
+    out = torch.empty((q, n // tile_rows), dtype=f32, device=dev)
+    if q == 0 or n == 0:
+        return out
+    rc = _lib().vdb_scan_min(queries.data_ptr(), qaux.data_ptr(),
+                             db.data_ptr(), raux.data_ptr(),
+                             invalidf.data_ptr(), out.data_ptr(), n, q, d,
+                             tile_rows, _MODES[mode], _stream(dev))
+    _raise_on(rc, "scan_min")
+    launches["scan_min"] += 1
+    return out
+
+
 __all__ = ["coarse_minima_1p_sup", "coarse_minima", "coarse_minima_f32_1p_sup",
            "coarse_minima_f32", "coarse_minima_1p",
-           "coarse_minima_int8_1p_sup", "refine_dots", "launches",
+           "coarse_minima_int8_1p_sup", "refine_dots", "pq_decode",
+           "scan_min", "launches",
            "reset_launches", "load", "build_info"]

@@ -3,8 +3,11 @@
 Port of ``vectordb_tpu/server/app.py`` (reference src/server/mod.rs:13-51):
 ``AppState`` holds the store and metrics behind a readers-writer lock;
 ``start_flat`` builds the state and serves over the stdlib
-``ThreadingHTTPServer``. Route logic lives in routes.Api, which the
-in-process tests drive directly.
+``ThreadingHTTPServer``; ``serve`` takes any store's state, e.g. a PQ
+store's (``VectorStore.with_index(PqFlatIndex(metric))``, as the CLI's
+``--index pq serve`` builds it; the ``refine`` knob reaches it through
+the routes). Route logic lives in routes.Api, which the in-process tests
+drive directly.
 
 Not in this slice: the native epoll front-end (``backend="native"``,
 ROADMAP queue 1 item 8), the query batcher (``batch_window_ms > 0``,
