@@ -10,7 +10,12 @@ nothing is caught and passed over):
      against its plain PyTorch version on the same CUDA tensors (d=768,
      N=2^16, Q=256, all three metrics, 10% dead rows), max error beside
      its limit (see ``limits``), and a control per kernel that must break
-     the limit;
+     the limit; then the accumulation reading of both coarse bodies: raw
+     dots read through K1 ("wgmma" body) and K6 ("mma_sync") with 15 of
+     every 16 rows dead (``ck._probe_inv``), against f64 dots of the same
+     bf16 operands, max |err| / (d 2^-24 sum|x_i q_i|) on N(0,1) data and
+     on U(1, 2) data (every product positive), each held to the
+     certificates' coefficient for its body;
   3. the f32 slice at full size through the public entry points:
      VectorStore.with_flat_index(EUCLIDEAN, device="cuda"), 2^20 x 768
      seeded rows through insert_batch, a Q=4096, k=10 search_batch exact
@@ -53,7 +58,9 @@ after it: the store searches of phases 3 and 4 (K1, K2, K3); each
 storage store's searches (K4/K7 and K2 by source); each forced fallback
 (K5); the legacy fast runs (K6, K5); the PQ store's searches (K8); the
 two-phase searches (K9). Every kernel of a path must have launched in its
-window; the direct comparison calls are outside them.
+window; the direct comparison calls are outside them. Every K1 and K4
+launch in the windows of phase 3 and of phase 7's bf16 and f32 stores must
+have taken the "wgmma" body (``cuda_kernels.routes``).
 The line before the last is the card, the one before it the JSON kernel
 table; the last line is the JSON contract line {"ok": true, ...}.
 It exits non-zero without a card, and when the package is not beside it.
@@ -266,11 +273,24 @@ def library_ms(a, b, torch):
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bnd,
-               lib_ms, src=SRC):
-    return {"name": name, "route": "cuda", "source": CSRC + source,
-            "replaces": f"{src}:{replaces}", "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
+               lib_ms, src=SRC, body=None):
+    row = {"name": name, "route": "cuda", "source": CSRC + source,
+           "replaces": f"{src}:{replaces}", "launches": launches,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
+    if body is not None:
+        row["body"] = body
+    return row
+
+
+def check_wgmma(window, key, cuda_kernels):
+    """Every launch of coarse kernel ``key`` in the window just read took
+    the "wgmma" body; returns its route counts."""
+    got = dict(cuda_kernels.routes[key])
+    if got["mma_sync"] or got["wgmma"] != cuda_kernels.launches[key]:
+        fail(f"{window}: {key} launches {cuda_kernels.launches[key]}, by "
+             f"body {got}: every one must take the wgmma body")
+    return got
 
 
 def free(torch):
@@ -410,6 +430,44 @@ def phase2(rng, mode_of, card, np, torch, ck, cuda_kernels, flat, worst):
         del db, hi, lo, codes, got, plain, out, k6, k3_plain3, k9p, k8p
 
 
+def accum_phase(rng, card, np, torch, ck, cuda_kernels):
+    """Phase 2's accumulation reading (module docstring): {(body, data):
+    reading}. Fails if a reading passes its body's coefficient."""
+    dev = torch.device("cuda")
+    n, q = 1 << 16, 256
+    inv, live = ck._probe_inv(n, dev)
+    qrow = torch.zeros((1, q), dtype=torch.float32, device=dev)
+    col = torch.zeros((1, n), dtype=torch.float32, device=dev)
+    read = {}
+    for data in ("N(0,1)", "U(1,2)"):
+        if data == "N(0,1)":
+            x = make_rows(rng, n, D, np)
+            qs = rng.standard_normal((q, D), dtype=np.float32)
+        else:
+            x = rng.uniform(1.0, 2.0, (n, D)).astype(np.float32)
+            qs = rng.uniform(1.0, 2.0, (q, D)).astype(np.float32)
+        hi = torch.from_numpy(x).to(dev).to(torch.bfloat16)
+        qThi = torch.from_numpy(qs).to(dev).T.contiguous().to(torch.bfloat16)
+        if cuda_kernels.coarse_body("mirrors", hi, 1, True) != "wgmma":
+            fail("the accumulation probe's K1 shape does not route to wgmma")
+        t_w, _ = cuda_kernels.coarse_minima_1p_sup(qThi, qrow, hi, col, inv,
+                                                   "dot")
+        t_m = cuda_kernels.coarse_minima_1p(qThi, qrow, hi, col, inv, "dot")
+        torch.cuda.synchronize()
+        for body, t in (("wgmma", t_w), ("mma_sync", t_m)):
+            read[(body, data)] = ck._accum_reading(t, hi.float(), qThi, live)
+        del hi, qThi, t_w, t_m
+    say(f"phase 2 accumulation reading, max |dot - f64 dot| / (d 2^-24 "
+        f"sum|x_i q_i|), N={n} d={D} Q={q}: " + "; ".join(
+            f"{body} on {data} {v:.6f} (coefficient "
+            f"{ck._accum_coeff(body)})" for (body, data), v in read.items())
+        + f"  [{card}]")
+    bad = [k for k, v in read.items() if not v <= ck._accum_coeff(k[0])]
+    if bad:
+        fail(f"an accumulation reading passes its body's coefficient: {bad}")
+    return read
+
+
 def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
     """One storage mode at full size through the store (see the module
     docstring, phase 7). Returns the kernel table's rows it measured."""
@@ -454,11 +512,15 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
         "bf16": ("coarse_minima_1p_sup", "refine_dots_bf16"),
         "int8": ("coarse_minima_int8_1p_sup", "refine_dots_int8"),
         "f32": ("coarse_minima_f32_1p_sup", "refine_dots")}[kind]
-    say(f"phase 7 {kind} launch counts (this store's searches): "
-        f"{ {k: v for k, v in counts.items() if v} }")
     if counts[coarse_key] < 1 or counts[refine_key] < 1:
         fail(f"the {kind} store's searches did not launch {coarse_key} and "
              f"{refine_key}: {counts}")
+    bodies = (check_wgmma(f"phase 7 {kind}", coarse_key, cuda_kernels)
+              if kind in ("bf16", "f32")
+              else dict(cuda_kernels.routes[coarse_key]))
+    say(f"phase 7 {kind} launch counts (this store's searches): "
+        f"{ {k: v for k, v in counts.items() if v} }; {coarse_key} by body "
+        f"{bodies}")
 
     with index._lock:
         state = dict(index._sync_device())
@@ -573,7 +635,9 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
     out["refine"] = (ms_r, ms_rp, refine_bound(tidx, D, itemsize, torch,
                                                scales is not None))
     say(f"phase 7 {kind} times [{card}]: {coarse_key} N={n} Q={nq} "
-        f"{ms_c:.3f} ms (plain {ms_cp:.3f}, bf16 matmul {lib_c:.3f}, bound "
+        f"{ms_c:.3f} ms ({2.0 * n * nq * D / ms_c / 1e9:.1f} TFLOP/s, body "
+        f"{cuda_kernels.coarse_body(src, arr, 1, True)}; plain {ms_cp:.3f}, "
+        f"bf16 matmul {lib_c:.3f}, bound "
         f"{out['coarse'][3][0]:.3f}), max err {e_c:.3e} (limit {lim:.3e}); "
         f"{refine_key} Q={nq} m={mp} {ms_r:.3f} ms (plain {ms_rp:.3f}, "
         f"bound {out['refine'][2][0]:.3f}), max err {e_r:.3e} (limit "
@@ -1068,6 +1132,10 @@ def main() -> None:
     # -- phase 2: kernels against their plain versions ------------------
     worst: dict = {}
     phase2(rng, mode_of, card, np, torch, ck, cuda_kernels, flat, worst)
+    # its own generator: the rows of the later phases stay those of
+    # earlier runs
+    accum = accum_phase(np.random.default_rng([args.seed, 2]), card, np,
+                        torch, ck, cuda_kernels)
     free(torch)
 
     # -- phase 3: the slice at full size through the entry points -------
@@ -1115,6 +1183,7 @@ def main() -> None:
     sres = small.search_batch(small_batch)
     small_s = time.perf_counter() - t0
     counts = dict(cuda_kernels.launches)
+    k1_bodies = check_wgmma("phase 3", "coarse_minima_1p_sup", cuda_kernels)
     k3_small = counts["coarse_minima"] - k3_big
 
     with index._lock:
@@ -1143,7 +1212,7 @@ def main() -> None:
         f"[{card}]")
     path_keys = ("coarse_minima_1p_sup", "coarse_minima", "refine_dots")
     say(f"launch counts (main path: the store searches of phases 3 and 4): "
-        f"{ {k: counts[k] for k in path_keys} }")
+        f"{ {k: counts[k] for k in path_keys} }; K1 by body {k1_bodies}")
     if min(counts[k] for k in path_keys) < 1:
         fail(f"a kernel of the path never launched: {counts}")
 
@@ -1278,16 +1347,21 @@ def main() -> None:
     rate = float(cert.float().mean())
     b1 = coarse_bound(n, D, nq, 1, n * D * 2, True)
     b3 = coarse_bound(n3, D, 1024, 3, 2 * n3 * D * 2, False)
-    say(f"phase 6 times [{card}]: K1 N={n} Q={nq} {ms1:.3f} ms (plain "
+    say(f"phase 6 times [{card}]: K1 N={n} Q={nq} {ms1:.3f} ms "
+        f"({2.0 * n * nq * D / ms1 / 1e9:.1f} TFLOP/s, body "
+        f"{cuda_kernels.coarse_body('mirrors', state['hi'], 1, True)}; plain "
         f"{ms1p:.3f}, bf16 matmul {lib1:.3f}, bound {b1[0]:.3f}); K2 Q={nq} "
         f"m={mp} {ms2:.3f} ms (plain {ms2p:.3f}, bound {b2[0]:.3f}); K3 "
         f"3-pass N={n3} Q=1024 {ms3:.3f} ms (plain {ms3p:.3f}, bf16 matmul "
         f"(N, 3d) x (3d, Q) {lib3:.3f}, bound {b3[0]:.3f}); tier-1 "
-        f"certification rate {rate:.6f} ({int(cert.sum())}/{nq})")
+        f"certification rate {rate:.6f} ({int(cert.sum())}/{nq}) with "
+        f"the wgmma coefficient {ck._accum_coeff('wgmma')} (phase 2 reading "
+        f"{max(v for (b, _), v in accum.items() if b == 'wgmma'):.6f})")
     table = [
-        kernel_row("K1 coarse_minima_1p_sup", "coarse_minima.cu", 261,
+        kernel_row("K1 coarse_minima_1p_sup", "coarse_wgmma.cu", 261,
                    counts["coarse_minima_1p_sup"],
-                   worst["coarse_minima_1p_sup"], ms1, ms1p, b1, lib1),
+                   worst["coarse_minima_1p_sup"], ms1, ms1p, b1, lib1,
+                   body="wgmma"),
         kernel_row("K2 refine_dots", "refine_dots.cu", 471,
                    counts["refine_dots"], worst["refine_dots"], ms2, ms2p,
                    b2, None),
@@ -1320,10 +1394,11 @@ def main() -> None:
     k5_launches = (f32["fb_counts"]["coarse_minima_f32"]
                    + f32["legacy"]["coarse_minima_f32"])
     table += [
-        kernel_row("K4 coarse_minima_f32_1p_sup", "coarse_minima.cu", 295,
+        kernel_row("K4 coarse_minima_f32_1p_sup", "coarse_wgmma.cu", 295,
                    f32["counts"]["coarse_minima_f32_1p_sup"],
                    worst["coarse_minima_f32_1p_sup"], f32["coarse"][0],
-                   f32["coarse"][1], f32["coarse"][3], f32["coarse"][2]),
+                   f32["coarse"][1], f32["coarse"][3], f32["coarse"][2],
+                   body="wgmma"),
         kernel_row("K5 coarse_minima_f32", "coarse_minima.cu", 704,
                    k5_launches, worst["coarse_minima_f32"], f32["k5"][0],
                    f32["k5"][1], f32["k5"][3], f32["k5"][2]),

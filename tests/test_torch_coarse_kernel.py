@@ -275,8 +275,10 @@ def test_extreme_magnitudes_are_refused_in_either(fn, extra):
 
 def test_accumulation_coefficient_is_jax_on_cpu():
     """The plain versions round to nearest: the JAX coefficient holds on
-    the CPU (CUDA tensor-core results double it)."""
-    assert tck._accum_coeff(torch.zeros(1)) == 1.0
+    the CPU (results of the CUDA bodies take their own coefficient)."""
+    rows = torch.zeros((256, 8), dtype=torch.bfloat16)
+    assert tck._coarse_body("mirrors", rows, 1, True) == "plain"
+    assert tck._accum_coeff(tck._coarse_body("mirrors", rows, 1, True)) == 1.0
 
 
 def test_pools_match_jax():

@@ -71,6 +71,79 @@ def test_k1_matches_plain(dev, mode, n, d, q):
     assert _live_err(s_k, s_p) <= bound
 
 
+@pytest.mark.parametrize("src", ["mirrors", "f32"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n, d, q, body", [
+    (256, 768, 7, "wgmma"),             # one super-tile, Qp < one query tile
+    (133 * 256, 200, 100, "wgmma"),     # past one wave of persistent blocks
+    (4096, 40, 4133, "wgmma"),          # d < one stage, ragged query tiles
+    (512, 768, 130, "wgmma"),
+    (512, 37, 100, "mma_sync")])        # ragged d: TMA cannot take it
+def test_k1_k4_bodies_match_plain(dev, src, mode, n, d, q, body):
+    """K1 and K4 against _minima_1p_sup_plain on the body their shape
+    routes to, with 10% dead rows and fully dead tiles; each super minimum
+    is the minimum of its 16 tile minima exactly."""
+    rng = np.random.default_rng(n + d + q)
+    db = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(
+        dev)
+    valid_np = rng.random(n) >= 0.1
+    valid_np[16:48] = False                 # tiles 1 and 2 fully dead
+    valid = torch.from_numpy(valid_np).to(dev)
+    queries = torch.from_numpy(
+        rng.standard_normal((q, d), dtype=np.float32)).to(dev)
+    sq = (db * db).sum(1)
+    qThi, _, _, qn, qrow, col, inv = ck._query_terms(
+        queries, sq, torch.sqrt(sq), valid, mode)
+    arr = db if src == "f32" else db.to(torch.bfloat16)
+    key = {"f32": "coarse_minima_f32_1p_sup",
+           "mirrors": "coarse_minima_1p_sup"}[src]
+    assert cuda_kernels.coarse_body(src, arr, 1, True) == body
+    before = dict(cuda_kernels.routes[key])
+    t_k, s_k = ck._minima_1p_sup(qThi, qrow, arr, col, inv, mode, src)
+    t_p, s_p = ck._minima_1p_sup_plain(qThi, qrow, arr, col, inv, mode, src)
+    torch.cuda.synchronize()
+    assert cuda_kernels.routes[key][body] == before[body] + 1
+    assert t_k.shape == (n // 16, q) and s_k.shape == (n // 256, q)
+    lim = 2.0 ** -16 * (1.0 if mode == "cosine" else
+                        float(torch.sqrt(sq.max())) * float(qn.max()))
+    assert _live_err(t_k, t_p) <= lim
+    assert _live_err(s_k, s_p) <= lim
+    assert torch.equal(s_k, t_k.reshape(-1, 16, q).amin(dim=1))
+
+
+@pytest.mark.parametrize("data", ["normal", "uniform12"])
+def test_accumulation_reading_within_coefficient(dev, data):
+    """Raw dots read through each body (K1 on wgmma, K6 on mma_sync) with
+    15 of every 16 rows dead, against f64 dots of the same bf16 operands,
+    in units of d 2^-24 sum|x_i q_i|: each reading is at most the
+    coefficient the certificates use for that body. "uniform12": rows and
+    queries from U(1, 2), every product positive."""
+    rng = np.random.default_rng(21)
+    n, d, q = 4096, 768, 64
+    if data == "normal":
+        x = rng.standard_normal((n, d), dtype=np.float32)
+        qs = rng.standard_normal((q, d), dtype=np.float32)
+    else:
+        x = rng.uniform(1.0, 2.0, (n, d)).astype(np.float32)
+        qs = rng.uniform(1.0, 2.0, (q, d)).astype(np.float32)
+    hi = torch.from_numpy(x).to(dev).to(torch.bfloat16)
+    qThi = torch.from_numpy(qs).to(dev).T.contiguous().to(torch.bfloat16)
+    inv, live = ck._probe_inv(n, dev)
+    qrow = torch.zeros((1, q), device=dev)
+    col = torch.zeros((1, n), device=dev)
+    before = dict(cuda_kernels.routes["coarse_minima_1p_sup"])
+    t_w, _ = cuda_kernels.coarse_minima_1p_sup(qThi, qrow, hi, col, inv,
+                                               "dot")
+    t_m = cuda_kernels.coarse_minima_1p(qThi, qrow, hi, col, inv, "dot")
+    torch.cuda.synchronize()
+    assert (cuda_kernels.routes["coarse_minima_1p_sup"]["wgmma"]
+            == before["wgmma"] + 1)
+    r_w = ck._accum_reading(t_w, hi.float(), qThi, live)
+    r_m = ck._accum_reading(t_m, hi.float(), qThi, live)
+    assert r_w <= ck._accum_coeff("wgmma"), r_w
+    assert r_m <= ck._accum_coeff("mma_sync"), r_m
+
+
 @pytest.mark.parametrize("passes", [3, 1])
 @pytest.mark.parametrize("mode", MODES)
 def test_k3_matches_plain(dev, mode, passes):

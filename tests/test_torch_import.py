@@ -16,7 +16,9 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "vectordb_tpu_torch"
 MODULES = sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")
-                 if "_build" not in p.parts) + ["chip_smoke.py"]
+                 if "_build" not in p.parts) + [
+                     "chip_smoke.py", "tools/coarse_bodies.py",
+                     "tools/profile_torch_slice.py"]
 
 _PROBE = """
 import sys
@@ -75,6 +77,8 @@ def test_wrappers_refuse_cpu_tensors():
                                  torch.zeros((8, 32)), torch.zeros((64, 32)),
                                  2)
     assert sum(cuda_kernels.launches.values()) == 0
+    assert all(n == 0 for body in cuda_kernels.routes.values()
+               for n in body.values())
 
 
 def test_cuda_device_without_card_raises():

@@ -1,20 +1,23 @@
-// Coarse bf16 scan with fused tile / super-tile minima (kernels K1, K3-K7).
+// Coarse bf16 scan with fused tile / super-tile minima, the mma.sync body
+// (kernels K3, K5, K6, K7, and the K1 / K4 shapes TMA cannot take).
 //
-// One template, coarse_minima_kernel<SRC, PASSES, EMIT_SUPER>, replaces six
+// One template, coarse_minima_kernel<SRC, PASSES, EMIT_SUPER>, serves six
 // Pallas kernels of vectordb_tpu/ops/coarse_kernel.py:
-//   K1  _coarse_kernel_1p_sup (launcher _minima_1p_sup, src "mirrors" or
-//       "bf16"): SRC=MIRRORS, PASSES=1, EMIT_SUPER -- one bf16 pass, 16-row
-//       tile minima AND 256-row super-tile minima from the same pass;
 //   K3  _coarse_kernel (launcher _coarse_minima): SRC=MIRRORS, PASSES=3
 //       (bf16x3: hi.qhi + lo.qhi + hi.qlo) or 1, tile minima only;
-//   K4  _coarse_kernel_f32_1p_sup (src "f32"): SRC=F32, PASSES=1,
-//       EMIT_SUPER -- K1 over the f32 rows, rounded to bf16 on chip;
 //   K5  _coarse_kernel_f32 (launcher _coarse_minima_f32): SRC=F32,
 //       PASSES=3 or 1 -- K3 over the f32 rows, hi/lo split on chip;
 //   K6  _coarse_kernel_1p (launchers _coarse_minima_1p(_tq)): SRC=MIRRORS,
 //       PASSES=1, tile minima only (the same body as K3 at one pass);
 //   K7  _coarse_kernel_int8_1p_sup (src "int8"): SRC=INT8, PASSES=1,
-//       EMIT_SUPER -- K1 over int8 codes, the dot times a pow2 row scale.
+//       EMIT_SUPER -- K1 over int8 codes, the dot times a pow2 row scale;
+//   K1  _coarse_kernel_1p_sup (src "mirrors" or "bf16"): SRC=MIRRORS,
+//       PASSES=1, EMIT_SUPER, and
+//   K4  _coarse_kernel_f32_1p_sup (src "f32"): SRC=F32, PASSES=1,
+//       EMIT_SUPER -- only for the shapes TMA cannot take (d not a
+//       multiple of 8, or rows not 16-byte aligned). Every other K1 and K4
+//       launch runs coarse_wgmma.cu (TMA ring + wgmma, persistent blocks);
+//       ops/cuda_kernels.py's _coarse_route picks the body by shape.
 //
 // What it computes: for every 16-row database tile t and query q,
 //   min over the tile's rows r of score(r, q) + inv[r] * 1e30, with
@@ -39,9 +42,11 @@
 // 6.6 TFLOP per pass at N=2^20, Q=4096, d=768). The source rows (1.6 GB
 // of bf16, 3.2 GB of f32 or 0.8 GB of int8 at that shape) are far larger
 // than the 50 MB L2, and the tile minima write is 1.07 GB. At the tensor
-// cores' bf16 rate the GEMM is compute-bound; this first version is
-// limited by its instruction throughput (single-stage shared-memory tiles, no
-// cp.async / TMA / wgmma), and K4/K5 add the on-chip rounding per element.
+// cores' bf16 rate the GEMM is compute-bound; this body is limited by its
+// instruction throughput (single-stage shared-memory tiles, no cp.async /
+// TMA / wgmma: ~8-10% of the bf16 rate), and K5 adds the on-chip split per
+// element. coarse_wgmma.cu is the redesign for Hopper; K3, K5, K6 and K7
+// are to move onto it (ROADMAP queue 2).
 //
 // What the design does about it: one block owns one 256-row super-tile x
 // 64 queries, so the super minimum is a block-local reduction (no second
@@ -51,13 +56,13 @@
 // lives only in the shared-memory fill (16-byte loads of bf16, two of f32,
 // one 8-byte load of int8 codes per 8 elements; scalar loads for ragged
 // d), so every variant feeds the same mma loop. The score epilogue and
-// both minima are fused into the accumulator registers. A faster version
-// (TMA ring + wgmma, persistent blocks) is later work.
+// both minima are fused into the accumulator registers.
 //
 // Numerics: tensor-core f32 accumulation does not round to nearest
 // (Fasi, Higham, Mikaitis & Pranesh, "Numerical behavior of NVIDIA tensor
 // cores", PeerJ CS 2021), so the certificates in ops/coarse_kernel.py
-// double their coarse accumulation term for results of this kernel.
+// double their coarse accumulation term for results of this body
+// (_accum_coeff("mma_sync")).
 // Score arithmetic uses __fadd_rn/__fmul_rn so it is not contracted into
 // FMAs and matches the plain version's operation order.
 

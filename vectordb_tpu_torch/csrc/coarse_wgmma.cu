@@ -1,0 +1,575 @@
+// Coarse bf16 scan for Hopper: a TMA ring feeding wgmma, with the 16-row
+// tile minima and 256-row super-tile minima fused into the epilogue
+// (kernels K1 and K4).
+//
+// One template, coarse_wgmma_kernel<SRC>, replaces two Pallas kernels of
+// vectordb_tpu/ops/coarse_kernel.py:
+//   K1  _coarse_kernel_1p_sup (:261; launcher _minima_1p_sup, src
+//       "mirrors" or "bf16"): SRC=MIRRORS -- one bf16 pass over the hi
+//       mirror (or a bf16-stored database);
+//   K4  _coarse_kernel_f32_1p_sup (:295; src "f32"): SRC=F32 -- the same
+//       pass over the f32 rows, rounded to bf16 on chip.
+// It computes what coarse_minima.cu's coarse_minima_kernel<SRC, 1, true>
+// computes, with the same score forms (score_of: __fadd_rn / __fmul_rn in
+// the same order), the same PENALTY masking, and the same outputs: (N/16,
+// Qp) tile minima and (N/256, Qp) super minima, f32, tile-major. Each
+// super minimum is the minimum of its 16 tile minima, exactly.
+// ops/cuda_kernels.py's _coarse_route sends here the K1 and K4 launches
+// whose operands TMA can take (d % 8 == 0: a 16-byte row pitch for the bf16
+// queries and for the rows; 16-byte aligned rows); every other shape, and
+// K3, K5, K6 and K7, stays on coarse_minima.cu.
+//
+// What bounds it on an H100: a bf16 GEMM of 2*N*Q*d flops (6.6 TFLOP at
+// N=2^20, Q=4096, d=768: 6.7 ms at the 989 TFLOP/s dense bf16 rate), so
+// the tensor cores, provided (1) they are fed by wgmma, the only Hopper
+// instruction that reaches that rate, (2) loads stay in flight while they
+// work, and (3) the operand traffic from L2 to the SMs stays under L2's
+// rate: a 256 x 128 block tile moves (256 + 128) * d * 2 bytes per 2 *
+// 256 * 128 * d flops, 77 GB at that shape (129 GB for K4's f32 rows).
+//
+// What the design does about it:
+//   - Block tile: one 256-row super-tile (M: database rows) x 128 queries
+//     (N). Two consumer warpgroups own 128 rows each and issue 2 x
+//     m64n128k16 wgmma per k16 step (128 f32 accumulators a thread).
+//   - Operands reach shared memory by TMA into a ring of stages: one
+//     producer thread waits on a stage's "empty" mbarrier, arms its "full"
+//     barrier with the byte count and issues two 2-D tensor loads; the
+//     consumers wait on "full", run wgmma, and arrive on "empty". setmaxnreg
+//     moves registers from the producer warpgroup (40) to the consumers
+//     (232).
+//   - MIRRORS: stages of 64 bf16 of depth (128-byte rows, 128B swizzle), 4
+//     stages (48 KB each); A and B both from shared memory by descriptor;
+//     one wgmma group stays in flight while the next stage is issued.
+//   - F32: stages of 32 f32 of depth (128-byte rows, 128B swizzle) and 32
+//     bf16 of queries (64-byte rows, 64B swizzle), 5 stages (40 KB each).
+//     The consumers read their A fragments from the f32 stage, round them
+//     with __floats2bfloat162_rn (round to nearest even, as torch's cast
+//     that computes elo_max) and issue wgmma with A from registers. A
+//     converting warpgroup that writes a swizzled bf16 copy was the
+//     alternative; it costs a second shared-memory buffer per stage (which
+//     would cut the ring to 3 stages), a proxy fence and a barrier between
+//     warpgroups per stage, where the register route reads each f32
+//     element once, conflict-free, in the thread that multiplies it.
+//   - The queries arrive K-major: the wrapper passes one (Qp, d) bf16 copy
+//     of qThi per call (6.3 MB at Q=4096, d=768), so both operands take
+//     the same K-major swizzled layout and no transpose bit is used. TMA
+//     fills rows past Qp and columns past d with zeros.
+//   - Epilogue in registers: in an m64 accumulator, warp w of a warpgroup
+//     holds rows 16w..16w+15 of its slab -- exactly one 16-row tile. The
+//     score, the penalty and the min over the lane's two rows happen in
+//     registers; a reduce-scatter over the 8 row groups (shuffles at lane
+//     distance 16, 8, 4) leaves each lane 4 finished tile minima, which go
+//     to a double-buffered shared tile of 16 x 128 minima. After one named
+//     barrier of the consumers, the tile minima are written coalesced and
+//     the super minima are the column minima of that tile.
+//   - Persistent blocks: one per SM, walking the tiles query block
+//     fastest, so the blocks that share a database super-tile run together
+//     and the rows are read from HBM about once; the ring carries on across
+//     tiles, so the next tile's loads overlap this tile's epilogue.
+//
+// Numerics: the dots are bf16 x bf16 products summed in f32 by the tensor
+// cores. How wgmma accumulates is not documented; chip_smoke.py phase 2
+// reads its error on raw dots and ops/coarse_kernel._accum_coeff sets the
+// certificates' coefficient for this body from that reading.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int SRC_MIRRORS = 0;     // bf16 hi mirror / bf16-stored rows
+constexpr int SRC_F32 = 1;         // f32 rows, rounded to bf16 on chip
+
+constexpr int SUB = 16;            // rows per tile
+constexpr int SUPER = 16;          // tiles per super-tile
+constexpr int BM = SUB * SUPER;    // database rows per block tile
+constexpr int BN = 128;            // queries per block tile
+constexpr int CONSUMERS = 2;       // consumer warpgroups (128 rows each)
+constexpr int CTHREADS = CONSUMERS * 128;
+constexpr int THREADS = CTHREADS + 128;   // + the producer warpgroup
+constexpr float PENALTY = 1e30f;
+
+template <int SRC> struct Cfg;
+template <> struct Cfg<SRC_MIRRORS> {
+  static constexpr int BK = 64;          // bf16 depth per stage
+  static constexpr int STAGES = 4;
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr uint64_t B_LAYOUT = 1;    // wgmma: 128B swizzle
+  static constexpr uint32_t B_SBO = 8 * BK * 2;
+};
+template <> struct Cfg<SRC_F32> {
+  static constexpr int BK = 32;          // f32 depth per stage
+  static constexpr int STAGES = 5;
+  static constexpr int A_BYTES = BM * BK * 4;
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr uint64_t B_LAYOUT = 2;    // wgmma: 64B swizzle
+  static constexpr uint32_t B_SBO = 8 * BK * 2;
+};
+
+template <int SRC>
+constexpr int smem_bytes() {
+  using C = Cfg<SRC>;
+  return 1024                                          // alignment slack
+         + C::STAGES * (C::A_BYTES + C::B_BYTES)       // the ring
+         + 2 * SUPER * BN * 4                          // tile minima x 2
+         + 2 * C::STAGES * 8;                          // mbarriers
+}
+static_assert(smem_bytes<SRC_MIRRORS>() <= 232448, "shared memory");
+static_assert(smem_bytes<SRC_F32>() <= 232448, "shared memory");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// 2-D tensor load: box at (inner c0, outer c1) into shared memory at dst,
+// completion counted in bytes on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major swizzled tile: start address,
+// leading offset (unused for swizzled K-major: 1), stride offset between
+// 8-row groups, layout (1: 128B swizzle, 2: 64B). Buffers are 1024-byte
+// aligned, so the base offset is 0; a k16 step adds 32 bytes to the start.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint64_t layout,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma window
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define VDB_ACC8(b)                                                         \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),           \
+      "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+#define VDB_ACC64                                                           \
+  VDB_ACC8(0), VDB_ACC8(8), VDB_ACC8(16), VDB_ACC8(24), VDB_ACC8(32),       \
+      VDB_ACC8(40), VDB_ACC8(48), VDB_ACC8(56)
+#define VDB_REGS64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (+)= A . B, m64n128k16, A and B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VDB_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : VDB_ACC64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A . B, m64n128k16, A from registers (the mma.m16n8k16 A fragment
+// of the warp's 16 rows), B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VDB_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : VDB_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+#undef VDB_ACC8
+#undef VDB_ACC64
+#undef VDB_REGS64
+
+__device__ __forceinline__ float score_of(float dot, float colr, float qr,
+                                          float invr, int mode) {
+  float s;
+  if (mode == 0) {
+    s = __fsub_rn(__fadd_rn(colr, qr), __fmul_rn(2.0f, dot));
+  } else if (mode == 1) {
+    s = -dot;
+  } else {
+    s = -__fmul_rn(__fmul_rn(dot, colr), qr);
+  }
+  return __fadd_rn(s, __fmul_rn(invr, PENALTY));
+}
+
+// one step of the reduce-scatter over a warp's row groups: the lane keeps
+// the lower (upper == 0) or upper half of v, takes the min with the same
+// half of its partner at lane distance ``dist``
+template <int HALF>
+__device__ __forceinline__ void reduce_half(float* v, int upper, int dist) {
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = fminf(keep, __shfl_xor_sync(0xffffffffu, send, dist));
+  }
+}
+
+// two rounded values of a 128B-swizzled f32 stage (rows of 32 floats):
+// row r, columns c and c + 1 (c even), as one packed bf16 pair
+__device__ __forceinline__ uint32_t bf16x2_at(const uint8_t* stage, int r,
+                                              int c) {
+  const int off = (r * 128 + c * 4) ^ ((r & 7) << 4);
+  const float2 x = *reinterpret_cast<const float2*>(stage + off);
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int SRC>
+__global__ void __launch_bounds__(THREADS, 1)
+coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
+                    const __grid_constant__ CUtensorMap tm_q,
+                    const float* __restrict__ qrow,
+                    const float* __restrict__ col,
+                    const float* __restrict__ inv,
+                    float* __restrict__ out_tile,
+                    float* __restrict__ out_sup, int d, int qp, int mode,
+                    int n_qblocks, int n_tiles) {
+  using C = Cfg<SRC>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* a_s = smem;
+  uint8_t* b_s = a_s + C::STAGES * C::A_BYTES;
+  float* tmin_s = reinterpret_cast<float*>(b_s + C::STAGES * C::B_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tmin_s + 2 * SUPER * BN);
+  uint64_t* empty = full + C::STAGES;
+  const int nk = (d + C::BK - 1) / C::BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), CTHREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CTHREADS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int q0 = (tile % n_qblocks) * BN;
+        const int row0 = (tile / n_qblocks) * BM;
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+          const uint32_t fb = smem_u32(&full[stage]);
+          mbar_expect_tx(fb, C::A_BYTES + C::B_BYTES);
+          tma_load(smem_u32(a_s + stage * C::A_BYTES), &tm_db, fb,
+                   kb * C::BK, row0);
+          tma_load(smem_u32(b_s + stage * C::B_BYTES), &tm_q, fb,
+                   kb * C::BK, q0);
+          if (++stage == C::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: wgmma over the ring, then the epilogue ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int ct = threadIdx.x;
+    const int w = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3;
+    float acc[2][64];
+    int stage = 0, buf = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int q0 = (tile % n_qblocks) * BN;
+      const long rblk = tile / n_qblocks;
+      if constexpr (SRC == SRC_MIRRORS) {
+        int prev = 0;
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(smem_u32(&full[stage]), phase);
+          // this warpgroup's 128 rows of 128 bytes, slab s at +64 rows
+          const uint32_t a0 =
+              smem_u32(a_s + stage * C::A_BYTES) + wg * 128 * 128;
+          const uint32_t b0 = smem_u32(b_s + stage * C::B_BYTES);
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < C::BK / 16; ++kk) {
+            const uint64_t db = smem_desc(b0 + kk * 32, C::B_LAYOUT,
+                                          C::B_SBO);
+#pragma unroll
+            for (int s = 0; s < 2; ++s)
+              wgmma_ss(acc[s], smem_desc(a0 + s * 64 * 128 + kk * 32, 1, 1024),
+                       db, (kb | kk) != 0);
+          }
+          wgmma_commit();
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          if (kb > 0) {            // the previous stage's group is done
+            wgmma_wait<1>();
+            mbar_arrive(smem_u32(&empty[prev]));
+          }
+          prev = stage;
+          if (++stage == C::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        mbar_arrive(smem_u32(&empty[prev]));
+      } else {
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(smem_u32(&full[stage]), phase);
+          const uint8_t* as = a_s + stage * C::A_BYTES;
+          // A fragments [kk][slab][4]: rows g and g + 8 of the warp's 16,
+          // columns 2t and 2t + 8 of the k16 step, rounded to bf16 (RNE)
+          uint32_t a[C::BK / 16][2][4];
+#pragma unroll
+          for (int kk = 0; kk < C::BK / 16; ++kk)
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              const int r = wg * 128 + s * 64 + w * 16 + g;
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int c = kk * 16 + 8 * h + 2 * t;
+                a[kk][s][2 * h] = bf16x2_at(as, r, c);
+                a[kk][s][2 * h + 1] = bf16x2_at(as, r + 8, c);
+              }
+            }
+          const uint32_t b0 = smem_u32(b_s + stage * C::B_BYTES);
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < C::BK / 16; ++kk) {
+            const uint64_t db = smem_desc(b0 + kk * 32, C::B_LAYOUT,
+                                          C::B_SBO);
+#pragma unroll
+            for (int s = 0; s < 2; ++s)
+              wgmma_rs(acc[s], a[kk][s], db, (kb | kk) != 0);
+          }
+          wgmma_commit();
+          // the A registers are read until the group completes
+          wgmma_wait<0>();
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          mbar_arrive(smem_u32(&empty[stage]));
+          if (++stage == C::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+
+      // ---- epilogue: score, penalty, tile minima, super minima ----
+      // acc[s][4j + e] holds row 16w + g + 8 (e >> 1) of slab s, query
+      // column 8j + 2t + (e & 1)
+      float* tm = tmin_s + buf * SUPER * BN;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int tl = wg * 8 + s * 4 + w;        // tile in the super-tile
+        const long r_lo = rblk * BM + tl * SUB + g;
+        const long r_hi = r_lo + 8;
+        const float col_lo = col[r_lo], col_hi = col[r_hi];
+        const float inv_lo = inv[r_lo], inv_hi = inv[r_hi];
+        float v[32];
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int q = q0 + 8 * j + 2 * t + e;
+            const float qr = q < qp ? __ldg(&qrow[q]) : 0.0f;
+            v[2 * j + e] =
+                fminf(score_of(acc[s][4 * j + e], col_lo, qr, inv_lo, mode),
+                      score_of(acc[s][4 * j + 2 + e], col_hi, qr, inv_hi,
+                               mode));
+          }
+        // over the 8 row groups g (lane bits 4, 3, 2): v[i] then holds the
+        // tile minimum of column 16g + 8 (i >> 1) + 2t + (i & 1)
+        reduce_half<16>(v, (g >> 2) & 1, 16);
+        reduce_half<8>(v, (g >> 1) & 1, 8);
+        reduce_half<4>(v, g & 1, 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          tm[tl * BN + 16 * g + 8 * (i >> 1) + 2 * t + (i & 1)] = v[i];
+      }
+      asm volatile("bar.sync 1, %0;\n" :: "n"(CTHREADS) : "memory");
+      for (int i = ct; i < SUPER * BN; i += CTHREADS) {
+        const int q = q0 + i % BN;
+        if (q < qp) out_tile[(rblk * SUPER + i / BN) * (long)qp + q] = tm[i];
+      }
+      if (ct < BN && q0 + ct < qp) {
+        float m = tm[ct];
+#pragma unroll
+        for (int i = 1; i < SUPER; ++i) m = fminf(m, tm[i * BN + ct]);
+        out_sup[rblk * (long)qp + q0 + ct] = m;
+      }
+      buf ^= 1;     // the next tile's minima go to the other buffer
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: reached through the
+// runtime's entry-point query, so the library links no libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 2-D row-major (outer, inner) tensor, boxes of (box_outer, box_inner);
+// elements past the tensor's edge load as zeros
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+              long inner, long outer, long pitch_bytes, int box_inner,
+              int box_outer, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int SRC>
+int launch(const void* qk, const void* qrow, const void* db, const void* col,
+           const void* inv, void* out_tile, void* out_sup, long n, int d,
+           int qp, int mode, cudaStream_t stream) {
+  using C = Cfg<SRC>;
+  const int n_qblocks = (qp + BN - 1) / BN;
+  const long n_tiles = (n / BM) * static_cast<long>(n_qblocks);
+  if (n_tiles < 1 || n_tiles > 0x7fffffffL || n > 0x7fffffffL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_db, tm_q;
+  const bool ok =
+      make_map(&tm_db,
+               SRC == SRC_F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+               db, d, n, static_cast<long>(d) * (SRC == SRC_F32 ? 4 : 2),
+               C::BK, BM, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      make_map(&tm_q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, qk, d, qp,
+               static_cast<long>(d) * 2, C::BK, BN,
+               C::B_LAYOUT == 1 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_64B);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = smem_bytes<SRC>();
+  cudaError_t e = cudaFuncSetAttribute(
+      coarse_wgmma_kernel<SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
+  coarse_wgmma_kernel<SRC><<<grid, THREADS, smem, stream>>>(
+      tm_db, tm_q, static_cast<const float*>(qrow),
+      static_cast<const float*>(col), static_cast<const float*>(inv),
+      static_cast<float*>(out_tile), static_cast<float*>(out_sup), d, qp,
+      mode, n_qblocks, static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface (loaded with ctypes). qk: the queries as (qp, d) bf16,
+// K-major; db: (n, d) bf16 (src 0) or f32 (src 1) rows, 16-byte aligned,
+// d % 8 == 0; n a positive multiple of 256; qp >= 1. mode: 0 euclidean,
+// 1 dot product, 2 cosine. Writes out_tile (n/16, qp) and out_sup (n/256,
+// qp). Launches on ``stream``, allocates nothing, returns a cudaError_t.
+extern "C" int vdb_coarse_wgmma(const void* qk, const void* qrow,
+                                const void* db, const void* col,
+                                const void* inv, void* out_tile,
+                                void* out_sup, long n, int d, int qp,
+                                int mode, int src, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 8 || d % 8 != 0 || qp < 1 || n % BM != 0 ||
+      reinterpret_cast<uintptr_t>(db) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(qk) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (src == SRC_MIRRORS)
+    return launch<SRC_MIRRORS>(qk, qrow, db, col, inv, out_tile, out_sup, n,
+                               d, qp, mode, s);
+  if (src == SRC_F32)
+    return launch<SRC_F32>(qk, qrow, db, col, inv, out_tile, out_sup, n, d,
+                           qp, mode, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -86,19 +86,56 @@ def supports_1p_int8(capacity: int, d: int, k_eff: int) -> bool:
     return supports_1p(capacity, d, k_eff)
 
 
-def _accum_coeff(t: torch.Tensor) -> float:
-    """Scale of the coarse accumulation term in both certificates, keyed
-    on the tensor the coarse kernel read (hi mirror, f32 rows or codes).
+# Scale of the coarse accumulation term in both certificates, by the body
+# that computed the coarse minima (``_coarse_body``). The JAX package's
+# margins assume round-to-nearest f32 accumulation: the plain versions
+# accumulate in IEEE f32 and keep its coefficient, so certified flags
+# compare one to one on the CPU. Tensor-core f32 accumulation does not
+# round to nearest (Fasi, Higham, Mikaitis & Pranesh, "Numerical behavior
+# of NVIDIA tensor cores", PeerJ Computer Science 2021): mma.sync results
+# double the term. How wgmma accumulates is not documented (DeepSeek-V3's
+# report found ~14 bits in its fp8 form); chip_smoke.py phase 2 reads the
+# raw-dot error of both bodies in units of d 2^-24 sum|x_i q_i| and fails
+# if a reading passes its body's coefficient. A larger coefficient only
+# widens the margin: more queries fall back, no answer is wrong.
+_ACCUM_COEFF = {"plain": 1.0, "mma_sync": 2.0, "wgmma": 2.0}
 
-    The JAX package's margins assume round-to-nearest f32 accumulation.
-    The CUDA coarse kernel accumulates on tensor cores with mma.sync,
-    whose f32 accumulation does not round to nearest (Fasi, Higham,
-    Mikaitis & Pranesh, "Numerical behavior of NVIDIA tensor cores",
-    PeerJ Computer Science 2021), so results from the card double the
-    term. This only widens the margin: more queries fall back, no answer
-    is wrong. The plain versions accumulate in IEEE f32 and keep the JAX
-    coefficient, so certified flags compare one to one on the CPU."""
-    return 2.0 if t.is_cuda else 1.0
+
+def _accum_coeff(body: str) -> float:
+    return _ACCUM_COEFF[body]
+
+
+def _coarse_body(src: str, arr, passes: int, emit_super: bool) -> str:
+    """The body that computes the coarse minima over ``arr`` (hi mirror,
+    f32 rows or codes): "plain" for a CPU tensor, else the CUDA route
+    (``cuda_kernels._coarse_route``, by shape and alignment)."""
+    if not arr.is_cuda:
+        return "plain"
+    return cuda_kernels.coarse_body(src, arr, passes, emit_super)
+
+
+def _probe_inv(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(inv_col (1, n), live row ids (n/16,)) for reading raw dots through
+    a coarse kernel: one live row per 16-row tile (row 16t + t % 16), the
+    other 15 dead. In mode "dot" each tile minimum is then exactly -dot of
+    its live row (the dead rows sit at -dot + 1e30)."""
+    tiles = torch.arange(n // SUB, device=device)
+    live = tiles * SUB + tiles % SUB
+    inv = torch.ones((1, n), dtype=torch.float32, device=device)
+    inv[0, live] = 0.0
+    return inv, live
+
+
+def _accum_reading(tile_min, x, qThi, live) -> float:
+    """Accumulation error of dots read through ``_probe_inv``: max over
+    (tile, query) of |(-tile_min) - dot| / (d 2^-24 sum_i |x_i q_i|), dot
+    in f64 over the same bf16 operands. ``x`` (N, d) holds the values the
+    kernel multiplied (bf16-exact), ``qThi`` (d, Qp) the bf16 queries. A
+    round-to-nearest f32 sum reads at most 1."""
+    xl, q = x[live].double(), qThi.double()
+    scale = (xl.abs() @ q.abs()) * (x.shape[1] * 2.0 ** -24)
+    err = (-tile_min.double() - xl @ q).abs()
+    return float(torch.where(scale > 0, err / scale, err).max())
 
 
 # ---------------------------------------------------------------------------
@@ -470,10 +507,10 @@ def _coarse_search_1p(queries, db, db_sq, db_norms, valid, src, src_arr,
     # rigorous per-query margin from computed residual norms (the JAX
     # package's derivation, coarse_kernel.py:911-932). 4x accumulation
     # term: the requirement is 2*e_coarse + 2*e_refine, each bounded by
-    # one term; _accum_coeff doubles it for tensor-core coarse results.
+    # one term; _accum_coeff scales it by the body that ran the pass.
     qlo_n = torch.sqrt((qlo * qlo).sum(dim=0))                  # (Qp,)
     xmax = _xmax(db_sq, valid)
-    acc = 4.0 * _accum_coeff(src_arr)
+    acc = 4.0 * _accum_coeff(_coarse_body(src, src_arr, 1, True))
     err_dot = (elo_max * (qn + qlo_n) + xmax * qlo_n
                + acc * d * 2.0 ** -24 * (xmax + elo_max) * (qn + qlo_n))
     if mode == "euclidean":
@@ -592,8 +629,10 @@ def coarse_search(queries, db, db_sq, db_norms, valid, db_hi, db_lo,
 
     # per-query certification (bf16x3): non-selected tiles' true minima
     # >= (m-th tile's refined min) - margin. The d·2^-24 accumulation term
-    # is doubled for tensor-core coarse results (_accum_coeff).
-    eps = 2.0 ** -17 + _accum_coeff(read) * d * 2.0 ** -24
+    # is scaled by the coarse body's coefficient (_accum_coeff).
+    body = _coarse_body("f32" if db_hi is None else "mirrors", read, 3,
+                        False)
+    eps = 2.0 ** -17 + _accum_coeff(body) * d * 2.0 ** -24
     xmax = _xmax(db_sq, valid)
     if mode == "euclidean":
         margin = 8.0 * eps * qn * xmax                  # d2 error x2, safety 2

@@ -4,16 +4,20 @@ The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
 one shared library with a plain C interface, cached under
 ``vectordb_tpu_torch/_build/`` by a hash of the sources, and loaded with
 ctypes. Nothing is built or loaded when this module is imported, so the
-CPU tests import it on a machine with no ``nvcc`` and no card.
+CPU tests import it on a machine with no ``nvcc`` and no card. The
+library links no ``libcuda``: ``coarse_wgmma.cu`` reaches the driver's
+``cuTensorMapEncodeTiled`` through the runtime's entry-point query.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
 raises if the C function reports a CUDA error, and adds one to its entry
 of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
 
-    K1  coarse_minima_1p_sup       coarse_minima.cu  mirrors, 1 pass, super
+    K1  coarse_minima_1p_sup       coarse_wgmma.cu or     mirrors, 1 pass,
+                                   coarse_minima.cu       super
     K3  coarse_minima              coarse_minima.cu  mirrors, 3 or 1 passes
-    K4  coarse_minima_f32_1p_sup   coarse_minima.cu  f32, 1 pass, super
+    K4  coarse_minima_f32_1p_sup   coarse_wgmma.cu or     f32, 1 pass,
+                                   coarse_minima.cu       super
     K5  coarse_minima_f32          coarse_minima.cu  f32, 3 or 1 passes
     K6  coarse_minima_1p           coarse_minima.cu  mirrors, 1 pass
     K7  coarse_minima_int8_1p_sup  coarse_minima.cu  int8, 1 pass, super
@@ -21,6 +25,14 @@ of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
         (launch keys refine_dots, refine_dots_bf16, refine_dots_int8)
     K8  pq_decode                  pq_decode.cu      uint8 codes -> bf16 rows
     K9  scan_min                   scan_min.cu       f32 per-tile minima
+
+The coarse kernels have two bodies, chosen by shape alone in
+``_coarse_route``: "wgmma" (``coarse_wgmma.cu``: TMA ring, wgmma,
+persistent blocks) for K1 and K4 launches whose rows TMA can take (d a
+multiple of 8, 16-byte aligned rows), "mma_sync" (``coarse_minima.cu``)
+for every other shape and for K3, K5, K6 and K7. ``routes[key][body]``
+counts each coarse kernel's launches by body beside ``launches``. No
+body stands in for another: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -50,8 +62,8 @@ _REFINE_SRC = {torch.float32: (0, "refine_dots"),
                torch.bfloat16: (1, "refine_dots_bf16"),
                torch.int8: (2, "refine_dots_int8")}
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = ("coarse_minima.cu", "refine_dots.cu", "pq_decode.cu",
-            "scan_min.cu")
+_SOURCES = ("coarse_minima.cu", "coarse_wgmma.cu", "refine_dots.cu",
+            "pq_decode.cu", "scan_min.cu")
 _ARCH = "arch=compute_90a,code=sm_90a"
 
 launches = {"coarse_minima_1p_sup": 0, "coarse_minima": 0,
@@ -59,6 +71,9 @@ launches = {"coarse_minima_1p_sup": 0, "coarse_minima": 0,
             "coarse_minima_1p": 0, "coarse_minima_int8_1p_sup": 0,
             "refine_dots": 0, "refine_dots_bf16": 0, "refine_dots_int8": 0,
             "pq_decode": 0, "scan_min": 0}
+# coarse launches by body (see _coarse_route), reset with ``launches``
+routes = {key: {"wgmma": 0, "mma_sync": 0}
+          for key in launches if key.startswith("coarse_minima")}
 # build facts of the loaded library (path, seconds, compiler output)
 build_info: dict = {}
 
@@ -66,6 +81,9 @@ build_info: dict = {}
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+    for body in routes.values():
+        for key in body:
+            body[key] = 0
 
 
 def _nvcc() -> str:
@@ -120,6 +138,8 @@ def _lib() -> ctypes.CDLL:
     lib.vdb_coarse_minima.argtypes = [p, p, p, p, p, p, p, p, p, p, l, i, i,
                                       i, i, i, i, p]
     lib.vdb_coarse_minima.restype = i
+    lib.vdb_coarse_wgmma.argtypes = [p, p, p, p, p, p, p, l, i, i, i, i, p]
+    lib.vdb_coarse_wgmma.restype = i
     lib.vdb_refine_dots.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.vdb_refine_dots.restype = i
     lib.vdb_pq_decode.argtypes = [p, p, p, l, i, i, i, p]
@@ -157,8 +177,29 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _coarse(src: str, qThi, qTlo, qrow, db, db_lo, scales, col, inv_col,
-            mode: str, passes: int, emit_super: bool):
+def _coarse_route(src: str, passes: int, emit_super: bool, d: int,
+                  ptrs_aligned: bool) -> str:
+    """The coarse body a launch takes, from its shape alone: "wgmma"
+    (coarse_wgmma.cu) for K1 (src "mirrors") and K4 ("f32") -- one pass,
+    super minima -- when TMA can take the operands: a row pitch that is a
+    multiple of 16 bytes for the bf16 query copy and the rows (d % 8 == 0)
+    and 16-byte aligned rows; "mma_sync" (coarse_minima.cu) otherwise, and
+    for K3, K5, K6 and K7."""
+    tma_ok = d >= 8 and d % 8 == 0 and ptrs_aligned
+    one_pass_sup = passes == 1 and emit_super
+    if src in ("mirrors", "f32") and one_pass_sup and tma_ok:
+        return "wgmma"
+    return "mma_sync"
+
+
+def coarse_body(src: str, db, passes: int, emit_super: bool) -> str:
+    """``_coarse_route`` of a launch over the rows ``db`` (N, d)."""
+    return _coarse_route(src, passes, emit_super, db.shape[1],
+                         db.data_ptr() % 16 == 0)
+
+
+def _coarse(key: str, src: str, qThi, qTlo, qrow, db, db_lo, scales, col,
+            inv_col, mode: str, passes: int, emit_super: bool):
     d, qp = qThi.shape
     n = db.shape[0]
     dev = db.device
@@ -186,13 +227,27 @@ def _coarse(src: str, qThi, qTlo, qrow, db, db_lo, scales, col, inv_col,
     tile = torch.empty((n // SUB, qp), dtype=f32, device=dev)
     sup = (torch.empty((n // _ROWS_PER_BLOCK, qp), dtype=f32, device=dev)
            if emit_super else None)
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    rc = _lib().vdb_coarse_minima(
-        qThi.data_ptr(), ptr(qTlo if passes == 3 else None), qrow.data_ptr(),
-        db.data_ptr(), ptr(db_lo if passes == 3 else None), ptr(scales),
-        col.data_ptr(), inv_col.data_ptr(), tile.data_ptr(), ptr(sup), n, d,
-        qp, _MODES[mode], code, passes, int(emit_super), _stream(dev))
-    _raise_on(rc, "coarse_minima")
+    body = coarse_body(src, db, passes, emit_super)
+    if body == "wgmma":
+        # the queries K-major, (Qp, d): both wgmma operands then share one
+        # swizzled layout
+        qk = qThi.t().contiguous()
+        rc = _lib().vdb_coarse_wgmma(
+            qk.data_ptr(), qrow.data_ptr(), db.data_ptr(), col.data_ptr(),
+            inv_col.data_ptr(), tile.data_ptr(), sup.data_ptr(), n, d, qp,
+            _MODES[mode], code, _stream(dev))
+    else:
+        ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+        rc = _lib().vdb_coarse_minima(
+            qThi.data_ptr(), ptr(qTlo if passes == 3 else None),
+            qrow.data_ptr(), db.data_ptr(),
+            ptr(db_lo if passes == 3 else None), ptr(scales),
+            col.data_ptr(), inv_col.data_ptr(), tile.data_ptr(), ptr(sup), n,
+            d, qp, _MODES[mode], code, passes, int(emit_super),
+            _stream(dev))
+    _raise_on(rc, f"{key} ({body})")
+    launches[key] += 1
+    routes[key][body] += 1
     return tile, sup
 
 
@@ -200,48 +255,38 @@ def coarse_minima_1p_sup(qThi, qrow, db_hi, col, inv_col, mode: str):
     """K1: one bf16 pass over the hi mirror (or a bf16-stored database)
     -> (tile minima (N/16, Qp), super minima (N/256, Qp)) f32, tile-major,
     as vectordb_tpu's _minima_1p_sup."""
-    out = _coarse("mirrors", qThi, None, qrow, db_hi, None, None, col,
-                  inv_col, mode, 1, True)
-    launches["coarse_minima_1p_sup"] += 1
-    return out
+    return _coarse("coarse_minima_1p_sup", "mirrors", qThi, None, qrow,
+                   db_hi, None, None, col, inv_col, mode, 1, True)
 
 
 def coarse_minima(qThi, qTlo, qrow, db_hi, db_lo, col, inv_col,
                   passes: int, mode: str):
     """K3: bf16x3 (passes=3) or one bf16 pass over the hi/lo mirrors ->
     tile minima (N/16, Qp) f32, tile-major (the caller transposes)."""
-    tile, _ = _coarse("mirrors", qThi, qTlo, qrow, db_hi, db_lo, None, col,
-                      inv_col, mode, passes, False)
-    launches["coarse_minima"] += 1
-    return tile
+    return _coarse("coarse_minima", "mirrors", qThi, qTlo, qrow, db_hi,
+                   db_lo, None, col, inv_col, mode, passes, False)[0]
 
 
 def coarse_minima_f32_1p_sup(qThi, qrow, db, col, inv_col, mode: str):
     """K4: K1 over the f32 rows, rounded to bf16 on chip -> (tile minima,
     super minima), as _minima_1p_sup(src="f32")."""
-    out = _coarse("f32", qThi, None, qrow, db, None, None, col, inv_col,
-                  mode, 1, True)
-    launches["coarse_minima_f32_1p_sup"] += 1
-    return out
+    return _coarse("coarse_minima_f32_1p_sup", "f32", qThi, None, qrow, db,
+                   None, None, col, inv_col, mode, 1, True)
 
 
 def coarse_minima_f32(qThi, qTlo, qrow, db, col, inv_col, passes: int,
                       mode: str):
     """K5: K3 over the f32 rows, hi/lo split on chip -> tile minima
     (N/16, Qp), tile-major (the caller transposes)."""
-    tile, _ = _coarse("f32", qThi, qTlo, qrow, db, None, None, col, inv_col,
-                      mode, passes, False)
-    launches["coarse_minima_f32"] += 1
-    return tile
+    return _coarse("coarse_minima_f32", "f32", qThi, qTlo, qrow, db, None,
+                   None, col, inv_col, mode, passes, False)[0]
 
 
 def coarse_minima_1p(qThi, qrow, db_hi, col, inv_col, mode: str):
     """K6: one bf16 pass over the hi mirror, tile minima only (N/16, Qp),
     tile-major, as _coarse_minima_1p_tq."""
-    tile, _ = _coarse("mirrors", qThi, None, qrow, db_hi, None, None, col,
-                      inv_col, mode, 1, False)
-    launches["coarse_minima_1p"] += 1
-    return tile
+    return _coarse("coarse_minima_1p", "mirrors", qThi, None, qrow, db_hi,
+                   None, None, col, inv_col, mode, 1, False)[0]
 
 
 def coarse_minima_int8_1p_sup(qThi, qrow, codes, scales, col, inv_col,
@@ -249,10 +294,8 @@ def coarse_minima_int8_1p_sup(qThi, qrow, codes, scales, col, inv_col,
     """K7: K1 over int8 codes (cast exactly to bf16), each dot times its
     row's pow2 scale ``scales`` (1, N) -> (tile minima, super minima), as
     _minima_1p_sup(src="int8")."""
-    out = _coarse("int8", qThi, None, qrow, codes, None, scales, col,
-                  inv_col, mode, 1, True)
-    launches["coarse_minima_int8_1p_sup"] += 1
-    return out
+    return _coarse("coarse_minima_int8_1p_sup", "int8", qThi, None, qrow,
+                   codes, None, scales, col, inv_col, mode, 1, True)
 
 
 def refine_dots(tile_idx, queries, db, m: int, scales=None):
@@ -354,5 +397,5 @@ def scan_min(queries, qaux, db, raux, invalidf, mode: str, tile_rows: int):
 __all__ = ["coarse_minima_1p_sup", "coarse_minima", "coarse_minima_f32_1p_sup",
            "coarse_minima_f32", "coarse_minima_1p",
            "coarse_minima_int8_1p_sup", "refine_dots", "pq_decode",
-           "scan_min", "launches",
+           "scan_min", "launches", "routes", "coarse_body",
            "reset_launches", "load", "build_info"]
