@@ -11,11 +11,12 @@ nothing is caught and passed over):
      N=2^16, Q=256, all three metrics, 10% dead rows), max error beside
      its limit (see ``limits``), and a control per kernel that must break
      the limit; then the accumulation reading of both coarse bodies: raw
-     dots read through K1 ("wgmma" body) and K6 ("mma_sync") with 15 of
-     every 16 rows dead (``ck._probe_inv``), against f64 dots of the same
-     bf16 operands, max |err| / (d 2^-24 sum|x_i q_i|) on N(0,1) data and
-     on U(1, 2) data (every product positive), each held to the
-     certificates' coefficient for its body;
+     dots read through K1, K7 (integer codes, unit scales) and K5 at 3
+     passes (the "wgmma" body) and K6 ("mma_sync") with 15 of every 16
+     rows dead (``ck._probe_inv``), against f64 dots of the same bf16
+     operands (for K5 the sum of its three products), max |err| / (d 2^-24
+     sum|x_i q_i|) on N(0,1) data and on U(1, 2) data (every product
+     positive), each held to the certificates' coefficient for its body;
   3. the f32 slice at full size through the public entry points:
      VectorStore.with_flat_index(EUCLIDEAN, device="cuda"), 2^20 x 768
      seeded rows through insert_batch, a Q=4096, k=10 search_batch exact
@@ -37,7 +38,8 @@ nothing is caught and passed over):
      fallback per store (K5 at 3 passes, flat_search_bf16,
      flat_search_int8), the legacy fast path on 256-row states (K6, K5 at
      1 pass), and each new kernel against its plain version at its
-     path's shapes, timed as in phase 6;
+     path's shapes, timed as in phase 6 (K5 at 3 passes at Q=256 and at
+     Q=65, the tier-2 re-run's sizes);
   8. PQ-Flat at full width: the intrinsic-dim-32 row set of
      benchmarks/pq_bench.py (2^20 x 768, 1024 rows deleted, Q=4096, k=10)
      into VectorStore.with_index(PqFlatIndex(EUCLIDEAN, device="cuda"))
@@ -58,9 +60,14 @@ after it: the store searches of phases 3 and 4 (K1, K2, K3); each
 storage store's searches (K4/K7 and K2 by source); each forced fallback
 (K5); the legacy fast runs (K6, K5); the PQ store's searches (K8); the
 two-phase searches (K9). Every kernel of a path must have launched in its
-window; the direct comparison calls are outside them. Every K1 and K4
-launch in the windows of phase 3 and of phase 7's bf16 and f32 stores must
-have taken the "wgmma" body (``cuda_kernels.routes``).
+window; the direct comparison calls are outside them. Every K1, K4 and K7
+launch in the windows of phase 3 and of phase 7's bf16, int8 and f32
+stores, and every K5 launch in the f32 store's window (tier 2 of the
+queries tier 1 leaves uncertified), its forced fallback (3 passes) and
+the legacy fast f32 run (1 pass) must have taken the "wgmma" body
+(``cuda_kernels.routes``). Phase 7 prints each store's tier-1
+certification rate (and, for the f32 fallback, tier 2's) beside the
+coefficient its certificate used and the phase-2 readings of that body.
 The line before the last is the card, the one before it the JSON kernel
 table; the last line is the JSON contract line {"ok": true, ...}.
 It exits non-zero without a card, and when the package is not beside it.
@@ -430,14 +437,17 @@ def phase2(rng, mode_of, card, np, torch, ck, cuda_kernels, flat, worst):
         del db, hi, lo, codes, got, plain, out, k6, k3_plain3, k9p, k8p
 
 
-def accum_phase(rng, card, np, torch, ck, cuda_kernels):
-    """Phase 2's accumulation reading (module docstring): {(body, data):
-    reading}. Fails if a reading passes its body's coefficient."""
+def accum_phase(rng, code_rng, card, np, torch, ck, cuda_kernels):
+    """Phase 2's accumulation reading (module docstring): {(kernel, body,
+    data): reading}. K7's codes come from ``code_rng``, so the rows and
+    queries drawn from ``rng`` stay those of earlier runs. Fails if a
+    reading passes its body's coefficient."""
     dev = torch.device("cuda")
     n, q = 1 << 16, 256
     inv, live = ck._probe_inv(n, dev)
     qrow = torch.zeros((1, q), dtype=torch.float32, device=dev)
     col = torch.zeros((1, n), dtype=torch.float32, device=dev)
+    ones = torch.ones((1, n), dtype=torch.float32, device=dev)
     read = {}
     for data in ("N(0,1)", "U(1,2)"):
         if data == "N(0,1)":
@@ -446,23 +456,45 @@ def accum_phase(rng, card, np, torch, ck, cuda_kernels):
         else:
             x = rng.uniform(1.0, 2.0, (n, D)).astype(np.float32)
             qs = rng.uniform(1.0, 2.0, (q, D)).astype(np.float32)
-        hi = torch.from_numpy(x).to(dev).to(torch.bfloat16)
-        qThi = torch.from_numpy(qs).to(dev).T.contiguous().to(torch.bfloat16)
-        if cuda_kernels.coarse_body("mirrors", hi, 1, True) != "wgmma":
-            fail("the accumulation probe's K1 shape does not route to wgmma")
-        t_w, _ = cuda_kernels.coarse_minima_1p_sup(qThi, qrow, hi, col, inv,
-                                                   "dot")
-        t_m = cuda_kernels.coarse_minima_1p(qThi, qrow, hi, col, inv, "dot")
+        xt = torch.from_numpy(x).to(dev)
+        hi, lo = ck.split_hi_lo(xt)
+        qT = torch.from_numpy(qs).to(dev).T.contiguous()
+        qThi = qT.to(torch.bfloat16)
+        qTlo = (qT - qThi.float()).to(torch.bfloat16)
+        # K7's codes: uniform in [-127, 127] against the N(0,1) queries;
+        # all positive, in [64, 127], against the U(1, 2) ones
+        low = -127 if data == "N(0,1)" else 64
+        codes = torch.from_numpy(code_rng.integers(low, 128, (n, D)).astype(
+            np.int8)).to(dev)
+        for name, src, arr, passes, sup in (
+                ("K1", "mirrors", hi, 1, True), ("K7", "int8", codes, 1, True),
+                ("K5 3-pass", "f32", xt, 3, False)):
+            if cuda_kernels.coarse_body(src, arr, passes, sup) != "wgmma":
+                fail(f"the accumulation probe's {name} shape does not route "
+                     f"to wgmma")
+        t1, _ = cuda_kernels.coarse_minima_1p_sup(qThi, qrow, hi, col, inv,
+                                                  "dot")
+        t7, _ = cuda_kernels.coarse_minima_int8_1p_sup(qThi, qrow, codes,
+                                                       ones, col, inv, "dot")
+        t5 = cuda_kernels.coarse_minima_f32(qThi, qTlo, qrow, xt, col, inv,
+                                            3, "dot")
+        t6 = cuda_kernels.coarse_minima_1p(qThi, qrow, hi, col, inv, "dot")
         torch.cuda.synchronize()
-        for body, t in (("wgmma", t_w), ("mma_sync", t_m)):
-            read[(body, data)] = ck._accum_reading(t, hi.float(), qThi, live)
-        del hi, qThi, t_w, t_m
+        read[("K1", "wgmma", data)] = ck._accum_reading(t1, hi.float(), qThi,
+                                                        live)
+        read[("K7", "wgmma", data)] = ck._accum_reading(t7, codes.float(),
+                                                        qThi, live)
+        read[("K5 3-pass", "wgmma", data)] = ck._accum_reading(
+            t5, hi.float(), qThi, live, lo.float(), qTlo)
+        read[("K6", "mma_sync", data)] = ck._accum_reading(t6, hi.float(),
+                                                           qThi, live)
+        del xt, hi, lo, qThi, qTlo, codes, t1, t7, t5, t6
     say(f"phase 2 accumulation reading, max |dot - f64 dot| / (d 2^-24 "
         f"sum|x_i q_i|), N={n} d={D} Q={q}: " + "; ".join(
-            f"{body} on {data} {v:.6f} (coefficient "
-            f"{ck._accum_coeff(body)})" for (body, data), v in read.items())
-        + f"  [{card}]")
-    bad = [k for k, v in read.items() if not v <= ck._accum_coeff(k[0])]
+            f"{name} ({body}) on {data} {v:.6f} (coefficient "
+            f"{ck._accum_coeff(body)})"
+            for (name, body, data), v in read.items()) + f"  [{card}]")
+    bad = [k for k, v in read.items() if not v <= ck._accum_coeff(k[1])]
     if bad:
         fail(f"an accumulation reading passes its body's coefficient: {bad}")
     return read
@@ -515,12 +547,13 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
     if counts[coarse_key] < 1 or counts[refine_key] < 1:
         fail(f"the {kind} store's searches did not launch {coarse_key} and "
              f"{refine_key}: {counts}")
-    bodies = (check_wgmma(f"phase 7 {kind}", coarse_key, cuda_kernels)
-              if kind in ("bf16", "f32")
-              else dict(cuda_kernels.routes[coarse_key]))
+    bodies = {coarse_key: check_wgmma(f"phase 7 {kind}", coarse_key,
+                                      cuda_kernels)}
+    if kind == "f32":          # tier 2 of the uncertified queries: K5
+        bodies["coarse_minima_f32"] = check_wgmma(
+            "phase 7 f32", "coarse_minima_f32", cuda_kernels)
     say(f"phase 7 {kind} launch counts (this store's searches): "
-        f"{ {k: v for k, v in counts.items() if v} }; {coarse_key} by body "
-        f"{bodies}")
+        f"{ {k: v for k, v in counts.items() if v} }; by body {bodies}")
 
     with index._lock:
         state = dict(index._sync_device())
@@ -553,6 +586,14 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
                                      state["norms"], state["valid"], hi,
                                      state["elo_max"], E, K, scales=scales)
     rate = float(cert.float().mean())
+    # the tier-1 certificate's coefficient, beside the phase-2 readings of
+    # the products its body sums (K4 rounds the f32 rows to K1's bf16)
+    body1 = ck._coarse_body(*ck._dispatch_src(db, hi, scales), 1, True)
+    probe = "K7" if kind == "int8" else "K1"
+    coeff_note = (f"coefficient {ck._accum_coeff(body1)} of the {body1} body"
+                  f" (phase-2 {probe} readings " + ", ".join(
+                      f"{v:.6f}" for (name, _, _), v in mods["accum"].items()
+                      if name == probe) + ")")
     say(f"phase 7 {kind} store N={n} ({len(dead)} deleted) Q={nq} k={K}: "
         f"load "
         f"{load_s:.3f} s (host); first batch (incl. device build) "
@@ -561,7 +602,8 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
         f"over the stored values ({ties} boundary ties, max dist err "
         f"{derr:.3e}); fast per batch {[round(s * 1e3, 3) for s in fast_s]}"
         f" ms, {fast_note}; tier-1 certification rate {rate:.6f} "
-        f"({int(cert.sum())}/{nq}); elo_max {float(state['elo_max']):.6e}"
+        f"({int(cert.sum())}/{nq}) with the {coeff_note}; elo_max "
+        f"{float(state['elo_max']):.6e}"
         f"  [{card}]")
 
     # forced fallback: tier 1 certifies nothing; the next tier serves
@@ -584,8 +626,21 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
     else:
         if fb_counts["coarse_minima_f32"] < 1:
             fail(f"the f32 forced fallback launched no K5: {fb_counts}")
+        fb_bodies = check_wgmma("phase 7 f32 forced fallback",
+                                "coarse_minima_f32", cuda_kernels)
+        # the bf16x3 certificate of tier 2 on these queries (outside the
+        # window), beside the phase-2 readings of K5 at 3 passes
+        cert2 = ck.coarse_search(queries[:256], db, state["sq_norms"],
+                                 state["norms"], state["valid"], None, None,
+                                 E, K)[2]
+        body2 = ck._coarse_body("f32", db, 3, False)
         via = (f"K5 at 3 passes ({fb_counts['coarse_minima_f32']} "
-               f"launches)")
+               f"launches, by body {fb_bodies}); tier-2 certification rate "
+               f"{float(cert2.float().mean()):.6f} ({int(cert2.sum())}/256) "
+               f"with the coefficient {ck._accum_coeff(body2)} of the "
+               f"{body2} body (phase-2 K5 3-pass readings " + ", ".join(
+                   f"{v:.6f}" for (name, _, _), v in mods["accum"].items()
+                   if name == "K5 3-pass") + ")")
     fties, _ = check_exact(f"{kind} forced fallback", fi[:, :K], fd[:, :K],
                            ora_d2[:256], ora_i[:256], K, np)
     say(f"phase 7 {kind} forced fallback Q=256: exact via {via} ({fties} "
@@ -607,6 +662,7 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
         def launch(a, b, c_, d_, e_, f_):
             return cuda_kernels.coarse_minima_int8_1p_sup(a, b, c_, sc2, d_,
                                                           e_, f_)
+    out["body"] = cuda_kernels.coarse_body(src, arr, 1, True)
     ms_c, (tile_tq, sup_tq) = cuda_time(
         lambda: launch(qThi, qrow, arr, col, inv_col, mode), torch)
     ms_cp, (tile_p, sup_p) = cuda_time(lambda: ck._minima_1p_sup_plain(
@@ -636,7 +692,7 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
                                                scales is not None))
     say(f"phase 7 {kind} times [{card}]: {coarse_key} N={n} Q={nq} "
         f"{ms_c:.3f} ms ({2.0 * n * nq * D / ms_c / 1e9:.1f} TFLOP/s, body "
-        f"{cuda_kernels.coarse_body(src, arr, 1, True)}; plain {ms_cp:.3f}, "
+        f"{out['body']}; plain {ms_cp:.3f}, "
         f"bf16 matmul {lib_c:.3f}, bound "
         f"{out['coarse'][3][0]:.3f}), max err {e_c:.3e} (limit {lim:.3e}); "
         f"{refine_key} Q={nq} m={mp} {ms_r:.3f} ms (plain {ms_rp:.3f}, "
@@ -652,8 +708,9 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
 
 
 def f32_extra(state, qs, queries, card, mods, worst, lim):
-    """K5 at 3 passes at the fallback's shape (N, Q=256); the legacy fast
-    path on 256-row states: K6 over a mirror, K5 at 1 pass over f32."""
+    """K5 at 3 passes at the fallback's shapes (N; Q=256 and Q=65); the
+    legacy fast path on 256-row states: K6 over a mirror, K5 at 1 pass
+    over f32."""
     np, torch, ck, cuda_kernels, topk = (
         mods["np"], mods["torch"], mods["ck"], mods["cuda_kernels"],
         mods["topk"])
@@ -661,22 +718,30 @@ def f32_extra(state, qs, queries, card, mods, worst, lim):
     mode = "euclidean"
     db = state["db"]
     n = db.shape[0]
-    q256 = queries[:256]
-    qThi, qlo, _, _, qrow, col, inv_col = ck._query_terms(
-        q256, state["sq_norms"], state["norms"], state["valid"], mode)
-    qTlo = qlo.to(torch.bfloat16)
-    ms5, k5 = cuda_time(lambda: cuda_kernels.coarse_minima_f32(
-        qThi, qTlo, qrow, db, col, inv_col, 3, mode), torch)
-    ms5p, k5p = cuda_time(lambda: ck._coarse_minima_f32_plain(
-        qThi, qTlo, qrow, db, col, inv_col, 3, mode), torch)
-    e5 = live_err(k5.T, k5p)
-    del k5, k5p
     hi, lo = ck.split_hi_lo(db)
     a3 = torch.cat([hi, lo, hi], dim=1)
     del hi, lo
-    lib5 = library_ms(a3, torch.cat([qThi, qThi, qTlo], dim=0), torch)
+
+    def k5_at(nq):
+        """K5 at 3 passes over the store's rows for the first ``nq``
+        queries: (ms, plain ms, library ms, bound, max err)."""
+        qThi, qlo, _, _, qrow, col, inv_col = ck._query_terms(
+            queries[:nq], state["sq_norms"], state["norms"], state["valid"],
+            mode)
+        qTlo = qlo.to(torch.bfloat16)
+        ms, k5 = cuda_time(lambda: cuda_kernels.coarse_minima_f32(
+            qThi, qTlo, qrow, db, col, inv_col, 3, mode), torch)
+        msp, k5p = cuda_time(lambda: ck._coarse_minima_f32_plain(
+            qThi, qTlo, qrow, db, col, inv_col, 3, mode), torch)
+        err = live_err(k5.T, k5p)
+        del k5, k5p
+        lib = library_ms(a3, torch.cat([qThi, qThi, qTlo], dim=0), torch)
+        return ms, msp, lib, coarse_bound(n, D, nq, 3, n * D * 4, False), err
+
+    k5 = {nq: k5_at(nq) for nq in (256, 65)}
     del a3
-    b5 = coarse_bound(n, D, 256, 3, n * D * 4, False)
+    e5 = max(k5[256][4], k5[65][4])
+    k5_body = cuda_kernels.coarse_body("f32", db, 3, False)
 
     # legacy fast on 256-row states (one super-tile: supports() holds,
     # supports_1p() does not); every tile is refined, so the ids are exact
@@ -698,6 +763,8 @@ def f32_extra(state, qs, queries, card, mods, worst, lim):
         if legacy[key] < 1:
             fail(f"the legacy fast path on a 256-row {name} state launched "
                  f"no {key}: {dict(cuda_kernels.launches)}")
+        if key == "coarse_minima_f32":
+            check_wgmma("phase 7 legacy fast f32", key, cuda_kernels)
         check_exact(f"legacy fast {name}", li[:, :K], ld[:, :K], o_d2, o_i,
                     K, np)
     sThi, _, _, _, sqrow, scol, sinv = ck._query_terms(
@@ -716,16 +783,20 @@ def f32_extra(state, qs, queries, card, mods, worst, lim):
              f"shapes ({e5:.3e}, {e6:.3e})")
     worst["coarse_minima_f32"] = max(worst.get("coarse_minima_f32", 0.0), e5)
     worst["coarse_minima_1p"] = max(worst.get("coarse_minima_1p", 0.0), e6)
+    k5_line = "; ".join(
+        f"Q={nq} {ms:.3f} ms (plain {msp:.3f}, bf16 matmul (N, 3d) x (3d, Q) "
+        f"{lib:.3f}, bound {b[0]:.3f}), max err {err:.3e}"
+        for nq, (ms, msp, lib, b, err) in k5.items())
     say(f"phase 7 legacy fast Q={queries.shape[0]} on 256-row states: "
         f"exact ids (every tile refined) via K6 ({legacy['coarse_minima_1p']}"
-        f" launches) and K5 at 1 pass ({legacy['coarse_minima_f32']}); times "
-        f"[{card}]: K5 3-pass N={n} Q=256 {ms5:.3f} ms (plain {ms5p:.3f}, "
-        f"bf16 matmul (N, 3d) x (3d, Q) {lib5:.3f}, bound {b5[0]:.3f}), max "
-        f"err {e5:.3e}; K6 N=256 Q={queries.shape[0]} {ms6:.3f} ms (plain "
+        f" launches) and K5 at 1 pass ({legacy['coarse_minima_f32']}, body "
+        f"wgmma); times [{card}]: K5 3-pass N={n}, body {k5_body}: "
+        f"{k5_line}; K6 N=256 Q={queries.shape[0]} {ms6:.3f} ms (plain "
         f"{ms6p:.3f}, bf16 matmul {lib6:.3f}, bound {b6[0]:.3f}), max err "
         f"{e6:.3e}")
-    return {"k5": (ms5, ms5p, lib5, b5), "k6": (ms6, ms6p, lib6, b6),
-            "legacy": legacy}
+    return {"k5": k5[256][:4], "k5_body": k5_body,
+            "k6": (ms6, ms6p, lib6, b6), "legacy": legacy}
+
 
 def http_call(port, method, path, body=None):
     data = None if body is None else json.dumps(body).encode()
@@ -1132,9 +1203,10 @@ def main() -> None:
     # -- phase 2: kernels against their plain versions ------------------
     worst: dict = {}
     phase2(rng, mode_of, card, np, torch, ck, cuda_kernels, flat, worst)
-    # its own generator: the rows of the later phases stay those of
+    # its own generators: the rows of the later phases stay those of
     # earlier runs
-    accum = accum_phase(np.random.default_rng([args.seed, 2]), card, np,
+    accum = accum_phase(np.random.default_rng([args.seed, 2]),
+                        np.random.default_rng([args.seed, 3]), card, np,
                         torch, ck, cuda_kernels)
     free(torch)
 
@@ -1355,8 +1427,8 @@ def main() -> None:
         f"3-pass N={n3} Q=1024 {ms3:.3f} ms (plain {ms3p:.3f}, bf16 matmul "
         f"(N, 3d) x (3d, Q) {lib3:.3f}, bound {b3[0]:.3f}); tier-1 "
         f"certification rate {rate:.6f} ({int(cert.sum())}/{nq}) with "
-        f"the wgmma coefficient {ck._accum_coeff('wgmma')} (phase 2 reading "
-        f"{max(v for (b, _), v in accum.items() if b == 'wgmma'):.6f})")
+        f"the wgmma coefficient {ck._accum_coeff('wgmma')} (phase-2 K1 "
+        f"reading {max(v for (k, _, _), v in accum.items() if k == 'K1'):.6f})")
     table = [
         kernel_row("K1 coarse_minima_1p_sup", "coarse_wgmma.cu", 261,
                    counts["coarse_minima_1p_sup"],
@@ -1376,7 +1448,7 @@ def main() -> None:
     mods = dict(np=np, torch=torch, ck=ck, cuda_kernels=cuda_kernels,
                 topk=topk, flat=flat, VectorStore=VectorStore,
                 DistanceMetric=DistanceMetric, Vector=Vector,
-                BatchInsertItem=BatchInsertItem)
+                BatchInsertItem=BatchInsertItem, accum=accum)
     got = {kind: storage_phase(kind, rows, dead, qs, queries, card, mods,
                                worst)
            for kind in ("bf16", "int8", "f32")}
@@ -1391,7 +1463,10 @@ def main() -> None:
                    got["int8"]["counts"]["refine_dots_int8"],
                    worst["refine_dots_int8"], *got["int8"]["refine"][:2],
                    got["int8"]["refine"][2], None)]
-    k5_launches = (f32["fb_counts"]["coarse_minima_f32"]
+    # K5's windows: the f32 store's searches (tier 2), its forced
+    # fallback, the legacy fast run
+    k5_launches = (f32["counts"]["coarse_minima_f32"]
+                   + f32["fb_counts"]["coarse_minima_f32"]
                    + f32["legacy"]["coarse_minima_f32"])
     table += [
         kernel_row("K4 coarse_minima_f32_1p_sup", "coarse_wgmma.cu", 295,
@@ -1399,18 +1474,20 @@ def main() -> None:
                    worst["coarse_minima_f32_1p_sup"], f32["coarse"][0],
                    f32["coarse"][1], f32["coarse"][3], f32["coarse"][2],
                    body="wgmma"),
-        kernel_row("K5 coarse_minima_f32", "coarse_minima.cu", 704,
+        kernel_row("K5 coarse_minima_f32", "coarse_wgmma.cu", 704,
                    k5_launches, worst["coarse_minima_f32"], f32["k5"][0],
-                   f32["k5"][1], f32["k5"][3], f32["k5"][2]),
+                   f32["k5"][1], f32["k5"][3], f32["k5"][2],
+                   body=f32["k5_body"]),
         kernel_row("K6 coarse_minima_1p", "coarse_minima.cu", 185,
                    f32["legacy"]["coarse_minima_1p"],
                    worst["coarse_minima_1p"], f32["k6"][0], f32["k6"][1],
                    f32["k6"][3], f32["k6"][2]),
-        kernel_row("K7 coarse_minima_int8_1p_sup", "coarse_minima.cu", 329,
+        kernel_row("K7 coarse_minima_int8_1p_sup", "coarse_wgmma.cu", 329,
                    got["int8"]["counts"]["coarse_minima_int8_1p_sup"],
                    worst["coarse_minima_int8_1p_sup"],
                    got["int8"]["coarse"][0], got["int8"]["coarse"][1],
-                   got["int8"]["coarse"][3], got["int8"]["coarse"][2])]
+                   got["int8"]["coarse"][3], got["int8"]["coarse"][2],
+                   body=got["int8"]["body"])]
 
     # -- phase 8: PQ-Flat at full width ----------------------------------
     k8 = pq_phase(args, rng, card, mods)

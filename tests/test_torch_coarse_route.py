@@ -21,23 +21,67 @@ ROUTE_CASES = list(itertools.product(
 
 @pytest.mark.parametrize("src, passes, emit_super, d, aligned", ROUTE_CASES)
 def test_route(src, passes, emit_super, d, aligned):
-    """K1 (mirrors) and K4 (f32) at one pass with super minima take the
-    wgmma body when TMA can take their rows: a 16-byte row pitch for the
-    bf16 queries (d a multiple of 8) and 16-byte aligned rows. Everything
-    else -- ragged d, unaligned rows, K3, K5, K6, K7 -- stays on mma_sync."""
-    is_k1_k4 = src in ("mirrors", "f32") and passes == 1 and emit_super
-    tma_ok = d % 8 == 0 and aligned
-    want = "wgmma" if is_k1_k4 and tma_ok else "mma_sync"
+    """K1 (mirrors: one pass, super minima), K4 and K5 (f32: one pass, or
+    three passes without super minima) and K7 (int8: one pass, super
+    minima) take the wgmma body when TMA can take their rows: 16-byte
+    aligned rows, and a row pitch that is a multiple of 16 bytes for the
+    bf16 queries and the rows (d a multiple of 8; of 16 for int8 codes,
+    one byte each). Everything else -- ragged d, unaligned rows, K3, K6 --
+    stays on mma_sync."""
+    routed = {"mirrors": passes == 1 and emit_super,
+              "f32": passes == 1 or not emit_super,
+              "int8": passes == 1 and emit_super}[src]
+    pitch = 16 if src == "int8" else 8
+    want = "wgmma" if routed and aligned and d % pitch == 0 else "mma_sync"
     assert cuda_kernels._coarse_route(src, passes, emit_super, d,
                                       aligned) == want
 
 
+@pytest.mark.parametrize("d", [200, 40])
+def test_int8_codes_need_a_16_byte_pitch(d):
+    """At d = 8 (mod 16) the f32 rows' pitch (4d bytes) and the queries'
+    (2d) are multiples of 16 bytes, the codes' (d) is not: K4 and K5 move
+    to wgmma, K7 stays on mma_sync, and moves at d + 8."""
+    route = cuda_kernels._coarse_route
+    assert route("int8", 1, True, d, True) == "mma_sync"
+    assert route("f32", 1, True, d, True) == "wgmma"
+    assert route("f32", 3, False, d, True) == "wgmma"
+    assert route("f32", 1, False, d, True) == "wgmma"
+    assert route("int8", 1, True, d + 8, True) == "wgmma"
+
+
+def test_int8_k_order_matches_the_fragment_reads():
+    """K7's query copy puts query dimension _INT8_K_ORDER[p] of each
+    16-block at fragment column p: a thread's four codes k = 4t..4t+3 then
+    meet the queries of fragment columns 2t, 2t+1, 2t+8, 2t+9, and every
+    dot is unchanged (integers: exact)."""
+    order = cuda_kernels._INT8_K_ORDER
+    assert sorted(order) == list(range(16))
+    idx = cuda_kernels._int8_k_index(48, "cpu")
+    assert torch.equal(idx.reshape(3, 16) % 16,
+                       torch.tensor(order).expand(3, 16))
+    assert torch.equal(idx // 16, torch.arange(48) // 16)
+    rng = np.random.default_rng(3)
+    codes = rng.integers(-128, 128, (5, 48))
+    q = rng.integers(-9, 10, 48)
+    qk = q[idx.numpy()]                          # the permuted query copy
+    got = np.zeros(5, np.int64)
+    for blk in range(3):
+        c, b = codes[:, 16 * blk:16 * blk + 16], qk[16 * blk:16 * blk + 16]
+        for t in range(4):
+            got += (c[:, 4 * t] * b[2 * t] + c[:, 4 * t + 1] * b[2 * t + 1]
+                    + c[:, 4 * t + 2] * b[2 * t + 8]
+                    + c[:, 4 * t + 3] * b[2 * t + 9])
+    assert np.array_equal(got, codes @ q)
+
+
 @pytest.mark.parametrize("src, dtype", [("mirrors", torch.bfloat16),
-                                        ("f32", torch.float32)])
+                                        ("f32", torch.float32),
+                                        ("int8", torch.int8)])
 def test_route_reads_alignment_from_the_rows(src, dtype):
-    rows = torch.zeros((256 * 768 + 8,), dtype=dtype)
+    rows = torch.zeros((256 * 768 + 16,), dtype=dtype)
     aligned = rows[:256 * 768].view(256, 768)
-    shifted = rows[1:256 * 768 + 1].view(256, 768)    # 2 or 4 bytes off
+    shifted = rows[1:256 * 768 + 1].view(256, 768)    # 1, 2 or 4 bytes off
     assert cuda_kernels.coarse_body(src, aligned, 1, True) == "wgmma"
     assert cuda_kernels.coarse_body(src, shifted, 1, True) == "mma_sync"
     # a CPU tensor is never launched: its body is the plain version
@@ -86,26 +130,69 @@ def _int_rows(rng, n, d, q):
     return x, qs
 
 
-@pytest.mark.parametrize("src", ["mirrors", "f32"])
+@pytest.mark.parametrize("src", ["mirrors", "f32", "int8"])
 @pytest.mark.parametrize("n, d, q", [(256, 768, 7), (512, 40, 100),
                                      (1024, 37, 33)])
 def test_probe_reads_each_live_dot_exactly(src, n, d, q):
     """Through ``_probe_inv`` in mode "dot", every tile minimum is exactly
     -dot of its tile's live row, and every super minimum the minimum of its
-    16 tile minima."""
+    16 tile minima. int8 codes: the dot times the row's pow2 scale, 2^0
+    and 2^-3 (exact), held against the stored values code x scale."""
     x, qs = _int_rows(np.random.default_rng(n + d), n, d, q)
-    arr = x if src == "f32" else x.to(torch.bfloat16)
     qThi = qs.T.contiguous().to(torch.bfloat16)
     inv, live = ck._probe_inv(n, "cpu")
     assert int((inv == 0).sum()) == n // 16
     assert torch.equal(live // 16, torch.arange(n // 16))
     qrow = torch.zeros((1, q))
     col = torch.zeros((1, n))
-    tile, sup = ck._minima_1p_sup(qThi, qrow, arr, col, inv, "dot", src)
-    want = -(x[live].double() @ qs.T.double())
+    for scale in ((1.0, 0.125) if src == "int8" else (None,)):
+        arr = {"f32": x, "mirrors": x.to(torch.bfloat16),
+               "int8": x.to(torch.int8)}[src]
+        sc = None if scale is None else torch.full((1, n), scale)
+        stored = x if scale is None else x * scale
+        tile, sup = ck._minima_1p_sup(qThi, qrow, arr, col, inv, "dot", src,
+                                      sc)
+        want = -(stored[live].double() @ qs.T.double())
+        assert torch.equal(tile.double(), want)
+        assert torch.equal(sup, tile.reshape(-1, 16, q).amin(dim=1))
+        assert ck._accum_reading(tile, stored, qThi, live) == 0.0
+
+
+@pytest.mark.parametrize("n, d, q, wide", [(256, 768, 7, "rows"),
+                                           (512, 40, 100, "both"),
+                                           (1024, 37, 33, "both")])
+def test_probe_reads_each_3pass_dot_exactly(n, d, q, wide):
+    """K5 at 3 passes through ``_probe_inv``: integers of 257..511 (signs
+    at random) have a nonzero bf16 lo part (bf16 keeps 8 significant
+    bits). With small integer queries, or with both sides wide at d <= 64,
+    every product and partial sum is exact, so each tile minimum is
+    exactly -(hi.qhi + lo.qhi + hi.qlo) in f64, the 1-pass minima are not,
+    and the accumulation reading over the three products is 0."""
+    rng = np.random.default_rng(n + d)
+
+    def wide_ints(shape):
+        return rng.integers(257, 512, shape) * rng.choice([-1, 1], shape)
+
+    x = torch.from_numpy(wide_ints((n, d)).astype(np.float32))
+    qs = torch.from_numpy((wide_ints((q, d)) if wide == "both" else
+                           rng.integers(-8, 9, (q, d))).astype(np.float32))
+    hi, lo = ck.split_hi_lo(x)
+    qT = qs.T.contiguous()
+    qThi = qT.to(torch.bfloat16)
+    qTlo = (qT - qThi.float()).to(torch.bfloat16)
+    assert bool((lo != 0).any())
+    assert bool((qTlo != 0).any()) == (wide == "both")
+    inv, live = ck._probe_inv(n, "cpu")
+    qrow = torch.zeros((1, q))
+    col = torch.zeros((1, n))
+    h, l_ = hi[live].double(), lo[live].double()
+    want = -(h @ qThi.double() + l_ @ qThi.double() + h @ qTlo.double())
+    tile = ck._coarse_minima_f32(qThi, qTlo, qrow, x, col, inv, 3, "dot").T
     assert torch.equal(tile.double(), want)
-    assert torch.equal(sup, tile.reshape(-1, 16, q).amin(dim=1))
-    assert ck._accum_reading(tile, x, qThi, live) == 0.0
+    one = ck._coarse_minima_f32(qThi, qTlo, qrow, x, col, inv, 1, "dot").T
+    assert not torch.equal(one.double(), want)
+    assert ck._accum_reading(tile, hi.float(), qThi, live, lo.float(),
+                             qTlo) == 0.0
 
 
 @pytest.mark.parametrize("data", ["normal", "uniform12"])

@@ -111,6 +111,115 @@ def test_k1_k4_bodies_match_plain(dev, src, mode, n, d, q, body):
     assert torch.equal(s_k, t_k.reshape(-1, 16, q).amin(dim=1))
 
 
+@pytest.mark.parametrize("kernel", ["k7", "k5_3", "k5_1"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n, d, q", [
+    (256, 768, 7),                      # one super-tile, Qp < one query tile
+    (133 * 256, 48, 65),                # past one wave; d not whole stages
+    (256, 768, 4133),                   # ragged query tiles
+    (256, 40, 100),                     # int8 codes: d % 16 != 0
+    (133 * 256, 37, 100)])              # ragged d: TMA takes neither
+def test_k7_k5_bodies_match_plain(dev, kernel, mode, n, d, q):
+    """K7 (int8 codes x pow2 scales, super minima) and K5 at 3 and 1 passes
+    (f32 rows split on chip, tile minima only) against their plain versions
+    on the body their shape routes to -- wgmma where the rows' pitch is a
+    multiple of 16 bytes (int8 codes: d % 16 == 0; f32 rows and bf16
+    queries: d % 8 == 0), else mma_sync -- with 10% dead rows and fully
+    dead tiles; K7's super minima are exactly the minima of its tile
+    minima."""
+    rng = np.random.default_rng(n + d + q)
+    db = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(
+        dev)
+    valid_np = rng.random(n) >= 0.1
+    valid_np[16:48] = False                 # tiles 1 and 2 fully dead
+    valid = torch.from_numpy(valid_np).to(dev)
+    queries = torch.from_numpy(
+        rng.standard_normal((q, d), dtype=np.float32)).to(dev)
+    if kernel == "k7":
+        codes, scales, rows = _int8_rows(db)
+        src, arr, passes, key = "int8", codes, 1, "coarse_minima_int8_1p_sup"
+        body = "wgmma" if d % 16 == 0 else "mma_sync"
+    else:
+        src, arr, rows, key = "f32", db, db, "coarse_minima_f32"
+        passes = 3 if kernel == "k5_3" else 1
+        body = "wgmma" if d % 8 == 0 else "mma_sync"
+    sq = (rows * rows).sum(1)
+    qThi, qlo, _, qn, qrow, col, inv = ck._query_terms(
+        queries, sq, torch.sqrt(sq), valid, mode)
+    qTlo = qlo.to(torch.bfloat16)
+    assert cuda_kernels.coarse_body(src, arr, passes, kernel == "k7") == body
+    before = dict(cuda_kernels.routes[key])
+    if kernel == "k7":
+        sc = scales.reshape(1, -1)
+        t_k, s_k = ck._minima_1p_sup(qThi, qrow, arr, col, inv, mode, src, sc)
+        t_p, s_p = ck._minima_1p_sup_plain(qThi, qrow, arr, col, inv, mode,
+                                           src, sc)
+    else:
+        t_k = ck._coarse_minima_f32(qThi, qTlo, qrow, arr, col, inv, passes,
+                                    mode).T
+        t_p = ck._coarse_minima_f32_plain(qThi, qTlo, qrow, arr, col, inv,
+                                          passes, mode).T
+    torch.cuda.synchronize()
+    assert cuda_kernels.routes[key][body] == before[body] + 1
+    assert t_k.shape == (n // 16, q)
+    lim = 2.0 ** -16 * (1.0 if mode == "cosine" else
+                        float(torch.sqrt(sq.max())) * float(qn.max()))
+    assert _live_err(t_k, t_p) <= lim
+    if kernel == "k7":
+        assert s_k.shape == (n // 256, q)
+        assert _live_err(s_k, s_p) <= lim
+        assert torch.equal(s_k, t_k.reshape(-1, 16, q).amin(dim=1))
+
+
+def _probe_rows(rng, data, n, d, q):
+    """(rows, queries) f32 for an accumulation reading: N(0,1), or U(1, 2)
+    (every product positive: a truncating accumulator drifts one way)."""
+    if data == "normal":
+        return (rng.standard_normal((n, d), dtype=np.float32),
+                rng.standard_normal((q, d), dtype=np.float32))
+    return (rng.uniform(1.0, 2.0, (n, d)).astype(np.float32),
+            rng.uniform(1.0, 2.0, (q, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("kernel", ["k7", "k5_3"])
+@pytest.mark.parametrize("data", ["normal", "uniform12"])
+def test_new_wgmma_readings_within_coefficient(dev, kernel, data):
+    """The accumulation reading of the wgmma body's K7 (integer codes, unit
+    scales) and K5 at 3 passes (against the f64 sum of its three bf16
+    products), through ``_probe_inv``: at most the wgmma coefficient. K7's
+    codes: uniform in [-127, 127] against N(0,1) queries, and all positive,
+    in [64, 127], against U(1, 2) queries."""
+    rng = np.random.default_rng(22)
+    n, d, q = 4096, 768, 64
+    x_np, qs_np = _probe_rows(rng, data, n, d, q)
+    x = torch.from_numpy(x_np).to(dev)
+    qs = torch.from_numpy(qs_np).to(dev)
+    inv, live = ck._probe_inv(n, dev)
+    qrow = torch.zeros((1, q), device=dev)
+    col = torch.zeros((1, n), device=dev)
+    qT = qs.T.contiguous()
+    qThi = qT.to(torch.bfloat16)
+    if kernel == "k7":
+        low = -127 if data == "normal" else 64
+        codes = torch.from_numpy(rng.integers(low, 128, (n, d)).astype(
+            np.int8)).to(dev)
+        ones = torch.ones((1, n), device=dev)
+        assert cuda_kernels.coarse_body("int8", codes, 1, True) == "wgmma"
+        t, _ = cuda_kernels.coarse_minima_int8_1p_sup(qThi, qrow, codes, ones,
+                                                      col, inv, "dot")
+        reading = ck._accum_reading(t, codes.float(), qThi, live)
+    else:
+        qTlo = (qT - qThi.float()).to(torch.bfloat16)
+        hi, lo = ck.split_hi_lo(x)
+        assert cuda_kernels.coarse_body("f32", x, 3, False) == "wgmma"
+        t = cuda_kernels.coarse_minima_f32(qThi, qTlo, qrow, x, col, inv, 3,
+                                           "dot")
+        reading = ck._accum_reading(t, hi.float(), qThi, live,
+                                    lo.float(), qTlo)
+    torch.cuda.synchronize()
+    assert 0.0 <= reading <= ck._accum_coeff("wgmma"), reading
+
+
 @pytest.mark.parametrize("data", ["normal", "uniform12"])
 def test_accumulation_reading_within_coefficient(dev, data):
     """Raw dots read through each body (K1 on wgmma, K6 on mma_sync) with

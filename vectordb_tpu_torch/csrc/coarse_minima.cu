@@ -1,22 +1,23 @@
 // Coarse bf16 scan with fused tile / super-tile minima, the mma.sync body
-// (kernels K3, K5, K6, K7, and the K1 / K4 shapes TMA cannot take).
+// (kernels K3 and K6, and the K1 / K4 / K5 / K7 shapes TMA cannot take).
 //
 // One template, coarse_minima_kernel<SRC, PASSES, EMIT_SUPER>, serves six
 // Pallas kernels of vectordb_tpu/ops/coarse_kernel.py:
 //   K3  _coarse_kernel (launcher _coarse_minima): SRC=MIRRORS, PASSES=3
 //       (bf16x3: hi.qhi + lo.qhi + hi.qlo) or 1, tile minima only;
-//   K5  _coarse_kernel_f32 (launcher _coarse_minima_f32): SRC=F32,
-//       PASSES=3 or 1 -- K3 over the f32 rows, hi/lo split on chip;
 //   K6  _coarse_kernel_1p (launchers _coarse_minima_1p(_tq)): SRC=MIRRORS,
 //       PASSES=1, tile minima only (the same body as K3 at one pass);
+// and, only for the shapes TMA cannot take (d not a multiple of 8 -- of 16
+// for int8 codes -- or rows not 16-byte aligned):
+//   K5  _coarse_kernel_f32 (launcher _coarse_minima_f32): SRC=F32,
+//       PASSES=3 or 1 -- K3 over the f32 rows, hi/lo split on chip;
 //   K7  _coarse_kernel_int8_1p_sup (src "int8"): SRC=INT8, PASSES=1,
 //       EMIT_SUPER -- K1 over int8 codes, the dot times a pow2 row scale;
 //   K1  _coarse_kernel_1p_sup (src "mirrors" or "bf16"): SRC=MIRRORS,
 //       PASSES=1, EMIT_SUPER, and
 //   K4  _coarse_kernel_f32_1p_sup (src "f32"): SRC=F32, PASSES=1,
-//       EMIT_SUPER -- only for the shapes TMA cannot take (d not a
-//       multiple of 8, or rows not 16-byte aligned). Every other K1 and K4
-//       launch runs coarse_wgmma.cu (TMA ring + wgmma, persistent blocks);
+//       EMIT_SUPER. Every other K1, K4, K5 and K7 launch runs
+//       coarse_wgmma.cu (TMA ring + wgmma, persistent blocks);
 //       ops/cuda_kernels.py's _coarse_route picks the body by shape.
 //
 // What it computes: for every 16-row database tile t and query q,
@@ -45,8 +46,9 @@
 // cores' bf16 rate the GEMM is compute-bound; this body is limited by its
 // instruction throughput (single-stage shared-memory tiles, no cp.async /
 // TMA / wgmma: ~8-10% of the bf16 rate), and K5 adds the on-chip split per
-// element. coarse_wgmma.cu is the redesign for Hopper; K3, K5, K6 and K7
-// are to move onto it (ROADMAP queue 2).
+// element. coarse_wgmma.cu is the redesign for Hopper; K3 and K6 are to
+// move onto its mirrors form at 3 passes / tile minima only next (ROADMAP
+// queue 2); this body keeps the ragged shapes.
 //
 // What the design does about it: one block owns one 256-row super-tile x
 // 64 queries, so the super minimum is a block-local reduction (no second

@@ -1,76 +1,119 @@
 // Coarse bf16 scan for Hopper: a TMA ring feeding wgmma, with the 16-row
-// tile minima and 256-row super-tile minima fused into the epilogue
-// (kernels K1 and K4).
+// tile minima (and 256-row super-tile minima) fused into the epilogue
+// (kernels K1, K4, K5 and K7).
 //
-// One template, coarse_wgmma_kernel<SRC>, replaces two Pallas kernels of
-// vectordb_tpu/ops/coarse_kernel.py:
+// One template, coarse_wgmma_kernel<SRC, PASSES, EMIT_SUPER>, replaces four
+// Pallas kernels of vectordb_tpu/ops/coarse_kernel.py, five instantiations:
 //   K1  _coarse_kernel_1p_sup (:261; launcher _minima_1p_sup, src
-//       "mirrors" or "bf16"): SRC=MIRRORS -- one bf16 pass over the hi
+//       "mirrors" or "bf16"): MIRRORS/1/super -- one bf16 pass over the hi
 //       mirror (or a bf16-stored database);
-//   K4  _coarse_kernel_f32_1p_sup (:295; src "f32"): SRC=F32 -- the same
-//       pass over the f32 rows, rounded to bf16 on chip.
-// It computes what coarse_minima.cu's coarse_minima_kernel<SRC, 1, true>
-// computes, with the same score forms (score_of: __fadd_rn / __fmul_rn in
-// the same order), the same PENALTY masking, and the same outputs: (N/16,
-// Qp) tile minima and (N/256, Qp) super minima, f32, tile-major. Each
-// super minimum is the minimum of its 16 tile minima, exactly.
-// ops/cuda_kernels.py's _coarse_route sends here the K1 and K4 launches
-// whose operands TMA can take (d % 8 == 0: a 16-byte row pitch for the bf16
-// queries and for the rows; 16-byte aligned rows); every other shape, and
-// K3, K5, K6 and K7, stays on coarse_minima.cu.
+//   K4  _coarse_kernel_f32_1p_sup (:295; src "f32"): F32/1/super -- the
+//       same pass over the f32 rows, rounded to bf16 on chip;
+//   K7  _coarse_kernel_int8_1p_sup (:329; src "int8"): INT8/1/super -- the
+//       same pass over int8 codes widened exactly to bf16, each dot times
+//       its row's pow2 scale before the score;
+//   K5  _coarse_kernel_f32 (:704; launcher _coarse_minima_f32): F32/3/-
+//       (bf16x3: hi.qhi + lo.qhi + hi.qlo, hi = RNE(x), lo = RNE(x - hi)
+//       split on chip) and F32/1/- (one pass), tile minima only.
+// It computes what coarse_minima.cu's coarse_minima_kernel<SRC, PASSES,
+// EMIT_SUPER> computes, with the same score forms (score_of: __fadd_rn /
+// __fmul_rn in the same order), the same PENALTY masking, and the same
+// outputs: (N/16, Qp) tile minima and, with EMIT_SUPER, (N/256, Qp) super
+// minima, f32, tile-major. Each super minimum is the minimum of its 16 tile
+// minima, exactly. ops/cuda_kernels.py's _coarse_route sends here the K1,
+// K4, K5 and K7 launches whose operands TMA can take (d % 8 == 0: a 16-byte
+// row pitch for the bf16 queries and the bf16 / f32 rows; d % 16 == 0 for
+// int8 codes; 16-byte aligned rows); every other shape, and K3 and K6, stays
+// on coarse_minima.cu.
 //
-// What bounds it on an H100: a bf16 GEMM of 2*N*Q*d flops (6.6 TFLOP at
-// N=2^20, Q=4096, d=768: 6.7 ms at the 989 TFLOP/s dense bf16 rate), so
-// the tensor cores, provided (1) they are fed by wgmma, the only Hopper
-// instruction that reaches that rate, (2) loads stay in flight while they
-// work, and (3) the operand traffic from L2 to the SMs stays under L2's
-// rate: a 256 x 128 block tile moves (256 + 128) * d * 2 bytes per 2 *
-// 256 * 128 * d flops, 77 GB at that shape (129 GB for K4's f32 rows).
+// What bounds it on an H100: a bf16 GEMM of 2*N*Q*d flops per pass (6.6
+// TFLOP at N=2^20, Q=4096, d=768: 6.7 ms at the 989 TFLOP/s dense bf16
+// rate), so the tensor cores, provided (1) they are fed by wgmma, the only
+// Hopper instruction that reaches that rate, (2) loads stay in flight while
+// they work, and (3) the operand traffic from L2 to the SMs stays under
+// L2's rate: a 256 x 128 block tile moves (256 * s + 128 * 2 * q) * d bytes
+// per 2 * 256 * 128 * d flops (s bytes per row element, q query operands):
+// 77 GB at that shape for K1, 129 GB for K4's f32 rows, 51.5 GB for K7's
+// codes; K5 at 3 passes moves 9.7 GB at Q=256 for 3x the flops.
 //
 // What the design does about it:
 //   - Block tile: one 256-row super-tile (M: database rows) x 128 queries
 //     (N). Two consumer warpgroups own 128 rows each and issue 2 x
-//     m64n128k16 wgmma per k16 step (128 f32 accumulators a thread).
+//     m64n128k16 wgmma per k16 step and pass (128 f32 accumulators a
+//     thread).
 //   - Operands reach shared memory by TMA into a ring of stages: one
 //     producer thread waits on a stage's "empty" mbarrier, arms its "full"
-//     barrier with the byte count and issues two 2-D tensor loads; the
-//     consumers wait on "full", run wgmma, and arrive on "empty". setmaxnreg
-//     moves registers from the producer warpgroup (40) to the consumers
-//     (232).
+//     barrier with the byte count and issues a 2-D tensor load per operand;
+//     the consumers wait on "full", run wgmma, and arrive on "empty".
+//     setmaxnreg moves registers from the producer warpgroup (40) to the
+//     consumers (232).
 //   - MIRRORS: stages of 64 bf16 of depth (128-byte rows, 128B swizzle), 4
 //     stages (48 KB each); A and B both from shared memory by descriptor;
 //     one wgmma group stays in flight while the next stage is issued.
 //   - F32: stages of 32 f32 of depth (128-byte rows, 128B swizzle) and 32
-//     bf16 of queries (64-byte rows, 64B swizzle), 5 stages (40 KB each).
-//     The consumers read their A fragments from the f32 stage, round them
-//     with __floats2bfloat162_rn (round to nearest even, as torch's cast
-//     that computes elo_max) and issue wgmma with A from registers. A
-//     converting warpgroup that writes a swizzled bf16 copy was the
-//     alternative; it costs a second shared-memory buffer per stage (which
-//     would cut the ring to 3 stages), a proxy fence and a barrier between
-//     warpgroups per stage, where the register route reads each f32
-//     element once, conflict-free, in the thread that multiplies it.
+//     bf16 of queries (64-byte rows, 64B swizzle), 5 stages (40 KB each) at
+//     one pass; at three passes a second query operand (qlo) per stage, 4
+//     stages (48 KB each). The consumers read their A fragments from the
+//     f32 stage, round them with __floats2bfloat162_rn (round to nearest
+//     even, as torch's cast that computes elo_max; at three passes also
+//     lo = RNE(x - hi) with __fsub_rn, as coarse_minima.cu) and issue wgmma
+//     with A from registers: one per slab and k16 step, three at three
+//     passes (hi.qhi, lo.qhi, hi.qlo into one accumulator). A converting
+//     warpgroup that writes a swizzled bf16 copy was the alternative; it
+//     costs a second shared-memory buffer per stage, a proxy fence and a
+//     barrier between warpgroups per stage, where the register route reads
+//     each f32 element once, conflict-free, in the thread that multiplies
+//     it.
+//   - INT8: stages of 64 codes of depth (64-byte rows, 64B swizzle, the
+//     bytes copied as they are: a UINT8 tensor map) and 64 bf16 of queries
+//     (128B swizzle, K1's query stage), 6 stages (32 KB each). Each thread
+//     reads four adjacent codes of a row with one 32-bit load
+//     (conflict-free: a warp's 8 rows x 4 words cover 32 distinct banks
+//     under the swizzle) and widens them to two packed bf16 pairs exactly
+//     (widen4: no conversion unit, integer masks and a bf16 subtraction).
+//     Those four codes are k = 4t..4t+3 of a k16 step, where the mma
+//     fragment wants k = 2t, 2t+1, 2t+8, 2t+9: the wrapper permutes the
+//     query copy's k order within each 16-block to match
+//     (cuda_kernels._INT8_K_ORDER), which leaves every dot as it was, so
+//     any d % 16 == 0 is taken without padding. The row's pow2 scale
+//     multiplies the finished dot in the epilogue, before the score.
+//   - Registers of a consumer thread (setmaxnreg 232; ptxas allocates 168
+//     and keeps every instantiation free of spills): 2 x 64 f32
+//     accumulators, plus A fragments of 4 registers per slab and k16 step
+//     wherever A comes from registers (K1 reads both operands by
+//     descriptor and holds none). K4 and K5 at one pass hold one stage's (2 steps x 2 slabs x 4 = 16)
+//     and drain each stage before reading the next (wgmma reads its A
+//     registers until its group completes). K7 and K5 at three passes
+//     pipeline by k16 step instead: two sets of one step's fragments (K7:
+//     2 slabs x 4 = 8 registers a set; K5: 16, hi and lo), step j + 1 read
+//     and widened (split) into one set while step j's group runs on the
+//     other, wgmma_wait<1> retiring step j - 1's group; a stage is released
+//     once its last step's group retires. Two sets of a whole stage (2 x
+//     32 registers) spill at 240 registers and ran slower on an H100.
 //   - The queries arrive K-major: the wrapper passes one (Qp, d) bf16 copy
-//     of qThi per call (6.3 MB at Q=4096, d=768), so both operands take
-//     the same K-major swizzled layout and no transpose bit is used. TMA
-//     fills rows past Qp and columns past d with zeros.
+//     of qThi (and of qTlo at three passes) per call (6.3 MB at Q=4096,
+//     d=768), so both operands take the same K-major swizzled layout and no
+//     transpose bit is used. TMA fills rows past Qp and columns past d with
+//     zeros.
 //   - Epilogue in registers: in an m64 accumulator, warp w of a warpgroup
 //     holds rows 16w..16w+15 of its slab -- exactly one 16-row tile. The
-//     score, the penalty and the min over the lane's two rows happen in
-//     registers; a reduce-scatter over the 8 row groups (shuffles at lane
-//     distance 16, 8, 4) leaves each lane 4 finished tile minima, which go
-//     to a double-buffered shared tile of 16 x 128 minima. After one named
-//     barrier of the consumers, the tile minima are written coalesced and
-//     the super minima are the column minima of that tile.
+//     (scale,) score, the penalty and the min over the lane's two rows
+//     happen in registers; a reduce-scatter over the 8 row groups (shuffles
+//     at lane distance 16, 8, 4) leaves each lane 4 finished tile minima,
+//     which go to a double-buffered shared tile of 16 x 128 minima. After
+//     one named barrier of the consumers, the tile minima are written
+//     coalesced and the super minima are the column minima of that tile.
 //   - Persistent blocks: one per SM, walking the tiles query block
 //     fastest, so the blocks that share a database super-tile run together
 //     and the rows are read from HBM about once; the ring carries on across
 //     tiles, so the next tile's loads overlap this tile's epilogue.
 //
 // Numerics: the dots are bf16 x bf16 products summed in f32 by the tensor
-// cores. How wgmma accumulates is not documented; chip_smoke.py phase 2
-// reads its error on raw dots and ops/coarse_kernel._accum_coeff sets the
-// certificates' coefficient for this body from that reading.
+// cores (int8 codes and both halves of the f32 split are exact in bf16).
+// How wgmma accumulates is not documented; chip_smoke.py phase 2 reads its
+// error on raw dots for each instantiation and ops/coarse_kernel's
+// _accum_coeff sets the certificates' coefficient for this body from those
+// readings.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -80,7 +123,8 @@
 namespace {
 
 constexpr int SRC_MIRRORS = 0;     // bf16 hi mirror / bf16-stored rows
-constexpr int SRC_F32 = 1;         // f32 rows, rounded to bf16 on chip
+constexpr int SRC_F32 = 1;         // f32 rows, rounded (split) on chip
+constexpr int SRC_INT8 = 2;        // int8 codes + per-row pow2 scales
 
 constexpr int SUB = 16;            // rows per tile
 constexpr int SUPER = 16;          // tiles per super-tile
@@ -91,34 +135,64 @@ constexpr int CTHREADS = CONSUMERS * 128;
 constexpr int THREADS = CTHREADS + 128;   // + the producer warpgroup
 constexpr float PENALTY = 1e30f;
 
-template <int SRC> struct Cfg;
-template <> struct Cfg<SRC_MIRRORS> {
+// per instantiation: depth per stage, ring length, bytes of the row stage
+// (A) and of each query operand (B; NB of them), the query operand's wgmma
+// layout (1: 128B swizzle, 2: 64B) and stride between 8-row groups, and
+// the row stage's TMA swizzle
+template <int SRC, int PASSES> struct Cfg;
+template <> struct Cfg<SRC_MIRRORS, 1> {
   static constexpr int BK = 64;          // bf16 depth per stage
   static constexpr int STAGES = 4;
+  static constexpr int NB = 1;
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int B_BYTES = BN * BK * 2;
-  static constexpr uint64_t B_LAYOUT = 1;    // wgmma: 128B swizzle
+  static constexpr uint64_t B_LAYOUT = 1;
   static constexpr uint32_t B_SBO = 8 * BK * 2;
+  static constexpr bool A_SW64 = false;
 };
-template <> struct Cfg<SRC_F32> {
+template <> struct Cfg<SRC_F32, 1> {
   static constexpr int BK = 32;          // f32 depth per stage
   static constexpr int STAGES = 5;
+  static constexpr int NB = 1;
   static constexpr int A_BYTES = BM * BK * 4;
   static constexpr int B_BYTES = BN * BK * 2;
-  static constexpr uint64_t B_LAYOUT = 2;    // wgmma: 64B swizzle
+  static constexpr uint64_t B_LAYOUT = 2;
   static constexpr uint32_t B_SBO = 8 * BK * 2;
+  static constexpr bool A_SW64 = false;
+};
+template <> struct Cfg<SRC_F32, 3> {
+  static constexpr int BK = 32;          // f32 depth per stage
+  static constexpr int STAGES = 4;
+  static constexpr int NB = 2;           // qhi and qlo
+  static constexpr int A_BYTES = BM * BK * 4;
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr uint64_t B_LAYOUT = 2;
+  static constexpr uint32_t B_SBO = 8 * BK * 2;
+  static constexpr bool A_SW64 = false;
+};
+template <> struct Cfg<SRC_INT8, 1> {
+  static constexpr int BK = 64;          // codes per stage
+  static constexpr int STAGES = 6;
+  static constexpr int NB = 1;
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr uint64_t B_LAYOUT = 1;
+  static constexpr uint32_t B_SBO = 8 * BK * 2;
+  static constexpr bool A_SW64 = true;   // 64-byte rows
 };
 
-template <int SRC>
+template <int SRC, int PASSES>
 constexpr int smem_bytes() {
-  using C = Cfg<SRC>;
+  using C = Cfg<SRC, PASSES>;
   return 1024                                          // alignment slack
-         + C::STAGES * (C::A_BYTES + C::B_BYTES)       // the ring
+         + C::STAGES * (C::A_BYTES + C::NB * C::B_BYTES)   // the ring
          + 2 * SUPER * BN * 4                          // tile minima x 2
          + 2 * C::STAGES * 8;                          // mbarriers
 }
-static_assert(smem_bytes<SRC_MIRRORS>() <= 232448, "shared memory");
-static_assert(smem_bytes<SRC_F32>() <= 232448, "shared memory");
+static_assert(smem_bytes<SRC_MIRRORS, 1>() <= 232448, "shared memory");
+static_assert(smem_bytes<SRC_F32, 1>() <= 232448, "shared memory");
+static_assert(smem_bytes<SRC_F32, 3>() <= 232448, "shared memory");
+static_assert(smem_bytes<SRC_INT8, 1>() <= 232448, "shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -188,7 +262,6 @@ __device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
-
 #define VDB_ACC8(b)                                                         \
   "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),           \
       "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
@@ -266,23 +339,137 @@ __device__ __forceinline__ uint32_t bf16x2_at(const uint8_t* stage, int r,
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int SRC>
+// the bf16x3 split of the same two values: hi = RNE(x), lo = RNE(x - hi)
+// (__fsub_rn, as coarse_minima.cu's fill8), each as a packed bf16 pair
+__device__ __forceinline__ void split_at(const uint8_t* stage, int r, int c,
+                                         uint32_t& hi, uint32_t& lo) {
+  const int off = (r * 128 + c * 4) ^ ((r & 7) << 4);
+  const float2 x = *reinterpret_cast<const float2*>(stage + off);
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(x.x, hf.x), __fsub_rn(x.y, hf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// four int8 codes of a 64B-swizzled code stage (rows of 64 bytes): row r,
+// codes c..c+3 (c a multiple of 4). 64B swizzle XORs byte-offset bits 4-5
+// with bits 7-8, which for 64-byte rows are bits 1-2 of the row
+__device__ __forceinline__ uint32_t codes4_at(const uint8_t* stage, int r,
+                                              int c) {
+  const int off = (r * 64 + c) ^ (((r >> 1) & 3) << 4);
+  return *reinterpret_cast<const uint32_t*>(stage + off);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 d =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// four int8 codes (code i in byte i of w) as two packed bf16 pairs, lo =
+// (c0, c1) and hi = (c2, c3), exactly: bf16 0x43mm is 128 + m for a 7-bit
+// m, and 0x4380 is 256, so (0x4300 | (b & 0x7f)) - (0x4300 | (b & 0x80)) =
+// (b & 0x7f) - 128 * (b >> 7), the code; every operand and the difference
+// are bf16-exact, so the subtraction does not round
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t mag = w & 0x7F7F7F7Fu, neg = w & 0x80808080u;
+  lo = bf16x2_sub(__byte_perm(mag, 0x43434343u, 0x4140),
+                  __byte_perm(neg, 0x43434343u, 0x4140));
+  hi = bf16x2_sub(__byte_perm(mag, 0x43434343u, 0x4342),
+                  __byte_perm(neg, 0x43434343u, 0x4342));
+}
+
+// the A fragments of one k16 step for wgmma from registers, [slab][4]:
+// rows g and g + 8 of the warp's 16, columns 2t and 2t + 8 (the
+// mma.m16n8k16 A layout); hi holds the rounded f32 rows or the widened
+// codes, lo the f32 rows' lo halves at three passes
+template <int PASSES> struct StepFrags {
+  uint32_t hi[2][4];
+  uint32_t lo[PASSES == 3 ? 2 : 1][4];
+};
+
+template <int SRC, int PASSES>
+__device__ __forceinline__ void load_step(StepFrags<PASSES>& f,
+                                          const uint8_t* as, int kk, int wg,
+                                          int w, int g, int t) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int r = wg * 128 + s * 64 + w * 16 + g;
+    if constexpr (SRC == SRC_INT8) {
+      // codes 4t..4t+3 of the k16 step: the query copy's k order
+      const int c = kk * 16 + 4 * t;
+      widen4(codes4_at(as, r, c), f.hi[s][0], f.hi[s][2]);
+      widen4(codes4_at(as, r + 8, c), f.hi[s][1], f.hi[s][3]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = kk * 16 + 8 * h + 2 * t;
+        split_at(as, r, c, f.hi[s][2 * h], f.lo[s][2 * h]);
+        split_at(as, r + 8, c, f.hi[s][2 * h + 1], f.lo[s][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// one k16 step's wgmma group: per slab hi.qhi, and at three passes lo.qhi,
+// then hi.qlo, into one accumulator; the query operands at b0 (qlo at
+// b0 + B_BYTES)
+template <int SRC, int PASSES>
+__device__ __forceinline__ void issue_step(float (&acc)[2][64],
+                                           const StepFrags<PASSES>& f,
+                                           uint32_t b0, int kk, bool first) {
+  using C = Cfg<SRC, PASSES>;
+  const uint64_t db = smem_desc(b0 + kk * 32, C::B_LAYOUT, C::B_SBO);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    wgmma_rs(acc[s], f.hi[s], db, !first);
+    if constexpr (PASSES == 3) {
+      const uint64_t dbl =
+          smem_desc(b0 + C::B_BYTES + kk * 32, C::B_LAYOUT, C::B_SBO);
+      wgmma_rs(acc[s], f.lo[s], db, 1);
+      wgmma_rs(acc[s], f.hi[s], dbl, 1);
+    }
+  }
+}
+
+// keeps one step's fragment registers live (unmoved, not reused) up to
+// this point of the program: wgmma reads them asynchronously
+template <int PASSES>
+__device__ __forceinline__ void fence_step(StepFrags<PASSES>& f) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      asm volatile("" : "+r"(f.hi[s][i]) :: "memory");
+      if constexpr (PASSES == 3)
+        asm volatile("" : "+r"(f.lo[s][i]) :: "memory");
+    }
+}
+
+template <int SRC, int PASSES, bool EMIT_SUPER>
 __global__ void __launch_bounds__(THREADS, 1)
 coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
                     const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_qlo,
                     const float* __restrict__ qrow,
+                    const float* __restrict__ scales,
                     const float* __restrict__ col,
                     const float* __restrict__ inv,
                     float* __restrict__ out_tile,
                     float* __restrict__ out_sup, int d, int qp, int mode,
                     int n_qblocks, int n_tiles) {
-  using C = Cfg<SRC>;
+  using C = Cfg<SRC, PASSES>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* a_s = smem;
-  uint8_t* b_s = a_s + C::STAGES * C::A_BYTES;
-  float* tmin_s = reinterpret_cast<float*>(b_s + C::STAGES * C::B_BYTES);
+  uint8_t* b_s = a_s + C::STAGES * C::A_BYTES;    // [stage][NB] buffers
+  float* tmin_s =
+      reinterpret_cast<float*>(b_s + C::STAGES * C::NB * C::B_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(tmin_s + 2 * SUPER * BN);
   uint64_t* empty = full + C::STAGES;
   const int nk = (d + C::BK - 1) / C::BK;
@@ -309,11 +496,13 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
           const uint32_t fb = smem_u32(&full[stage]);
-          mbar_expect_tx(fb, C::A_BYTES + C::B_BYTES);
+          mbar_expect_tx(fb, C::A_BYTES + C::NB * C::B_BYTES);
           tma_load(smem_u32(a_s + stage * C::A_BYTES), &tm_db, fb,
                    kb * C::BK, row0);
-          tma_load(smem_u32(b_s + stage * C::B_BYTES), &tm_q, fb,
-                   kb * C::BK, q0);
+          uint8_t* bs = b_s + stage * C::NB * C::B_BYTES;
+          tma_load(smem_u32(bs), &tm_q, fb, kb * C::BK, q0);
+          if constexpr (C::NB == 2)
+            tma_load(smem_u32(bs + C::B_BYTES), &tm_qlo, fb, kb * C::BK, q0);
           if (++stage == C::STAGES) {
             stage = 0;
             phase ^= 1;
@@ -370,12 +559,61 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
         fence_acc(acc[0]);
         fence_acc(acc[1]);
         mbar_arrive(smem_u32(&empty[prev]));
+      } else if constexpr (SRC == SRC_INT8 || PASSES == 3) {
+        // A from registers, one k16 step a group: step j + 1 is read and
+        // widened (split) into one set of fragments while step j's group
+        // runs on the other; wgmma_wait<1> retires step j - 1's group, and
+        // a stage is released once its last step's group is retired
+        constexpr int KS = C::BK / 16;
+        static_assert(KS % 2 == 0, "a stage ends on the second set");
+        StepFrags<PASSES> sf[2];
+        int prev = stage;
+        mbar_wait(smem_u32(&full[stage]), phase);
+        load_step<SRC, PASSES>(sf[0], a_s + stage * C::A_BYTES, 0, wg, w, g,
+                               t);
+        for (int kb = 0; kb < nk; ++kb) {
+          const uint8_t* as = a_s + stage * C::A_BYTES;
+          const uint32_t b0 = smem_u32(b_s + stage * C::NB * C::B_BYTES);
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            fence_acc(acc[0]);
+            fence_acc(acc[1]);
+            wgmma_fence();
+            issue_step<SRC, PASSES>(acc, sf[kk & 1], b0, kk,
+                                    kb == 0 && kk == 0);
+            wgmma_commit();
+            fence_acc(acc[0]);
+            fence_acc(acc[1]);
+            wgmma_wait<1>();           // step kk - 1's group is done
+            fence_step(sf[(kk + 1) & 1]);
+            if (kk == 0 && kb > 0) mbar_arrive(smem_u32(&empty[prev]));
+            if (kk + 1 < KS)
+              load_step<SRC, PASSES>(sf[(kk + 1) & 1], as, kk + 1, wg, w, g,
+                                     t);
+          }
+          prev = stage;
+          if (++stage == C::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+          if (kb + 1 < nk) {
+            mbar_wait(smem_u32(&full[stage]), phase);
+            load_step<SRC, PASSES>(sf[0], a_s + stage * C::A_BYTES, 0, wg, w,
+                                   g, t);
+          }
+        }
+        wgmma_wait<0>();
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        mbar_arrive(smem_u32(&empty[prev]));
       } else {
+        // K4 and K5 at one pass: one stage's fragments [kk][slab][4], rows
+        // g and g + 8 of the warp's 16, columns 2t and 2t + 8 of the k16
+        // step, rounded to bf16 (RNE); the stage drains before the next is
+        // read, since wgmma reads the registers until the group completes
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(smem_u32(&full[stage]), phase);
           const uint8_t* as = a_s + stage * C::A_BYTES;
-          // A fragments [kk][slab][4]: rows g and g + 8 of the warp's 16,
-          // columns 2t and 2t + 8 of the k16 step, rounded to bf16 (RNE)
           uint32_t a[C::BK / 16][2][4];
 #pragma unroll
           for (int kk = 0; kk < C::BK / 16; ++kk)
@@ -402,7 +640,6 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
               wgmma_rs(acc[s], a[kk][s], db, (kb | kk) != 0);
           }
           wgmma_commit();
-          // the A registers are read until the group completes
           wgmma_wait<0>();
           fence_acc(acc[0]);
           fence_acc(acc[1]);
@@ -414,7 +651,7 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
         }
       }
 
-      // ---- epilogue: score, penalty, tile minima, super minima ----
+      // ---- epilogue: (scale,) score, penalty, tile minima, super minima --
       // acc[s][4j + e] holds row 16w + g + 8 (e >> 1) of slab s, query
       // column 8j + 2t + (e & 1)
       float* tm = tmin_s + buf * SUPER * BN;
@@ -425,6 +662,11 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
         const long r_hi = r_lo + 8;
         const float col_lo = col[r_lo], col_hi = col[r_hi];
         const float inv_lo = inv[r_lo], inv_hi = inv[r_hi];
+        float scl_lo = 1.0f, scl_hi = 1.0f;
+        if constexpr (SRC == SRC_INT8) {
+          scl_lo = scales[r_lo];
+          scl_hi = scales[r_hi];
+        }
         float v[32];
 #pragma unroll
         for (int j = 0; j < 16; ++j)
@@ -432,10 +674,13 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
           for (int e = 0; e < 2; ++e) {
             const int q = q0 + 8 * j + 2 * t + e;
             const float qr = q < qp ? __ldg(&qrow[q]) : 0.0f;
-            v[2 * j + e] =
-                fminf(score_of(acc[s][4 * j + e], col_lo, qr, inv_lo, mode),
-                      score_of(acc[s][4 * j + 2 + e], col_hi, qr, inv_hi,
-                               mode));
+            float dot_lo = acc[s][4 * j + e], dot_hi = acc[s][4 * j + 2 + e];
+            if constexpr (SRC == SRC_INT8) {   // pow2 row scale: exact
+              dot_lo = __fmul_rn(dot_lo, scl_lo);
+              dot_hi = __fmul_rn(dot_hi, scl_hi);
+            }
+            v[2 * j + e] = fminf(score_of(dot_lo, col_lo, qr, inv_lo, mode),
+                                 score_of(dot_hi, col_hi, qr, inv_hi, mode));
           }
         // over the 8 row groups g (lane bits 4, 3, 2): v[i] then holds the
         // tile minimum of column 16g + 8 (i >> 1) + 2t + (i & 1)
@@ -451,11 +696,13 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
         const int q = q0 + i % BN;
         if (q < qp) out_tile[(rblk * SUPER + i / BN) * (long)qp + q] = tm[i];
       }
-      if (ct < BN && q0 + ct < qp) {
-        float m = tm[ct];
+      if constexpr (EMIT_SUPER) {
+        if (ct < BN && q0 + ct < qp) {
+          float m = tm[ct];
 #pragma unroll
-        for (int i = 1; i < SUPER; ++i) m = fminf(m, tm[i * BN + ct]);
-        out_sup[rblk * (long)qp + q0 + ct] = m;
+          for (int i = 1; i < SUPER; ++i) m = fminf(m, tm[i * BN + ct]);
+          out_sup[rblk * (long)qp + q0 + ct] = m;
+        }
       }
       buf ^= 1;     // the next tile's minima go to the other buffer
     }
@@ -508,31 +755,42 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int SRC>
-int launch(const void* qk, const void* qrow, const void* db, const void* col,
+template <int SRC, int PASSES, bool EMIT_SUPER>
+int launch(const void* qk, const void* qk_lo, const void* qrow,
+           const void* db, const void* scales, const void* col,
            const void* inv, void* out_tile, void* out_sup, long n, int d,
            int qp, int mode, cudaStream_t stream) {
-  using C = Cfg<SRC>;
+  using C = Cfg<SRC, PASSES>;
   const int n_qblocks = (qp + BN - 1) / BN;
   const long n_tiles = (n / BM) * static_cast<long>(n_qblocks);
   if (n_tiles < 1 || n_tiles > 0x7fffffffL || n > 0x7fffffffL)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tm_db, tm_q;
-  const bool ok =
-      make_map(&tm_db,
-               SRC == SRC_F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-               db, d, n, static_cast<long>(d) * (SRC == SRC_F32 ? 4 : 2),
-               C::BK, BM, CU_TENSOR_MAP_SWIZZLE_128B) &&
+  const CUtensorMapDataType db_type =
+      SRC == SRC_F32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : SRC == SRC_INT8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const long db_item = SRC == SRC_F32 ? 4 : SRC == SRC_INT8 ? 1 : 2;
+  const CUtensorMapSwizzle q_swizzle = C::B_LAYOUT == 1
+                                           ? CU_TENSOR_MAP_SWIZZLE_128B
+                                           : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tm_db, tm_q, tm_qlo;
+  bool ok =
+      make_map(&tm_db, db_type, db, d, n, static_cast<long>(d) * db_item,
+               C::BK, BM,
+               C::A_SW64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                         : CU_TENSOR_MAP_SWIZZLE_128B) &&
       make_map(&tm_q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, qk, d, qp,
-               static_cast<long>(d) * 2, C::BK, BN,
-               C::B_LAYOUT == 1 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : CU_TENSOR_MAP_SWIZZLE_64B);
+               static_cast<long>(d) * 2, C::BK, BN, q_swizzle);
+  if (PASSES == 3)
+    ok = ok && make_map(&tm_qlo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, qk_lo, d,
+                        qp, static_cast<long>(d) * 2, C::BK, BN, q_swizzle);
+  else
+    tm_qlo = tm_q;                 // not read at one pass
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = smem_bytes<SRC>();
+  constexpr int smem = smem_bytes<SRC, PASSES>();
   cudaError_t e = cudaFuncSetAttribute(
-      coarse_wgmma_kernel<SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      coarse_wgmma_kernel<SRC, PASSES, EMIT_SUPER>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 0;
   e = cudaGetDevice(&dev);
@@ -540,36 +798,57 @@ int launch(const void* qk, const void* qrow, const void* db, const void* col,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
-  coarse_wgmma_kernel<SRC><<<grid, THREADS, smem, stream>>>(
-      tm_db, tm_q, static_cast<const float*>(qrow),
-      static_cast<const float*>(col), static_cast<const float*>(inv),
-      static_cast<float*>(out_tile), static_cast<float*>(out_sup), d, qp,
-      mode, n_qblocks, static_cast<int>(n_tiles));
+  coarse_wgmma_kernel<SRC, PASSES, EMIT_SUPER><<<grid, THREADS, smem,
+                                                 stream>>>(
+      tm_db, tm_q, tm_qlo, static_cast<const float*>(qrow),
+      static_cast<const float*>(scales), static_cast<const float*>(col),
+      static_cast<const float*>(inv), static_cast<float*>(out_tile),
+      static_cast<float*>(out_sup), d, qp, mode, n_qblocks,
+      static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C interface (loaded with ctypes). qk: the queries as (qp, d) bf16,
-// K-major; db: (n, d) bf16 (src 0) or f32 (src 1) rows, 16-byte aligned,
-// d % 8 == 0; n a positive multiple of 256; qp >= 1. mode: 0 euclidean,
-// 1 dot product, 2 cosine. Writes out_tile (n/16, qp) and out_sup (n/256,
-// qp). Launches on ``stream``, allocates nothing, returns a cudaError_t.
-extern "C" int vdb_coarse_wgmma(const void* qk, const void* qrow,
-                                const void* db, const void* col,
+// C interface (loaded with ctypes). qk (and qk_lo at three passes): the
+// queries as (qp, d) bf16, K-major (for src 2 with each 16-block of k in the
+// order cuda_kernels._INT8_K_ORDER gives); db: (n, d) bf16 (src 0), f32
+// (src 1) or int8 codes (src 2, with f32 pow2 row scales ``scales``, n
+// entries) rows, 16-byte aligned, d % 8 == 0 (d % 16 == 0 for src 2); n a
+// positive multiple of 256; qp >= 1. mode: 0 euclidean, 1 dot product, 2
+// cosine. Routed: src 0 and 2 at one pass with super minima; src 1 at one
+// pass with or without them, and at three passes without. Writes out_tile
+// (n/16, qp) and, with emit_super, out_sup (n/256, qp). Launches on
+// ``stream``, allocates nothing, returns a cudaError_t.
+extern "C" int vdb_coarse_wgmma(const void* qk, const void* qk_lo,
+                                const void* qrow, const void* db,
+                                const void* scales, const void* col,
                                 const void* inv, void* out_tile,
                                 void* out_sup, long n, int d, int qp,
-                                int mode, int src, void* stream) {
+                                int mode, int src, int passes,
+                                int emit_super, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d < 8 || d % 8 != 0 || qp < 1 || n % BM != 0 ||
       reinterpret_cast<uintptr_t>(db) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(qk) % 16 != 0)
+      reinterpret_cast<uintptr_t>(qk) % 16 != 0 ||
+      (src == SRC_INT8 && (d % 16 != 0 || scales == nullptr)) ||
+      (passes == 3 && (qk_lo == nullptr ||
+                       reinterpret_cast<uintptr_t>(qk_lo) % 16 != 0)) ||
+      (emit_super && out_sup == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (src == SRC_MIRRORS)
-    return launch<SRC_MIRRORS>(qk, qrow, db, col, inv, out_tile, out_sup, n,
-                               d, qp, mode, s);
-  if (src == SRC_F32)
-    return launch<SRC_F32>(qk, qrow, db, col, inv, out_tile, out_sup, n, d,
-                           qp, mode, s);
+#define VDB_LAUNCH(SRC, P, E)                                                \
+  launch<SRC, P, E>(qk, qk_lo, qrow, db, scales, col, inv, out_tile,         \
+                    out_sup, n, d, qp, mode, s)
+  if (src == SRC_MIRRORS && passes == 1 && emit_super)
+    return VDB_LAUNCH(SRC_MIRRORS, 1, true);               // K1
+  if (src == SRC_F32 && passes == 1 && emit_super)
+    return VDB_LAUNCH(SRC_F32, 1, true);                   // K4
+  if (src == SRC_INT8 && passes == 1 && emit_super)
+    return VDB_LAUNCH(SRC_INT8, 1, true);                  // K7
+  if (src == SRC_F32 && passes == 3 && !emit_super)
+    return VDB_LAUNCH(SRC_F32, 3, false);                  // K5, 3 passes
+  if (src == SRC_F32 && passes == 1 && !emit_super)
+    return VDB_LAUNCH(SRC_F32, 1, false);                  // K5, 1 pass
+#undef VDB_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

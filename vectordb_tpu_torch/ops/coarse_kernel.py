@@ -126,15 +126,22 @@ def _probe_inv(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return inv, live
 
 
-def _accum_reading(tile_min, x, qThi, live) -> float:
+def _accum_reading(tile_min, x, qThi, live, x_lo=None, qTlo=None) -> float:
     """Accumulation error of dots read through ``_probe_inv``: max over
     (tile, query) of |(-tile_min) - dot| / (d 2^-24 sum_i |x_i q_i|), dot
     in f64 over the same bf16 operands. ``x`` (N, d) holds the values the
-    kernel multiplied (bf16-exact), ``qThi`` (d, Qp) the bf16 queries. A
-    round-to-nearest f32 sum reads at most 1."""
+    kernel multiplied (bf16-exact), ``qThi`` (d, Qp) the bf16 queries; with
+    the lo operands ``x_lo`` and ``qTlo`` (3 passes), dot is hi.qhi +
+    lo.qhi + hi.qlo and the sum runs over all three products. A
+    round-to-nearest f32 sum of one pass reads at most 1."""
     xl, q = x[live].double(), qThi.double()
-    scale = (xl.abs() @ q.abs()) * (x.shape[1] * 2.0 ** -24)
-    err = (-tile_min.double() - xl @ q).abs()
+    pairs = [(xl, q)]
+    if x_lo is not None:
+        pairs += [(x_lo[live].double(), q), (xl, qTlo.double())]
+    dot = sum(a @ b for a, b in pairs)
+    scale = sum(a.abs() @ b.abs() for a, b in pairs) * (x.shape[1]
+                                                         * 2.0 ** -24)
+    err = (-tile_min.double() - dot).abs()
     return float(torch.where(scale > 0, err / scale, err).max())
 
 

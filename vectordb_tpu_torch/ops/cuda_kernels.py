@@ -18,9 +18,11 @@ of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
     K3  coarse_minima              coarse_minima.cu  mirrors, 3 or 1 passes
     K4  coarse_minima_f32_1p_sup   coarse_wgmma.cu or     f32, 1 pass,
                                    coarse_minima.cu       super
-    K5  coarse_minima_f32          coarse_minima.cu  f32, 3 or 1 passes
+    K5  coarse_minima_f32          coarse_wgmma.cu or     f32, 3 or 1 passes
+                                   coarse_minima.cu
     K6  coarse_minima_1p           coarse_minima.cu  mirrors, 1 pass
-    K7  coarse_minima_int8_1p_sup  coarse_minima.cu  int8, 1 pass, super
+    K7  coarse_minima_int8_1p_sup  coarse_wgmma.cu or     int8, 1 pass,
+                                   coarse_minima.cu       super
     K2  refine_dots                refine_dots.cu    f32, bf16 or int8 rows
         (launch keys refine_dots, refine_dots_bf16, refine_dots_int8)
     K8  pq_decode                  pq_decode.cu      uint8 codes -> bf16 rows
@@ -28,11 +30,12 @@ of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
 
 The coarse kernels have two bodies, chosen by shape alone in
 ``_coarse_route``: "wgmma" (``coarse_wgmma.cu``: TMA ring, wgmma,
-persistent blocks) for K1 and K4 launches whose rows TMA can take (d a
-multiple of 8, 16-byte aligned rows), "mma_sync" (``coarse_minima.cu``)
-for every other shape and for K3, K5, K6 and K7. ``routes[key][body]``
-counts each coarse kernel's launches by body beside ``launches``. No
-body stands in for another: a failed build or launch raises.
+persistent blocks) for K1, K4, K5 (3 passes or 1) and K7 launches whose
+rows TMA can take (d a multiple of 8 -- of 16 for int8 codes -- and
+16-byte aligned rows), "mma_sync" (``coarse_minima.cu``) for every other
+shape and for K3 and K6. ``routes[key][body]`` counts each coarse
+kernel's launches by body beside ``launches``. No body stands in for
+another: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -138,7 +141,8 @@ def _lib() -> ctypes.CDLL:
     lib.vdb_coarse_minima.argtypes = [p, p, p, p, p, p, p, p, p, p, l, i, i,
                                       i, i, i, i, p]
     lib.vdb_coarse_minima.restype = i
-    lib.vdb_coarse_wgmma.argtypes = [p, p, p, p, p, p, p, l, i, i, i, i, p]
+    lib.vdb_coarse_wgmma.argtypes = [p, p, p, p, p, p, p, p, p, l, i, i, i,
+                                     i, i, i, p]
     lib.vdb_coarse_wgmma.restype = i
     lib.vdb_refine_dots.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.vdb_refine_dots.restype = i
@@ -180,16 +184,36 @@ def _stream(device) -> ctypes.c_void_p:
 def _coarse_route(src: str, passes: int, emit_super: bool, d: int,
                   ptrs_aligned: bool) -> str:
     """The coarse body a launch takes, from its shape alone: "wgmma"
-    (coarse_wgmma.cu) for K1 (src "mirrors") and K4 ("f32") -- one pass,
-    super minima -- when TMA can take the operands: a row pitch that is a
-    multiple of 16 bytes for the bf16 query copy and the rows (d % 8 == 0)
-    and 16-byte aligned rows; "mma_sync" (coarse_minima.cu) otherwise, and
-    for K3, K5, K6 and K7."""
-    tma_ok = d >= 8 and d % 8 == 0 and ptrs_aligned
-    one_pass_sup = passes == 1 and emit_super
-    if src in ("mirrors", "f32") and one_pass_sup and tma_ok:
-        return "wgmma"
-    return "mma_sync"
+    (coarse_wgmma.cu) for K1 (src "mirrors", one pass, super minima), K4
+    and K5 ("f32": one pass with or without super minima, or three passes
+    without) and K7 ("int8", one pass, super minima) when TMA can take the
+    operands: 16-byte aligned rows and a row pitch that is a multiple of 16
+    bytes for the bf16 query copy and the rows (d % 8 == 0; d % 16 == 0
+    for int8 codes, one byte each); "mma_sync" (coarse_minima.cu)
+    otherwise, and for K3 and K6."""
+    if not ptrs_aligned or d < 8 or d % 8:
+        return "mma_sync"
+    if src == "int8":
+        routed = passes == 1 and emit_super and d % 16 == 0
+    elif src == "f32":
+        routed = passes == 1 or not emit_super
+    else:
+        routed = passes == 1 and emit_super
+    return "wgmma" if routed else "mma_sync"
+
+
+# K7's query copy: within each 16-block of k, fragment column p holds query
+# dimension _INT8_K_ORDER[p], so that the four codes k = 4t..4t+3 a thread
+# reads with one 32-bit load land on the mma fragment's columns 2t, 2t+1,
+# 2t+8, 2t+9 (coarse_wgmma.cu, widen4); every dot is unchanged
+_INT8_K_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
+
+
+def _int8_k_index(d: int, device) -> torch.Tensor:
+    """(d,) indices of ``_INT8_K_ORDER`` applied to each 16-block of k."""
+    k = torch.arange(d, device=device)
+    order = torch.tensor(_INT8_K_ORDER, device=device)
+    return k - k % 16 + order[k % 16]
 
 
 def coarse_body(src: str, db, passes: int, emit_super: bool) -> str:
@@ -228,16 +252,19 @@ def _coarse(key: str, src: str, qThi, qTlo, qrow, db, db_lo, scales, col,
     sup = (torch.empty((n // _ROWS_PER_BLOCK, qp), dtype=f32, device=dev)
            if emit_super else None)
     body = coarse_body(src, db, passes, emit_super)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     if body == "wgmma":
         # the queries K-major, (Qp, d): both wgmma operands then share one
-        # swizzled layout
-        qk = qThi.t().contiguous()
+        # swizzled layout (for int8 codes in K7's k order)
+        qk = (qThi.t().index_select(1, _int8_k_index(d, dev))
+              if src == "int8" else qThi.t().contiguous())
+        qk_lo = qTlo.t().contiguous() if passes == 3 else None
         rc = _lib().vdb_coarse_wgmma(
-            qk.data_ptr(), qrow.data_ptr(), db.data_ptr(), col.data_ptr(),
-            inv_col.data_ptr(), tile.data_ptr(), sup.data_ptr(), n, d, qp,
-            _MODES[mode], code, _stream(dev))
+            qk.data_ptr(), ptr(qk_lo), qrow.data_ptr(), db.data_ptr(),
+            ptr(scales), col.data_ptr(), inv_col.data_ptr(), tile.data_ptr(),
+            ptr(sup), n, d, qp, _MODES[mode], code, passes, int(emit_super),
+            _stream(dev))
     else:
-        ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
         rc = _lib().vdb_coarse_minima(
             qThi.data_ptr(), ptr(qTlo if passes == 3 else None),
             qrow.data_ptr(), db.data_ptr(),
