@@ -11,12 +11,13 @@ nothing is caught and passed over):
      N=2^16, Q=256, all three metrics, 10% dead rows), max error beside
      its limit (see ``limits``), and a control per kernel that must break
      the limit; then the accumulation reading of both coarse bodies: raw
-     dots read through K1, K7 (integer codes, unit scales) and K5 at 3
-     passes (the "wgmma" body) and K6 ("mma_sync") with 15 of every 16
-     rows dead (``ck._probe_inv``), against f64 dots of the same bf16
-     operands (for K5 the sum of its three products), max |err| / (d 2^-24
-     sum|x_i q_i|) on N(0,1) data and on U(1, 2) data (every product
-     positive), each held to the certificates' coefficient for its body;
+     dots read through K1, K7 (integer codes, unit scales), K5 at 3
+     passes and K3 at 3 passes (the "wgmma" body) and K6 ("mma_sync")
+     with 15 of every 16 rows dead (``ck._probe_inv``), against f64 dots
+     of the same bf16 operands (for K5 and K3 the sum of their three
+     products), max |err| / (d 2^-24 sum|x_i q_i|) on N(0,1) data and on
+     U(1, 2) data (every product positive), each held to the
+     certificates' coefficient for its body;
   3. the f32 slice at full size through the public entry points:
      VectorStore.with_flat_index(EUCLIDEAN, device="cuda"), 2^20 x 768
      seeded rows through insert_batch, a Q=4096, k=10 search_batch exact
@@ -28,7 +29,9 @@ nothing is caught and passed over):
   6. K1, K2, K3 against their plain versions at the main path's shapes
      (agreement within the same limits, time by CUDA events beside the
      plain version's, a bf16 torch.matmul of the same GEMM shape and the
-     bound);
+     bound): K3 at 3 passes over the 2^20-row store's mirrors at Q=65 and
+     Q=256 (its tier 2 and its forced fallback) and over the 20k-row
+     store's at Q=1024;
   7. the storage modes at full size: one seeded 2^20 x 768 row set into
      VectorStore.with_flat_index(EUCLIDEAN, storage=...) for "bf16" (K1 +
      K2 over bf16 rows), "int8" (K7 + K2 over int8 codes) and "f32" past
@@ -62,10 +65,11 @@ storage store's searches (K4/K7 and K2 by source); each forced fallback
 two-phase searches (K9). Every kernel of a path must have launched in its
 window; the direct comparison calls are outside them. Every K1, K4 and K7
 launch in the windows of phase 3 and of phase 7's bf16, int8 and f32
-stores, and every K5 launch in the f32 store's window (tier 2 of the
-queries tier 1 leaves uncertified), its forced fallback (3 passes) and
-the legacy fast f32 run (1 pass) must have taken the "wgmma" body
-(``cuda_kernels.routes``). Phase 7 prints each store's tier-1
+stores, every K3 launch of phases 3-4 (the 2^20-row store's tier 2, the
+20k-row store, the forced fallback), and every K5 launch in the f32
+store's window (tier 2 of the queries tier 1 leaves uncertified), its
+forced fallback (3 passes) and the legacy fast f32 run (1 pass) must
+have taken the "wgmma" body (``cuda_kernels.routes``). Phase 7 prints each store's tier-1
 certification rate (and, for the f32 fallback, tier 2's) beside the
 coefficient its certificate used and the phase-2 readings of that body.
 The line before the last is the card, the one before it the JSON kernel
@@ -280,14 +284,47 @@ def library_ms(a, b, torch):
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bnd,
-               lib_ms, src=SRC, body=None):
+               lib_ms, src=SRC, body=None, **extra):
     row = {"name": name, "route": "cuda", "source": CSRC + source,
            "replaces": f"{src}:{replaces}", "launches": launches,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
     if body is not None:
         row["body"] = body
+    row.update(extra)
     return row
+
+
+def k3_at(st, queries, nq, mode, torch, ck, cuda_kernels):
+    """K3 at 3 passes over the mirrors of device state ``st`` for the first
+    ``nq`` queries, against its plain version, timed beside a bf16
+    torch.matmul of (N, 3d) x (3d, Q): a dict of the shape, the body, the
+    times, the bound, the max error, its limit and the control's error (K3
+    at one pass held to the 3-pass plain version)."""
+    qThi, qlo, _, qn, qrow, col, inv = ck._query_terms(
+        queries[:nq], st["sq_norms"], st["norms"], st["valid"], mode)
+    qTlo = qlo.to(torch.bfloat16)
+    hi, lo = st["hi"], st["lo"]
+    n = hi.shape[0]
+    lim, _ = limits(mode, float(torch.sqrt(st["sq_norms"].max())),
+                    float(qn.max()))
+    # 10 launches a reading: at N=32768 a launch is ~0.3 ms, and 3 of them
+    # read up to 10% apart between runs
+    ms, got = cuda_time(lambda: cuda_kernels.coarse_minima(
+        qThi, qTlo, qrow, hi, lo, col, inv, 3, mode), torch, iters=10)
+    ms_p, want = cuda_time(lambda: ck._coarse_minima_plain(
+        qThi, qTlo, qrow, hi, lo, col, inv, 3, mode), torch, iters=10)
+    err = live_err(got.T, want)
+    control = live_err(cuda_kernels.coarse_minima(
+        qThi, qTlo, qrow, hi, lo, col, inv, 1, mode).T, want)
+    del got, want
+    lib = library_ms(torch.cat([hi, lo, hi], dim=1),
+                     torch.cat([qThi, qThi, qTlo], dim=0), torch)
+    return {"n": n, "q": nq,
+            "body": cuda_kernels.coarse_body("mirrors", hi, 3, False, lo),
+            "ms": ms, "plain_ms": ms_p, "library_ms": lib,
+            "bound": coarse_bound(n, D, nq, 3, 2 * n * D * 2, False),
+            "err": err, "limit": lim, "control": control}
 
 
 def check_wgmma(window, key, cuda_kernels):
@@ -466,10 +503,13 @@ def accum_phase(rng, code_rng, card, np, torch, ck, cuda_kernels):
         low = -127 if data == "N(0,1)" else 64
         codes = torch.from_numpy(code_rng.integers(low, 128, (n, D)).astype(
             np.int8)).to(dev)
-        for name, src, arr, passes, sup in (
-                ("K1", "mirrors", hi, 1, True), ("K7", "int8", codes, 1, True),
-                ("K5 3-pass", "f32", xt, 3, False)):
-            if cuda_kernels.coarse_body(src, arr, passes, sup) != "wgmma":
+        for name, src, arr, passes, sup, arr_lo in (
+                ("K1", "mirrors", hi, 1, True, None),
+                ("K7", "int8", codes, 1, True, None),
+                ("K5 3-pass", "f32", xt, 3, False, None),
+                ("K3 3-pass", "mirrors", hi, 3, False, lo)):
+            if cuda_kernels.coarse_body(src, arr, passes, sup,
+                                        arr_lo) != "wgmma":
                 fail(f"the accumulation probe's {name} shape does not route "
                      f"to wgmma")
         t1, _ = cuda_kernels.coarse_minima_1p_sup(qThi, qrow, hi, col, inv,
@@ -478,6 +518,8 @@ def accum_phase(rng, code_rng, card, np, torch, ck, cuda_kernels):
                                                        ones, col, inv, "dot")
         t5 = cuda_kernels.coarse_minima_f32(qThi, qTlo, qrow, xt, col, inv,
                                             3, "dot")
+        t3 = cuda_kernels.coarse_minima(qThi, qTlo, qrow, hi, lo, col, inv,
+                                        3, "dot")
         t6 = cuda_kernels.coarse_minima_1p(qThi, qrow, hi, col, inv, "dot")
         torch.cuda.synchronize()
         read[("K1", "wgmma", data)] = ck._accum_reading(t1, hi.float(), qThi,
@@ -486,9 +528,11 @@ def accum_phase(rng, code_rng, card, np, torch, ck, cuda_kernels):
                                                         qThi, live)
         read[("K5 3-pass", "wgmma", data)] = ck._accum_reading(
             t5, hi.float(), qThi, live, lo.float(), qTlo)
+        read[("K3 3-pass", "wgmma", data)] = ck._accum_reading(
+            t3, hi.float(), qThi, live, lo.float(), qTlo)
         read[("K6", "mma_sync", data)] = ck._accum_reading(t6, hi.float(),
                                                            qThi, live)
-        del xt, hi, lo, qThi, qTlo, codes, t1, t7, t5, t6
+        del xt, hi, lo, qThi, qTlo, codes, t1, t7, t5, t3, t6
     say(f"phase 2 accumulation reading, max |dot - f64 dot| / (d 2^-24 "
         f"sum|x_i q_i|), N={n} d={D} Q={q}: " + "; ".join(
             f"{name} ({body}) on {data} {v:.6f} (coefficient "
@@ -1256,6 +1300,8 @@ def main() -> None:
     small_s = time.perf_counter() - t0
     counts = dict(cuda_kernels.launches)
     k1_bodies = check_wgmma("phase 3", "coarse_minima_1p_sup", cuda_kernels)
+    # K3: tier 2 of the big store's uncertified queries, the 20k-row store
+    k3_bodies = check_wgmma("phases 3-4", "coarse_minima", cuda_kernels)
     k3_small = counts["coarse_minima"] - k3_big
 
     with index._lock:
@@ -1284,7 +1330,8 @@ def main() -> None:
         f"[{card}]")
     path_keys = ("coarse_minima_1p_sup", "coarse_minima", "refine_dots")
     say(f"launch counts (main path: the store searches of phases 3 and 4): "
-        f"{ {k: counts[k] for k in path_keys} }; K1 by body {k1_bodies}")
+        f"{ {k: counts[k] for k in path_keys} }; K1 by body {k1_bodies}; "
+        f"K3 by body {k3_bodies} ({k3_big} in the 2^20-row store's tier 2)")
     if min(counts[k] for k in path_keys) < 1:
         fail(f"a kernel of the path never launched: {counts}")
 
@@ -1311,12 +1358,15 @@ def main() -> None:
                                       DistanceMetric.EUCLIDEAN, K)
     if cuda_kernels.launches["coarse_minima"] == k3_before:
         fail("the forced fallback did not run tier 2 (K3)")
+    k3_bodies = check_wgmma("phase 4 forced fallback", "coarse_minima",
+                            cuda_kernels)
     fties, _ = check_exact("forced fallback", fi[:, :K], fd[:, :K],
                            ora_d2[:256], ora_i[:256], K, np)
     say(f"phase 4 small store 20000 x {D} (tier 2) Q=1024 exact "
         f"({sties} ties) in {small_s * 1e3:.3f} ms, K3 launches {k3_small};"
         f" forced fallback Q=256 certified 0/256 in tier 1, exact after "
-        f"fallback ({fties} ties)  [{card}]")
+        f"fallback ({fties} ties); K3 by body since phase 3 {k3_bodies}  "
+        f"[{card}]")
 
     # -- phase 5: HTTP -------------------------------------------------
     hstore = VectorStore.with_flat_index(DistanceMetric.EUCLIDEAN,
@@ -1379,38 +1429,31 @@ def main() -> None:
     e2 = float((dots_k - dots_p).abs().max())
     b2 = refine_bound(tidx, D, 4, torch)
     del dots_k, dots_p
-    sq1024 = queries[:1024]
-    sThi, slo, _, sqn, sqrow, scol, sinv = ck._query_terms(
-        sq1024, sstate["sq_norms"], sstate["norms"], sstate["valid"], mode)
-    sTlo = slo.to(torch.bfloat16)
-    slim, _ = limits(mode, float(torch.sqrt(sstate["sq_norms"].max())),
-                     float(sqn.max()))
-    ms3, min_k = cuda_time(lambda: cuda_kernels.coarse_minima(
-        sThi, sTlo, sqrow, sstate["hi"], sstate["lo"], scol, sinv, 3, mode),
-        torch)
-    ms3p, min_p = cuda_time(lambda: ck._coarse_minima_plain(
-        sThi, sTlo, sqrow, sstate["hi"], sstate["lo"], scol, sinv, 3, mode),
-        torch)
-    e3 = live_err(min_k.T, min_p)
-    c3 = live_err(cuda_kernels.coarse_minima(
-        sThi, sTlo, sqrow, sstate["hi"], sstate["lo"], scol, sinv, 1,
-        mode).T, min_p)
-    n3 = sstate["db"].shape[0]
-    lib3 = library_ms(
-        torch.cat([sstate["hi"], sstate["lo"], sstate["hi"]], dim=1),
-        torch.cat([sThi, sThi, sTlo], dim=0), torch)
+    # K3 at its three shapes: the 2^20-row store's tier 2 (Q=65 of its
+    # 4096 queries stay uncertified) and forced fallback (Q=256), the
+    # 20k-row store (Q=1024)
+    k3 = [k3_at(state, queries, 65, mode, torch, ck, cuda_kernels),
+          k3_at(state, queries, 256, mode, torch, ck, cuda_kernels),
+          k3_at(sstate, queries, 1024, mode, torch, ck, cuda_kernels)]
     say(f"phase 6 agreement at the main path's shapes: K1 {e1:.3e} (limit "
-        f"{lim:.3e}); K2 {e2:.3e} (limit {lim2:.3e}); K3 3-pass {e3:.3e} "
-        f"(limit {slim:.3e}; control, 1-pass kernel: {c3:.3e})  [{card}]")
-    if not (e1 <= lim and e2 <= lim2 and e3 <= slim):
+        f"{lim:.3e}); K2 {e2:.3e} (limit {lim2:.3e}); K3 3-pass " + "; ".join(
+            f"N={r['n']} Q={r['q']} {r['err']:.3e} (limit {r['limit']:.3e};"
+            f" control, 1-pass kernel: {r['control']:.3e})" for r in k3)
+        + f"  [{card}]")
+    if not (e1 <= lim and e2 <= lim2
+            and all(r["err"] <= r["limit"] for r in k3)):
         fail("kernel disagrees with its plain version at the main path's "
              "shapes")
-    if not c3 > slim:
+    if not all(r["control"] > r["limit"] for r in k3):
         fail("the 1-pass control passed the K3 limit at the main path's "
              "shapes")
+    if any(r["body"] != "wgmma" for r in k3):
+        fail(f"K3 at the main path's shapes does not route to wgmma: "
+             f"{[r['body'] for r in k3]}")
     worst["coarse_minima_1p_sup"] = max(worst["coarse_minima_1p_sup"], e1)
     worst["refine_dots"] = max(worst["refine_dots"], e2)
-    worst["coarse_minima"] = max(worst["coarse_minima"], e3)
+    worst["coarse_minima"] = max([worst["coarse_minima"]]
+                                 + [r["err"] for r in k3])
     _, _, cert = ck.coarse_search_1p(queries, state["db"],
                                      state["sq_norms"], state["norms"],
                                      state["valid"], state["hi"],
@@ -1418,14 +1461,18 @@ def main() -> None:
                                      DistanceMetric.EUCLIDEAN, K)
     rate = float(cert.float().mean())
     b1 = coarse_bound(n, D, nq, 1, n * D * 2, True)
-    b3 = coarse_bound(n3, D, 1024, 3, 2 * n3 * D * 2, False)
+    k3_line = "; ".join(
+        f"N={r['n']} Q={r['q']} {r['ms']:.3f} ms "
+        f"({6.0 * r['n'] * r['q'] * D / r['ms'] / 1e9:.1f} TFLOP/s; plain "
+        f"{r['plain_ms']:.3f}, bf16 matmul (N, 3d) x (3d, Q) "
+        f"{r['library_ms']:.3f}, bound {r['bound'][0]:.3f} by "
+        f"{r['bound'][1]})" for r in k3)
     say(f"phase 6 times [{card}]: K1 N={n} Q={nq} {ms1:.3f} ms "
         f"({2.0 * n * nq * D / ms1 / 1e9:.1f} TFLOP/s, body "
         f"{cuda_kernels.coarse_body('mirrors', state['hi'], 1, True)}; plain "
         f"{ms1p:.3f}, bf16 matmul {lib1:.3f}, bound {b1[0]:.3f}); K2 Q={nq} "
         f"m={mp} {ms2:.3f} ms (plain {ms2p:.3f}, bound {b2[0]:.3f}); K3 "
-        f"3-pass N={n3} Q=1024 {ms3:.3f} ms (plain {ms3p:.3f}, bf16 matmul "
-        f"(N, 3d) x (3d, Q) {lib3:.3f}, bound {b3[0]:.3f}); tier-1 "
+        f"3-pass (body {k3[0]['body']}) {k3_line}; tier-1 "
         f"certification rate {rate:.6f} ({int(cert.sum())}/{nq}) with "
         f"the wgmma coefficient {ck._accum_coeff('wgmma')} (phase-2 K1 "
         f"reading {max(v for (k, _, _), v in accum.items() if k == 'K1'):.6f})")
@@ -1437,11 +1484,19 @@ def main() -> None:
         kernel_row("K2 refine_dots", "refine_dots.cu", 471,
                    counts["refine_dots"], worst["refine_dots"], ms2, ms2p,
                    b2, None),
-        kernel_row("K3 coarse_minima", "coarse_minima.cu", 96,
-                   counts["coarse_minima"], worst["coarse_minima"], ms3,
-                   ms3p, b3, lib3)]
+        # K3's row: the big store's tier 2 (most of its launches), the
+        # other two shapes beside it
+        kernel_row("K3 coarse_minima", "coarse_wgmma.cu", 96,
+                   counts["coarse_minima"], worst["coarse_minima"],
+                   k3[0]["ms"], k3[0]["plain_ms"], k3[0]["bound"],
+                   k3[0]["library_ms"], body=k3[0]["body"],
+                   shapes=[{"N": r["n"], "Q": r["q"], "ms": r["ms"],
+                            "plain_ms": r["plain_ms"],
+                            "bound_ms": r["bound"][0],
+                            "bound_by": r["bound"][1],
+                            "library_ms": r["library_ms"]} for r in k3])]
     del store, small, hstore, state, sstate, forced, res, res_fast, sres
-    del tidx, min_k, min_p, index
+    del tidx, index
     free(torch)
 
     # -- phase 7: the storage modes at full size ------------------------

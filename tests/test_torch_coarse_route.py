@@ -21,14 +21,16 @@ ROUTE_CASES = list(itertools.product(
 
 @pytest.mark.parametrize("src, passes, emit_super, d, aligned", ROUTE_CASES)
 def test_route(src, passes, emit_super, d, aligned):
-    """K1 (mirrors: one pass, super minima), K4 and K5 (f32: one pass, or
-    three passes without super minima) and K7 (int8: one pass, super
-    minima) take the wgmma body when TMA can take their rows: 16-byte
-    aligned rows, and a row pitch that is a multiple of 16 bytes for the
-    bf16 queries and the rows (d a multiple of 8; of 16 for int8 codes,
-    one byte each). Everything else -- ragged d, unaligned rows, K3, K6 --
-    stays on mma_sync."""
-    routed = {"mirrors": passes == 1 and emit_super,
+    """K1 (mirrors: one pass, super minima), K3 (mirrors: three passes,
+    tile minima only), K4 and K5 (f32: one pass, or three passes without
+    super minima) and K7 (int8: one pass, super minima) take the wgmma
+    body when TMA can take their rows: 16-byte aligned rows, and a row
+    pitch that is a multiple of 16 bytes for the bf16 queries and the rows
+    (d a multiple of 8; of 16 for int8 codes, one byte each). Everything
+    else -- ragged d, unaligned rows, K6 and K3 at one pass (mirrors, one
+    pass, tile minima only), three passes with super minima -- stays on
+    mma_sync."""
+    routed = {"mirrors": (passes == 1) == emit_super,
               "f32": passes == 1 or not emit_super,
               "int8": passes == 1 and emit_super}[src]
     pitch = 16 if src == "int8" else 8
@@ -88,6 +90,63 @@ def test_route_reads_alignment_from_the_rows(src, dtype):
     assert ck._coarse_body(src, aligned, 1, True) == "plain"
 
 
+@pytest.mark.parametrize("shift", ["none", "lo", "hi", "both"])
+@pytest.mark.parametrize("d", [768, 40])
+def test_k3_route_reads_both_mirrors(shift, d):
+    """K3 at three passes reads the hi and the lo mirror through TMA: it
+    takes wgmma only when both are 16-byte aligned. A bf16 view offset by
+    one element (2 bytes) sends it to mma_sync, whichever mirror it is."""
+    def mirror(shifted):
+        buf = torch.zeros((256 * d + 8,), dtype=torch.bfloat16)
+        return buf[int(shifted):int(shifted) + 256 * d].view(256, d)
+
+    hi = mirror(shift in ("hi", "both"))
+    lo = mirror(shift in ("lo", "both"))
+    want = "wgmma" if shift == "none" else "mma_sync"
+    assert cuda_kernels.coarse_body("mirrors", hi, 3, False, lo) == want
+    # one pass (K6, and K3's control) reads no lo mirror, and stays on
+    # mma_sync whatever the alignment
+    assert cuda_kernels.coarse_body("mirrors", hi, 1, False) == "mma_sync"
+
+
+@pytest.mark.parametrize("shift", ["none", "lo"])
+def test_tier2_certificate_asks_the_body_of_its_launch(shift, monkeypatch):
+    """``coarse_search(exact=True)`` over the mirrors asks ``_coarse_body``
+    with the very arrays K3 was launched over, the lo mirror included, so
+    the coefficient and the launch cannot disagree: an unaligned lo mirror
+    routes K3 to mma_sync, and the certificate's question gets the same
+    answer from the route."""
+    rng = np.random.default_rng(5)
+    db = torch.from_numpy(rng.standard_normal((1024, 40), dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((8, 40), dtype=np.float32))
+    sq = (db * db).sum(1)
+    hi, lo = ck.split_hi_lo(db)
+    if shift == "lo":
+        buf = torch.zeros((lo.numel() + 8,), dtype=torch.bfloat16)
+        lo = buf[1:1 + lo.numel()].view_as(lo).copy_(lo)
+    launched, asked = [], []
+    real_minima = ck._coarse_minima
+
+    def spy_minima(*a):
+        launched.append(a)
+        return real_minima(*a)
+
+    def spy_body(*a):
+        asked.append(a)
+        return "plain"
+
+    monkeypatch.setattr(ck, "_coarse_minima", spy_minima)
+    monkeypatch.setattr(ck, "_coarse_body", spy_body)
+    ck.coarse_search(q, db, sq, torch.sqrt(sq), torch.ones(1024, dtype=bool),
+                     hi, lo, DistanceMetric.EUCLIDEAN, 5)
+    (src, arr, passes, sup, arr_lo), = asked
+    (_, _, _, l_hi, l_lo, *_), = launched
+    assert (src, passes, sup) == ("mirrors", 3, False)
+    assert arr is l_hi and arr_lo is l_lo
+    want = "wgmma" if shift == "none" else "mma_sync"
+    assert cuda_kernels.coarse_body(src, arr, passes, sup, arr_lo) == want
+
+
 @pytest.mark.parametrize("body, coeff", [("plain", 1.0), ("mma_sync", 2.0),
                                          ("wgmma", 2.0)])
 def test_accum_coeff_by_route(body, coeff):
@@ -110,6 +169,35 @@ def test_certificate_takes_the_coefficient_of_its_route(body, monkeypatch):
     def certified():
         return ck.coarse_search_1p(q, db, sq, torch.sqrt(sq), valid, hi, elo,
                                    DistanceMetric.EUCLIDEAN, 5)[2]
+
+    base = certified()                    # the plain body, coefficient 1
+    assert base.any()
+    other = "wgmma" if body == "mma_sync" else "mma_sync"
+    monkeypatch.setattr(ck, "_coarse_body", lambda *a: body)
+    monkeypatch.setitem(ck._ACCUM_COEFF, body, 1.0)
+    monkeypatch.setitem(ck._ACCUM_COEFF, other, 1e6)
+    assert torch.equal(certified(), base)
+    monkeypatch.setitem(ck._ACCUM_COEFF, body, 1e6)
+    assert not certified().any()
+
+
+@pytest.mark.parametrize("body", ["mma_sync", "wgmma"])
+def test_tier2_certificate_takes_the_coefficient_of_its_route(body,
+                                                             monkeypatch):
+    """The bf16x3 certificate of ``coarse_search(exact=True)`` over the
+    mirrors (tier 2, K3) reads the coefficient of the body that ran K3, as
+    the 1-pass one does: inflating that body's coefficient certifies
+    nothing, inflating the other body's leaves the flags as they were."""
+    rng = np.random.default_rng(1)
+    db = torch.from_numpy(rng.standard_normal((1024, 32), dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((16, 32), dtype=np.float32))
+    sq = (db * db).sum(1)
+    valid = torch.ones(1024, dtype=torch.bool)
+    hi, lo = ck.split_hi_lo(db)
+
+    def certified():
+        return ck.coarse_search(q, db, sq, torch.sqrt(sq), valid, hi, lo,
+                                DistanceMetric.EUCLIDEAN, 5)[2]
 
     base = certified()                    # the plain body, coefficient 1
     assert base.any()
@@ -190,6 +278,43 @@ def test_probe_reads_each_3pass_dot_exactly(n, d, q, wide):
     tile = ck._coarse_minima_f32(qThi, qTlo, qrow, x, col, inv, 3, "dot").T
     assert torch.equal(tile.double(), want)
     one = ck._coarse_minima_f32(qThi, qTlo, qrow, x, col, inv, 1, "dot").T
+    assert not torch.equal(one.double(), want)
+    assert ck._accum_reading(tile, hi.float(), qThi, live, lo.float(),
+                             qTlo) == 0.0
+
+
+@pytest.mark.parametrize("n, d, q, wide", [(256, 768, 7, "rows"),
+                                           (512, 40, 100, "both"),
+                                           (1024, 37, 33, "both")])
+def test_probe_reads_each_3pass_mirror_dot_exactly(n, d, q, wide):
+    """K3 at 3 passes over the hi and lo mirrors through ``_probe_inv``, on
+    the integer data of the K5 case above: each tile minimum is exactly
+    -(hi.qhi + lo.qhi + hi.qlo) in f64, the same as K5 over the f32 rows
+    the mirrors split, the 1-pass minima are not, and the accumulation
+    reading over the three products is 0."""
+    rng = np.random.default_rng(n + d)
+
+    def wide_ints(shape):
+        return rng.integers(257, 512, shape) * rng.choice([-1, 1], shape)
+
+    x = torch.from_numpy(wide_ints((n, d)).astype(np.float32))
+    qs = torch.from_numpy((wide_ints((q, d)) if wide == "both" else
+                           rng.integers(-8, 9, (q, d))).astype(np.float32))
+    hi, lo = ck.split_hi_lo(x)
+    qT = qs.T.contiguous()
+    qThi = qT.to(torch.bfloat16)
+    qTlo = (qT - qThi.float()).to(torch.bfloat16)
+    assert bool((lo != 0).any())
+    inv, live = ck._probe_inv(n, "cpu")
+    qrow = torch.zeros((1, q))
+    col = torch.zeros((1, n))
+    h, l_ = hi[live].double(), lo[live].double()
+    want = -(h @ qThi.double() + l_ @ qThi.double() + h @ qTlo.double())
+    tile = ck._coarse_minima(qThi, qTlo, qrow, hi, lo, col, inv, 3, "dot").T
+    assert torch.equal(tile.double(), want)
+    assert torch.equal(tile, ck._coarse_minima_f32(qThi, qTlo, qrow, x, col,
+                                                   inv, 3, "dot").T)
+    one = ck._coarse_minima(qThi, qTlo, qrow, hi, lo, col, inv, 1, "dot").T
     assert not torch.equal(one.double(), want)
     assert ck._accum_reading(tile, hi.float(), qThi, live, lo.float(),
                              qTlo) == 0.0

@@ -171,6 +171,49 @@ def test_k7_k5_bodies_match_plain(dev, kernel, mode, n, d, q):
         assert torch.equal(s_k, t_k.reshape(-1, 16, q).amin(dim=1))
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n, d, q, shift, body", [
+    (256, 768, 7, False, "wgmma"),      # one super-tile, Qp < one query tile
+    (133 * 256, 48, 65, False, "wgmma"),    # past one wave; d not whole
+    (256, 40, 100, False, "wgmma"),     # d < one stage
+    (133 * 256, 768, 1029, False, "wgmma"),   # ragged query tiles
+    (133 * 256, 37, 100, False, "mma_sync"),  # ragged d: TMA cannot take it
+    (256, 768, 65, True, "mma_sync")])  # lo mirror 2 bytes off alignment
+def test_k3_bodies_match_plain(dev, mode, n, d, q, shift, body):
+    """K3 at 3 passes over the hi and lo mirrors against
+    _coarse_minima_plain on the body its shape routes to -- wgmma where TMA
+    takes both mirrors (d % 8 == 0, both 16-byte aligned), else mma_sync --
+    with 10% dead rows and fully dead tiles."""
+    rng = np.random.default_rng(n + d + q)
+    db = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(
+        dev)
+    valid_np = rng.random(n) >= 0.1
+    valid_np[16:48] = False                 # tiles 1 and 2 fully dead
+    valid = torch.from_numpy(valid_np).to(dev)
+    queries = torch.from_numpy(
+        rng.standard_normal((q, d), dtype=np.float32)).to(dev)
+    sq = (db * db).sum(1)
+    qThi, qlo, _, qn, qrow, col, inv = ck._query_terms(
+        queries, sq, torch.sqrt(sq), valid, mode)
+    qTlo = qlo.to(torch.bfloat16)
+    hi, lo = ck.split_hi_lo(db)
+    if shift:                               # a bf16 view one element off
+        buf = torch.empty((lo.numel() + 8,), dtype=torch.bfloat16,
+                          device=dev)
+        lo = buf[1:1 + lo.numel()].view_as(lo).copy_(lo)
+    assert cuda_kernels.coarse_body("mirrors", hi, 3, False, lo) == body
+    before = dict(cuda_kernels.routes["coarse_minima"])
+    t_k = ck._coarse_minima(qThi, qTlo, qrow, hi, lo, col, inv, 3, mode)
+    t_p = ck._coarse_minima_plain(qThi, qTlo, qrow, hi, lo, col, inv, 3,
+                                  mode)
+    torch.cuda.synchronize()
+    assert cuda_kernels.routes["coarse_minima"][body] == before[body] + 1
+    assert t_k.shape == (q, n // 16)
+    lim = 2.0 ** -16 * (1.0 if mode == "cosine" else
+                        float(torch.sqrt(sq.max())) * float(qn.max()))
+    assert _live_err(t_k, t_p) <= lim
+
+
 def _probe_rows(rng, data, n, d, q):
     """(rows, queries) f32 for an accumulation reading: N(0,1), or U(1, 2)
     (every product positive: a truncating accumulator drifts one way)."""
@@ -181,14 +224,14 @@ def _probe_rows(rng, data, n, d, q):
             rng.uniform(1.0, 2.0, (q, d)).astype(np.float32))
 
 
-@pytest.mark.parametrize("kernel", ["k7", "k5_3"])
+@pytest.mark.parametrize("kernel", ["k7", "k5_3", "k3_3"])
 @pytest.mark.parametrize("data", ["normal", "uniform12"])
 def test_new_wgmma_readings_within_coefficient(dev, kernel, data):
     """The accumulation reading of the wgmma body's K7 (integer codes, unit
-    scales) and K5 at 3 passes (against the f64 sum of its three bf16
-    products), through ``_probe_inv``: at most the wgmma coefficient. K7's
-    codes: uniform in [-127, 127] against N(0,1) queries, and all positive,
-    in [64, 127], against U(1, 2) queries."""
+    scales), K5 at 3 passes and K3 at 3 passes (against the f64 sum of the
+    three bf16 products), through ``_probe_inv``: at most the wgmma
+    coefficient. K7's codes: uniform in [-127, 127] against N(0,1)
+    queries, and all positive, in [64, 127], against U(1, 2) queries."""
     rng = np.random.default_rng(22)
     n, d, q = 4096, 768, 64
     x_np, qs_np = _probe_rows(rng, data, n, d, q)
@@ -211,9 +254,15 @@ def test_new_wgmma_readings_within_coefficient(dev, kernel, data):
     else:
         qTlo = (qT - qThi.float()).to(torch.bfloat16)
         hi, lo = ck.split_hi_lo(x)
-        assert cuda_kernels.coarse_body("f32", x, 3, False) == "wgmma"
-        t = cuda_kernels.coarse_minima_f32(qThi, qTlo, qrow, x, col, inv, 3,
-                                           "dot")
+        if kernel == "k3_3":
+            assert cuda_kernels.coarse_body("mirrors", hi, 3, False,
+                                            lo) == "wgmma"
+            t = cuda_kernels.coarse_minima(qThi, qTlo, qrow, hi, lo, col,
+                                           inv, 3, "dot")
+        else:
+            assert cuda_kernels.coarse_body("f32", x, 3, False) == "wgmma"
+            t = cuda_kernels.coarse_minima_f32(qThi, qTlo, qrow, x, col, inv,
+                                               3, "dot")
         reading = ck._accum_reading(t, hi.float(), qThi, live,
                                     lo.float(), qTlo)
     torch.cuda.synchronize()
@@ -447,7 +496,11 @@ def test_k8_matches_plain_bitwise(dev, rows, m, dsub, ksub):
 
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("n, d, q, tile_rows", [
-    (4096, 768, 100, 512), (2048, 40, 7, 128), (1024, 64, 130, 64)])
+    (4096, 768, 100, 512), (2048, 40, 7, 128), (1024, 64, 130, 64),
+    (2048, 37, 65, 128),                # ragged d: 4-byte copies
+    (4096, 96, 1, 16),                  # one query; 8 tiles a 128-row step
+    (8192, 48, 1029, 2048),             # ragged query blocks; 16 steps a tile
+    (1000, 40, 33, 100)])               # tiles that straddle 128-row steps
 def test_k9_matches_plain(dev, mode, n, d, q, tile_rows):
     """K9 against its plain version within 2^-18 S; a control on bf16
     operands breaks it (chip_smoke.py's K9_LIMIT and its readings)."""

@@ -1,12 +1,15 @@
 // Coarse bf16 scan for Hopper: a TMA ring feeding wgmma, with the 16-row
 // tile minima (and 256-row super-tile minima) fused into the epilogue
-// (kernels K1, K4, K5 and K7).
+// (kernels K1, K3, K4, K5 and K7).
 //
-// One template, coarse_wgmma_kernel<SRC, PASSES, EMIT_SUPER>, replaces four
-// Pallas kernels of vectordb_tpu/ops/coarse_kernel.py, five instantiations:
+// One template, coarse_wgmma_kernel<SRC, PASSES, EMIT_SUPER>, replaces five
+// Pallas kernels of vectordb_tpu/ops/coarse_kernel.py, six instantiations:
 //   K1  _coarse_kernel_1p_sup (:261; launcher _minima_1p_sup, src
 //       "mirrors" or "bf16"): MIRRORS/1/super -- one bf16 pass over the hi
 //       mirror (or a bf16-stored database);
+//   K3  _coarse_kernel (:96; launcher _coarse_minima): MIRRORS/3/- (bf16x3
+//       over the hi and lo mirrors: hi.qhi + lo.qhi + hi.qlo), tile minima
+//       only -- tier 2 of the mirrors store;
 //   K4  _coarse_kernel_f32_1p_sup (:295; src "f32"): F32/1/super -- the
 //       same pass over the f32 rows, rounded to bf16 on chip;
 //   K7  _coarse_kernel_int8_1p_sup (:329; src "int8"): INT8/1/super -- the
@@ -21,10 +24,11 @@
 // outputs: (N/16, Qp) tile minima and, with EMIT_SUPER, (N/256, Qp) super
 // minima, f32, tile-major. Each super minimum is the minimum of its 16 tile
 // minima, exactly. ops/cuda_kernels.py's _coarse_route sends here the K1,
-// K4, K5 and K7 launches whose operands TMA can take (d % 8 == 0: a 16-byte
-// row pitch for the bf16 queries and the bf16 / f32 rows; d % 16 == 0 for
-// int8 codes; 16-byte aligned rows); every other shape, and K3 and K6, stays
-// on coarse_minima.cu.
+// K3 (3 passes), K4, K5 and K7 launches whose operands TMA can take (d %
+// 8 == 0: a 16-byte row pitch for the bf16 queries and the bf16 / f32
+// rows; d % 16 == 0 for int8 codes; 16-byte aligned rows, K3's lo mirror
+// too); every other shape, and K6 and K3 at one pass, stays on
+// coarse_minima.cu.
 //
 // What bounds it on an H100: a bf16 GEMM of 2*N*Q*d flops per pass (6.6
 // TFLOP at N=2^20, Q=4096, d=768: 6.7 ms at the 989 TFLOP/s dense bf16
@@ -34,7 +38,9 @@
 // L2's rate: a 256 x 128 block tile moves (256 * s + 128 * 2 * q) * d bytes
 // per 2 * 256 * 128 * d flops (s bytes per row element, q query operands):
 // 77 GB at that shape for K1, 129 GB for K4's f32 rows, 51.5 GB for K7's
-// codes; K5 at 3 passes moves 9.7 GB at Q=256 for 3x the flops.
+// codes; K5 at 3 passes moves 9.7 GB at Q=256 for 3x the flops. K3 at 3
+// passes over 2^20 mirror rows: 3.2 GB of hi + lo read once (0.97 ms at
+// 3.35 TB/s) for Q <= 128, so at tier 2's Q=65 it is bound by bytes.
 //
 // What the design does about it:
 //   - Block tile: one 256-row super-tile (M: database rows) x 128 queries
@@ -49,7 +55,13 @@
 //     consumers (232).
 //   - MIRRORS: stages of 64 bf16 of depth (128-byte rows, 128B swizzle), 4
 //     stages (48 KB each); A and B both from shared memory by descriptor;
-//     one wgmma group stays in flight while the next stage is issued.
+//     one wgmma group stays in flight while the next stage is issued. At
+//     three passes (K3) a stage holds 32 bf16 of depth of four operands,
+//     hi and lo rows (16 KB each) and qhi and qlo (8 KB each), all 64-byte
+//     rows in the 64B swizzle, 4 stages (48 KB each; at 64 of depth only
+//     2 would fit); per k16 step and slab three wgmma by descriptor into
+//     one accumulator (hi.qhi, lo.qhi, hi.qlo). No operand passes through
+//     registers, so K3 has none of K4/K5's fragment draining.
 //   - F32: stages of 32 f32 of depth (128-byte rows, 128B swizzle) and 32
 //     bf16 of queries (64-byte rows, 64B swizzle), 5 stages (40 KB each) at
 //     one pass; at three passes a second query operand (qlo) per stage, 4
@@ -80,9 +92,10 @@
 //   - Registers of a consumer thread (setmaxnreg 232; ptxas allocates 168
 //     and keeps every instantiation free of spills): 2 x 64 f32
 //     accumulators, plus A fragments of 4 registers per slab and k16 step
-//     wherever A comes from registers (K1 reads both operands by
-//     descriptor and holds none). K4 and K5 at one pass hold one stage's (2 steps x 2 slabs x 4 = 16)
-//     and drain each stage before reading the next (wgmma reads its A
+//     wherever A comes from registers (K1 and K3 read both operands by
+//     descriptor and hold none). K4 and K5 at one pass hold one stage's
+//     (2 steps x 2 slabs x 4 = 16) and drain each stage before reading
+//     the next (wgmma reads its A
 //     registers until its group completes). K7 and K5 at three passes
 //     pipeline by k16 step instead: two sets of one step's fragments (K7:
 //     2 slabs x 4 = 8 registers a set; K5: 16, hi and lo), step j + 1 read
@@ -135,14 +148,16 @@ constexpr int CTHREADS = CONSUMERS * 128;
 constexpr int THREADS = CTHREADS + 128;   // + the producer warpgroup
 constexpr float PENALTY = 1e30f;
 
-// per instantiation: depth per stage, ring length, bytes of the row stage
-// (A) and of each query operand (B; NB of them), the query operand's wgmma
-// layout (1: 128B swizzle, 2: 64B) and stride between 8-row groups, and
-// the row stage's TMA swizzle
+// per instantiation: depth per stage, ring length, bytes of each row
+// operand (A; NA of them) and of each query operand (B; NB of them), the
+// query operand's wgmma layout (1: 128B swizzle, 2: 64B) and stride
+// between 8-row groups, and whether the row stage has 64-byte rows (64B
+// swizzle; else 128-byte rows, 128B swizzle)
 template <int SRC, int PASSES> struct Cfg;
 template <> struct Cfg<SRC_MIRRORS, 1> {
   static constexpr int BK = 64;          // bf16 depth per stage
   static constexpr int STAGES = 4;
+  static constexpr int NA = 1;
   static constexpr int NB = 1;
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int B_BYTES = BN * BK * 2;
@@ -150,9 +165,21 @@ template <> struct Cfg<SRC_MIRRORS, 1> {
   static constexpr uint32_t B_SBO = 8 * BK * 2;
   static constexpr bool A_SW64 = false;
 };
+template <> struct Cfg<SRC_MIRRORS, 3> {
+  static constexpr int BK = 32;          // bf16 depth per stage
+  static constexpr int STAGES = 4;
+  static constexpr int NA = 2;           // hi and lo rows
+  static constexpr int NB = 2;           // qhi and qlo
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr uint64_t B_LAYOUT = 2;
+  static constexpr uint32_t B_SBO = 8 * BK * 2;
+  static constexpr bool A_SW64 = true;   // 64-byte rows
+};
 template <> struct Cfg<SRC_F32, 1> {
   static constexpr int BK = 32;          // f32 depth per stage
   static constexpr int STAGES = 5;
+  static constexpr int NA = 1;
   static constexpr int NB = 1;
   static constexpr int A_BYTES = BM * BK * 4;
   static constexpr int B_BYTES = BN * BK * 2;
@@ -163,6 +190,7 @@ template <> struct Cfg<SRC_F32, 1> {
 template <> struct Cfg<SRC_F32, 3> {
   static constexpr int BK = 32;          // f32 depth per stage
   static constexpr int STAGES = 4;
+  static constexpr int NA = 1;
   static constexpr int NB = 2;           // qhi and qlo
   static constexpr int A_BYTES = BM * BK * 4;
   static constexpr int B_BYTES = BN * BK * 2;
@@ -173,6 +201,7 @@ template <> struct Cfg<SRC_F32, 3> {
 template <> struct Cfg<SRC_INT8, 1> {
   static constexpr int BK = 64;          // codes per stage
   static constexpr int STAGES = 6;
+  static constexpr int NA = 1;
   static constexpr int NB = 1;
   static constexpr int A_BYTES = BM * BK;
   static constexpr int B_BYTES = BN * BK * 2;
@@ -185,11 +214,12 @@ template <int SRC, int PASSES>
 constexpr int smem_bytes() {
   using C = Cfg<SRC, PASSES>;
   return 1024                                          // alignment slack
-         + C::STAGES * (C::A_BYTES + C::NB * C::B_BYTES)   // the ring
+         + C::STAGES * (C::NA * C::A_BYTES + C::NB * C::B_BYTES)  // ring
          + 2 * SUPER * BN * 4                          // tile minima x 2
          + 2 * C::STAGES * 8;                          // mbarriers
 }
 static_assert(smem_bytes<SRC_MIRRORS, 1>() <= 232448, "shared memory");
+static_assert(smem_bytes<SRC_MIRRORS, 3>() <= 232448, "shared memory");
 static_assert(smem_bytes<SRC_F32, 1>() <= 232448, "shared memory");
 static_assert(smem_bytes<SRC_F32, 3>() <= 232448, "shared memory");
 static_assert(smem_bytes<SRC_INT8, 1>() <= 232448, "shared memory");
@@ -453,6 +483,7 @@ __device__ __forceinline__ void fence_step(StepFrags<PASSES>& f) {
 template <int SRC, int PASSES, bool EMIT_SUPER>
 __global__ void __launch_bounds__(THREADS, 1)
 coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
+                    const __grid_constant__ CUtensorMap tm_lo,
                     const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_qlo,
                     const float* __restrict__ qrow,
@@ -466,8 +497,9 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  constexpr int A_STAGE = C::NA * C::A_BYTES;     // [stage][NA] buffers
   uint8_t* a_s = smem;
-  uint8_t* b_s = a_s + C::STAGES * C::A_BYTES;    // [stage][NB] buffers
+  uint8_t* b_s = a_s + C::STAGES * A_STAGE;       // [stage][NB] buffers
   float* tmin_s =
       reinterpret_cast<float*>(b_s + C::STAGES * C::NB * C::B_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(tmin_s + 2 * SUPER * BN);
@@ -496,9 +528,12 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
           const uint32_t fb = smem_u32(&full[stage]);
-          mbar_expect_tx(fb, C::A_BYTES + C::NB * C::B_BYTES);
-          tma_load(smem_u32(a_s + stage * C::A_BYTES), &tm_db, fb,
-                   kb * C::BK, row0);
+          mbar_expect_tx(fb, A_STAGE + C::NB * C::B_BYTES);
+          uint8_t* as = a_s + stage * A_STAGE;
+          tma_load(smem_u32(as), &tm_db, fb, kb * C::BK, row0);
+          if constexpr (C::NA == 2)
+            tma_load(smem_u32(as + C::A_BYTES), &tm_lo, fb, kb * C::BK,
+                     row0);
           uint8_t* bs = b_s + stage * C::NB * C::B_BYTES;
           tma_load(smem_u32(bs), &tm_q, fb, kb * C::BK, q0);
           if constexpr (C::NB == 2)
@@ -523,24 +558,38 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
       const int q0 = (tile % n_qblocks) * BN;
       const long rblk = tile / n_qblocks;
       if constexpr (SRC == SRC_MIRRORS) {
+        // rows of AROW bytes (128: 128B swizzle; K3's 64: 64B swizzle)
+        constexpr int AROW = C::BK * 2;
+        constexpr uint64_t A_LAYOUT = C::A_SW64 ? 2 : 1;
         int prev = 0;
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(smem_u32(&full[stage]), phase);
-          // this warpgroup's 128 rows of 128 bytes, slab s at +64 rows
+          // this warpgroup's 128 rows, slab s at +64 rows (the lo rows at
+          // +A_BYTES, qlo at +B_BYTES)
           const uint32_t a0 =
-              smem_u32(a_s + stage * C::A_BYTES) + wg * 128 * 128;
-          const uint32_t b0 = smem_u32(b_s + stage * C::B_BYTES);
+              smem_u32(a_s + stage * A_STAGE) + wg * 128 * AROW;
+          const uint32_t b0 = smem_u32(b_s + stage * C::NB * C::B_BYTES);
           fence_acc(acc[0]);
           fence_acc(acc[1]);
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < C::BK / 16; ++kk) {
-            const uint64_t db = smem_desc(b0 + kk * 32, C::B_LAYOUT,
-                                          C::B_SBO);
+            const uint32_t bk = b0 + kk * 32;
+            const uint64_t db = smem_desc(bk, C::B_LAYOUT, C::B_SBO);
 #pragma unroll
-            for (int s = 0; s < 2; ++s)
-              wgmma_ss(acc[s], smem_desc(a0 + s * 64 * 128 + kk * 32, 1, 1024),
-                       db, (kb | kk) != 0);
+            for (int s = 0; s < 2; ++s) {
+              const uint32_t ak = a0 + s * 64 * AROW + kk * 32;
+              const uint64_t da = smem_desc(ak, A_LAYOUT, 8 * AROW);
+              wgmma_ss(acc[s], da, db, (kb | kk) != 0);
+              if constexpr (PASSES == 3) {       // + lo.qhi + hi.qlo
+                const uint64_t dal =
+                    smem_desc(ak + C::A_BYTES, A_LAYOUT, 8 * AROW);
+                const uint64_t dbl =
+                    smem_desc(bk + C::B_BYTES, C::B_LAYOUT, C::B_SBO);
+                wgmma_ss(acc[s], dal, db, 1);
+                wgmma_ss(acc[s], da, dbl, 1);
+              }
+            }
           }
           wgmma_commit();
           fence_acc(acc[0]);
@@ -569,10 +618,9 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
         StepFrags<PASSES> sf[2];
         int prev = stage;
         mbar_wait(smem_u32(&full[stage]), phase);
-        load_step<SRC, PASSES>(sf[0], a_s + stage * C::A_BYTES, 0, wg, w, g,
-                               t);
+        load_step<SRC, PASSES>(sf[0], a_s + stage * A_STAGE, 0, wg, w, g, t);
         for (int kb = 0; kb < nk; ++kb) {
-          const uint8_t* as = a_s + stage * C::A_BYTES;
+          const uint8_t* as = a_s + stage * A_STAGE;
           const uint32_t b0 = smem_u32(b_s + stage * C::NB * C::B_BYTES);
 #pragma unroll
           for (int kk = 0; kk < KS; ++kk) {
@@ -598,8 +646,8 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
           }
           if (kb + 1 < nk) {
             mbar_wait(smem_u32(&full[stage]), phase);
-            load_step<SRC, PASSES>(sf[0], a_s + stage * C::A_BYTES, 0, wg, w,
-                                   g, t);
+            load_step<SRC, PASSES>(sf[0], a_s + stage * A_STAGE, 0, wg, w, g,
+                                   t);
           }
         }
         wgmma_wait<0>();
@@ -613,7 +661,7 @@ coarse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
         // read, since wgmma reads the registers until the group completes
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(smem_u32(&full[stage]), phase);
-          const uint8_t* as = a_s + stage * C::A_BYTES;
+          const uint8_t* as = a_s + stage * A_STAGE;
           uint32_t a[C::BK / 16][2][4];
 #pragma unroll
           for (int kk = 0; kk < C::BK / 16; ++kk)
@@ -757,7 +805,8 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
 
 template <int SRC, int PASSES, bool EMIT_SUPER>
 int launch(const void* qk, const void* qk_lo, const void* qrow,
-           const void* db, const void* scales, const void* col,
+           const void* db, const void* db_lo, const void* scales,
+           const void* col,
            const void* inv, void* out_tile, void* out_sup, long n, int d,
            int qp, int mode, cudaStream_t stream) {
   using C = Cfg<SRC, PASSES>;
@@ -773,12 +822,13 @@ int launch(const void* qk, const void* qk_lo, const void* qrow,
   const CUtensorMapSwizzle q_swizzle = C::B_LAYOUT == 1
                                            ? CU_TENSOR_MAP_SWIZZLE_128B
                                            : CU_TENSOR_MAP_SWIZZLE_64B;
-  CUtensorMap tm_db, tm_q, tm_qlo;
+  const CUtensorMapSwizzle db_swizzle = C::A_SW64
+                                            ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tm_db, tm_lo, tm_q, tm_qlo;
   bool ok =
       make_map(&tm_db, db_type, db, d, n, static_cast<long>(d) * db_item,
-               C::BK, BM,
-               C::A_SW64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                         : CU_TENSOR_MAP_SWIZZLE_128B) &&
+               C::BK, BM, db_swizzle) &&
       make_map(&tm_q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, qk, d, qp,
                static_cast<long>(d) * 2, C::BK, BN, q_swizzle);
   if (PASSES == 3)
@@ -786,6 +836,12 @@ int launch(const void* qk, const void* qk_lo, const void* qrow,
                         qp, static_cast<long>(d) * 2, C::BK, BN, q_swizzle);
   else
     tm_qlo = tm_q;                 // not read at one pass
+  if (C::NA == 2)                  // K3: the lo mirror, as the hi one
+    ok = ok && make_map(&tm_lo, db_type, db_lo, d, n,
+                        static_cast<long>(d) * db_item, C::BK, BM,
+                        db_swizzle);
+  else
+    tm_lo = tm_db;                 // not read
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = smem_bytes<SRC, PASSES>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -800,7 +856,7 @@ int launch(const void* qk, const void* qk_lo, const void* qrow,
   const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
   coarse_wgmma_kernel<SRC, PASSES, EMIT_SUPER><<<grid, THREADS, smem,
                                                  stream>>>(
-      tm_db, tm_q, tm_qlo, static_cast<const float*>(qrow),
+      tm_db, tm_lo, tm_q, tm_qlo, static_cast<const float*>(qrow),
       static_cast<const float*>(scales), static_cast<const float*>(col),
       static_cast<const float*>(inv), static_cast<float*>(out_tile),
       static_cast<float*>(out_sup), d, qp, mode, n_qblocks,
@@ -812,17 +868,20 @@ int launch(const void* qk, const void* qk_lo, const void* qrow,
 
 // C interface (loaded with ctypes). qk (and qk_lo at three passes): the
 // queries as (qp, d) bf16, K-major (for src 2 with each 16-block of k in the
-// order cuda_kernels._INT8_K_ORDER gives); db: (n, d) bf16 (src 0), f32
-// (src 1) or int8 codes (src 2, with f32 pow2 row scales ``scales``, n
-// entries) rows, 16-byte aligned, d % 8 == 0 (d % 16 == 0 for src 2); n a
-// positive multiple of 256; qp >= 1. mode: 0 euclidean, 1 dot product, 2
-// cosine. Routed: src 0 and 2 at one pass with super minima; src 1 at one
-// pass with or without them, and at three passes without. Writes out_tile
-// (n/16, qp) and, with emit_super, out_sup (n/256, qp). Launches on
-// ``stream``, allocates nothing, returns a cudaError_t.
+// order cuda_kernels._INT8_K_ORDER gives); db: (n, d) bf16 (src 0: the hi
+// mirror, and db_lo the lo mirror at three passes), f32 (src 1) or int8
+// codes (src 2, with f32 pow2 row scales ``scales``, n entries) rows,
+// 16-byte aligned, d % 8 == 0 (d % 16 == 0 for src 2); n a positive
+// multiple of 256; qp >= 1. mode: 0 euclidean, 1 dot product, 2 cosine.
+// Routed: src 0 at one pass with super minima and at three passes without;
+// src 2 at one pass with super minima; src 1 at one pass with or without
+// them, and at three passes without. Writes out_tile (n/16, qp) and, with
+// emit_super, out_sup (n/256, qp). Launches on ``stream``, allocates
+// nothing, returns a cudaError_t.
 extern "C" int vdb_coarse_wgmma(const void* qk, const void* qk_lo,
                                 const void* qrow, const void* db,
-                                const void* scales, const void* col,
+                                const void* db_lo, const void* scales,
+                                const void* col,
                                 const void* inv, void* out_tile,
                                 void* out_sup, long n, int d, int qp,
                                 int mode, int src, int passes,
@@ -834,13 +893,17 @@ extern "C" int vdb_coarse_wgmma(const void* qk, const void* qk_lo,
       (src == SRC_INT8 && (d % 16 != 0 || scales == nullptr)) ||
       (passes == 3 && (qk_lo == nullptr ||
                        reinterpret_cast<uintptr_t>(qk_lo) % 16 != 0)) ||
+      (src == SRC_MIRRORS && passes == 3 &&
+       (db_lo == nullptr || reinterpret_cast<uintptr_t>(db_lo) % 16 != 0)) ||
       (emit_super && out_sup == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
 #define VDB_LAUNCH(SRC, P, E)                                                \
-  launch<SRC, P, E>(qk, qk_lo, qrow, db, scales, col, inv, out_tile,         \
-                    out_sup, n, d, qp, mode, s)
+  launch<SRC, P, E>(qk, qk_lo, qrow, db, db_lo, scales, col, inv,           \
+                    out_tile, out_sup, n, d, qp, mode, s)
   if (src == SRC_MIRRORS && passes == 1 && emit_super)
     return VDB_LAUNCH(SRC_MIRRORS, 1, true);               // K1
+  if (src == SRC_MIRRORS && passes == 3 && !emit_super)
+    return VDB_LAUNCH(SRC_MIRRORS, 3, false);              // K3, 3 passes
   if (src == SRC_F32 && passes == 1 && emit_super)
     return VDB_LAUNCH(SRC_F32, 1, true);                   // K4
   if (src == SRC_INT8 && passes == 1 && emit_super)

@@ -105,13 +105,15 @@ def _accum_coeff(body: str) -> float:
     return _ACCUM_COEFF[body]
 
 
-def _coarse_body(src: str, arr, passes: int, emit_super: bool) -> str:
+def _coarse_body(src: str, arr, passes: int, emit_super: bool,
+                 lo=None) -> str:
     """The body that computes the coarse minima over ``arr`` (hi mirror,
-    f32 rows or codes): "plain" for a CPU tensor, else the CUDA route
+    f32 rows or codes; ``lo``: the lo mirror K3 reads at three passes):
+    "plain" for a CPU tensor, else the CUDA route
     (``cuda_kernels._coarse_route``, by shape and alignment)."""
     if not arr.is_cuda:
         return "plain"
-    return cuda_kernels.coarse_body(src, arr, passes, emit_super)
+    return cuda_kernels.coarse_body(src, arr, passes, emit_super, lo)
 
 
 def _probe_inv(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -614,15 +616,12 @@ def coarse_search(queries, db, db_sq, db_norms, valid, db_hi, db_lo,
         queries, db_sq, db_norms, valid, mode)
     qTlo = qlo.to(torch.bfloat16)
     if db_hi is None:
-        read = db
         minima = _coarse_minima_f32(qThi, qTlo, qrow, db, col, inv_col,
                                     3 if exact else 1, mode)
     elif exact:
-        read = db_hi
         minima = _coarse_minima(qThi, qTlo, qrow, db_hi, db_lo, col,
                                 inv_col, 3, mode)
     else:
-        read = db_hi
         minima = _coarse_minima_1p(qThi, qrow, db_hi, col, inv_col, mode)
     # the certificate's proof needs the TRUE m best tiles: exact top-k
     tile_idx = torch.topk(minima, m_tiles, dim=1, largest=False)[1]
@@ -636,9 +635,10 @@ def coarse_search(queries, db, db_sq, db_norms, valid, db_hi, db_lo,
 
     # per-query certification (bf16x3): non-selected tiles' true minima
     # >= (m-th tile's refined min) - margin. The d·2^-24 accumulation term
-    # is scaled by the coarse body's coefficient (_accum_coeff).
-    body = _coarse_body("f32" if db_hi is None else "mirrors", read, 3,
-                        False)
+    # is scaled by the coarse body's coefficient (_accum_coeff), asked of
+    # the arrays the launch was given (K3 reads both mirrors).
+    body = (_coarse_body("f32", db, 3, False) if db_hi is None
+            else _coarse_body("mirrors", db_hi, 3, False, db_lo))
     eps = 2.0 ** -17 + _accum_coeff(body) * d * 2.0 ** -24
     xmax = _xmax(db_sq, valid)
     if mode == "euclidean":

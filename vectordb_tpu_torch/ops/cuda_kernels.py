@@ -15,7 +15,8 @@ of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
 
     K1  coarse_minima_1p_sup       coarse_wgmma.cu or     mirrors, 1 pass,
                                    coarse_minima.cu       super
-    K3  coarse_minima              coarse_minima.cu  mirrors, 3 or 1 passes
+    K3  coarse_minima              coarse_wgmma.cu or     mirrors, 3 passes
+                                   coarse_minima.cu       (1 pass: mma.sync)
     K4  coarse_minima_f32_1p_sup   coarse_wgmma.cu or     f32, 1 pass,
                                    coarse_minima.cu       super
     K5  coarse_minima_f32          coarse_wgmma.cu or     f32, 3 or 1 passes
@@ -30,12 +31,13 @@ of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
 
 The coarse kernels have two bodies, chosen by shape alone in
 ``_coarse_route``: "wgmma" (``coarse_wgmma.cu``: TMA ring, wgmma,
-persistent blocks) for K1, K4, K5 (3 passes or 1) and K7 launches whose
-rows TMA can take (d a multiple of 8 -- of 16 for int8 codes -- and
-16-byte aligned rows), "mma_sync" (``coarse_minima.cu``) for every other
-shape and for K3 and K6. ``routes[key][body]`` counts each coarse
-kernel's launches by body beside ``launches``. No body stands in for
-another: a failed build or launch raises.
+persistent blocks) for K1, K3 (3 passes), K4, K5 (3 passes or 1) and K7
+launches whose rows TMA can take (d a multiple of 8 -- of 16 for int8
+codes -- and 16-byte aligned rows, K3's lo mirror too), "mma_sync"
+(``coarse_minima.cu``) for every other shape, for K6 and for K3 at one
+pass. ``routes[key][body]`` counts each coarse kernel's launches by body
+beside ``launches``. No body stands in for another: a failed build or
+launch raises. K9 (``scan_min.cu``) has one body for every shape.
 """
 
 from __future__ import annotations
@@ -141,8 +143,8 @@ def _lib() -> ctypes.CDLL:
     lib.vdb_coarse_minima.argtypes = [p, p, p, p, p, p, p, p, p, p, l, i, i,
                                       i, i, i, i, p]
     lib.vdb_coarse_minima.restype = i
-    lib.vdb_coarse_wgmma.argtypes = [p, p, p, p, p, p, p, p, p, l, i, i, i,
-                                     i, i, i, p]
+    lib.vdb_coarse_wgmma.argtypes = [p, p, p, p, p, p, p, p, p, p, l, i, i,
+                                     i, i, i, i, p]
     lib.vdb_coarse_wgmma.restype = i
     lib.vdb_refine_dots.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.vdb_refine_dots.restype = i
@@ -184,13 +186,15 @@ def _stream(device) -> ctypes.c_void_p:
 def _coarse_route(src: str, passes: int, emit_super: bool, d: int,
                   ptrs_aligned: bool) -> str:
     """The coarse body a launch takes, from its shape alone: "wgmma"
-    (coarse_wgmma.cu) for K1 (src "mirrors", one pass, super minima), K4
-    and K5 ("f32": one pass with or without super minima, or three passes
-    without) and K7 ("int8", one pass, super minima) when TMA can take the
-    operands: 16-byte aligned rows and a row pitch that is a multiple of 16
-    bytes for the bf16 query copy and the rows (d % 8 == 0; d % 16 == 0
-    for int8 codes, one byte each); "mma_sync" (coarse_minima.cu)
-    otherwise, and for K3 and K6."""
+    (coarse_wgmma.cu) for K1 (src "mirrors", one pass, super minima), K3
+    ("mirrors", three passes, no super minima), K4 and K5 ("f32": one pass
+    with or without super minima, or three passes without) and K7 ("int8",
+    one pass, super minima) when TMA can take the operands: 16-byte
+    aligned rows (both mirrors for K3) and a row pitch that is a multiple
+    of 16 bytes for the bf16 query copy and the rows (d % 8 == 0; d % 16
+    == 0 for int8 codes, one byte each); "mma_sync" (coarse_minima.cu)
+    otherwise, and for K6 and K3 at one pass ("mirrors", one pass, no
+    super minima)."""
     if not ptrs_aligned or d < 8 or d % 8:
         return "mma_sync"
     if src == "int8":
@@ -198,7 +202,7 @@ def _coarse_route(src: str, passes: int, emit_super: bool, d: int,
     elif src == "f32":
         routed = passes == 1 or not emit_super
     else:
-        routed = passes == 1 and emit_super
+        routed = (passes, emit_super) in ((1, True), (3, False))
     return "wgmma" if routed else "mma_sync"
 
 
@@ -216,10 +220,14 @@ def _int8_k_index(d: int, device) -> torch.Tensor:
     return k - k % 16 + order[k % 16]
 
 
-def coarse_body(src: str, db, passes: int, emit_super: bool) -> str:
-    """``_coarse_route`` of a launch over the rows ``db`` (N, d)."""
+def coarse_body(src: str, db, passes: int, emit_super: bool,
+                db_lo=None) -> str:
+    """``_coarse_route`` of a launch over the rows ``db`` (N, d) and, for
+    K3 at three passes, the lo mirror ``db_lo``: every row array it reads
+    must be 16-byte aligned."""
+    arrays = (db,) if db_lo is None else (db, db_lo)
     return _coarse_route(src, passes, emit_super, db.shape[1],
-                         db.data_ptr() % 16 == 0)
+                         all(a.data_ptr() % 16 == 0 for a in arrays))
 
 
 def _coarse(key: str, src: str, qThi, qTlo, qrow, db, db_lo, scales, col,
@@ -251,7 +259,8 @@ def _coarse(key: str, src: str, qThi, qTlo, qrow, db, db_lo, scales, col,
     tile = torch.empty((n // SUB, qp), dtype=f32, device=dev)
     sup = (torch.empty((n // _ROWS_PER_BLOCK, qp), dtype=f32, device=dev)
            if emit_super else None)
-    body = coarse_body(src, db, passes, emit_super)
+    lo = db_lo if passes == 3 and src == "mirrors" else None
+    body = coarse_body(src, db, passes, emit_super, lo)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     if body == "wgmma":
         # the queries K-major, (Qp, d): both wgmma operands then share one
@@ -261,14 +270,13 @@ def _coarse(key: str, src: str, qThi, qTlo, qrow, db, db_lo, scales, col,
         qk_lo = qTlo.t().contiguous() if passes == 3 else None
         rc = _lib().vdb_coarse_wgmma(
             qk.data_ptr(), ptr(qk_lo), qrow.data_ptr(), db.data_ptr(),
-            ptr(scales), col.data_ptr(), inv_col.data_ptr(), tile.data_ptr(),
-            ptr(sup), n, d, qp, _MODES[mode], code, passes, int(emit_super),
-            _stream(dev))
+            ptr(lo), ptr(scales), col.data_ptr(), inv_col.data_ptr(),
+            tile.data_ptr(), ptr(sup), n, d, qp, _MODES[mode], code, passes,
+            int(emit_super), _stream(dev))
     else:
         rc = _lib().vdb_coarse_minima(
             qThi.data_ptr(), ptr(qTlo if passes == 3 else None),
-            qrow.data_ptr(), db.data_ptr(),
-            ptr(db_lo if passes == 3 else None), ptr(scales),
+            qrow.data_ptr(), db.data_ptr(), ptr(lo), ptr(scales),
             col.data_ptr(), inv_col.data_ptr(), tile.data_ptr(), ptr(sup), n,
             d, qp, _MODES[mode], code, passes, int(emit_super),
             _stream(dev))
