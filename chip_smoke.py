@@ -11,8 +11,10 @@ nothing is caught and passed over):
      N=2^16, Q=256, all three metrics, 10% dead rows), max error beside
      its limit (see ``limits``), and a control per kernel that must break
      the limit; then the accumulation reading of both coarse bodies: raw
-     dots read through K1, K7 (integer codes, unit scales), K5 at 3
-     passes and K3 at 3 passes (the "wgmma" body) and K6 ("mma_sync")
+     dots read through K1, K6, K7 (integer codes, unit scales), K5 at 3
+     passes and K3 at 3 passes (the "wgmma" body) and through K6's
+     operands on the "mma_sync" body (its C entry point,
+     ``cuda_kernels.coarse_minima_mma_sync``)
      with 15 of every 16 rows dead (``ck._probe_inv``), against f64 dots
      of the same bf16 operands (for K5 and K3 the sum of their three
      products), max |err| / (d 2^-24 sum|x_i q_i|) on N(0,1) data and on
@@ -42,7 +44,9 @@ nothing is caught and passed over):
      flat_search_int8), the legacy fast path on 256-row states (K6, K5 at
      1 pass), and each new kernel against its plain version at its
      path's shapes, timed as in phase 6 (K5 at 3 passes at Q=256 and at
-     Q=65, the tier-2 re-run's sizes);
+     Q=65, the tier-2 re-run's sizes; K6 and its bf16 matmul over 50
+     launches, beside the mma.sync body's call, whose tile minima K6's
+     must equal bit for bit on live tiles);
   8. PQ-Flat at full width: the intrinsic-dim-32 row set of
      benchmarks/pq_bench.py (2^20 x 768, 1024 rows deleted, Q=4096, k=10)
      into VectorStore.with_index(PqFlatIndex(EUCLIDEAN, device="cuda"))
@@ -68,9 +72,12 @@ launch in the windows of phase 3 and of phase 7's bf16, int8 and f32
 stores, every K3 launch of phases 3-4 (the 2^20-row store's tier 2, the
 20k-row store, the forced fallback), and every K5 launch in the f32
 store's window (tier 2 of the queries tier 1 leaves uncertified), its
-forced fallback (3 passes) and the legacy fast f32 run (1 pass) must
-have taken the "wgmma" body (``cuda_kernels.routes``). Phase 7 prints each store's tier-1
-certification rate (and, for the f32 fallback, tier 2's) beside the
+forced fallback (3 passes) and the legacy fast f32 run (1 pass), and
+every K6 launch of the legacy fast mirrors run, must have taken the
+"wgmma" body, and every K2 launch in every window the "tile_major" body
+(``cuda_kernels.routes``; K2 is timed over 10 launches, beside its
+pairs per distinct tile and per tile read). Phase 7 prints each store's
+tier-1 certification rate (and, for the f32 fallback, tier 2's) beside the
 coefficient its certificate used and the phase-2 readings of that body.
 The line before the last is the card, the one before it the JSON kernel
 table; the last line is the JSON contract line {"ok": true, ...}.
@@ -100,6 +107,7 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 HBM = 3.35e12
 SRC = "vectordb_tpu/ops/coarse_kernel.py"
+REFINE_KEYS = ("refine_dots", "refine_dots_bf16", "refine_dots_int8")
 CSRC = "vectordb_tpu_torch/csrc/"
 # K9's limit on |kernel - plain| per tile minimum, times S (S as in
 # ``limits``; 1 for cosine). Readings on an H100 (phases 2 and 9): sound
@@ -275,6 +283,15 @@ def refine_bound(tidx, d, itemsize, torch, scales=False):
     return bound(2.0 * q * m * 16 * d, nbytes, PEAK_F32)
 
 
+def refine_sharing(tidx, cuda_kernels):
+    """Pairs per distinct tile of a K2 launch's tile ids, and pairs per
+    tile read by the tile-major body (one read per work item)."""
+    tiles, _ = cuda_kernels._refine_work(tidx)
+    distinct = int((tiles[1:] != tiles[:-1]).sum()) + 1
+    reads = int(cuda_kernels._refine_items(tiles).numel())
+    return tidx.numel() / distinct, tidx.numel() / reads
+
+
 def library_ms(a, b, torch):
     """One bf16 torch.matmul of the coarse kernel's GEMM shape (dots only;
     timed as a yardstick, the port never calls it)."""
@@ -325,6 +342,20 @@ def k3_at(st, queries, nq, mode, torch, ck, cuda_kernels):
             "ms": ms, "plain_ms": ms_p, "library_ms": lib,
             "bound": coarse_bound(n, D, nq, 3, 2 * n * D * 2, False),
             "err": err, "limit": lim, "control": control}
+
+
+def check_tile_major(window, cuda_kernels):
+    """Every K2 launch counted since the last reset took the "tile_major"
+    body (each K2 shape on the paths, 768-d aligned rows, is one it
+    takes); returns the route counts of the sources that launched."""
+    got = {k: dict(cuda_kernels.routes[k]) for k in REFINE_KEYS
+           if cuda_kernels.launches[k]}
+    bad = {k: v for k, v in got.items()
+           if v["tile_major"] != cuda_kernels.launches[k]}
+    if bad:
+        fail(f"{window}: K2 launches by body {bad}: every one must take the "
+             f"tile_major body")
+    return got
 
 
 def check_wgmma(window, key, cuda_kernels):
@@ -505,6 +536,7 @@ def accum_phase(rng, code_rng, card, np, torch, ck, cuda_kernels):
             np.int8)).to(dev)
         for name, src, arr, passes, sup, arr_lo in (
                 ("K1", "mirrors", hi, 1, True, None),
+                ("K6", "mirrors", hi, 1, False, None),
                 ("K7", "int8", codes, 1, True, None),
                 ("K5 3-pass", "f32", xt, 3, False, None),
                 ("K3 3-pass", "mirrors", hi, 3, False, lo)):
@@ -521,6 +553,10 @@ def accum_phase(rng, code_rng, card, np, torch, ck, cuda_kernels):
         t3 = cuda_kernels.coarse_minima(qThi, qTlo, qrow, hi, lo, col, inv,
                                         3, "dot")
         t6 = cuda_kernels.coarse_minima_1p(qThi, qrow, hi, col, inv, "dot")
+        # K6's operands on the mma.sync body, through its C entry point
+        t6m, _ = cuda_kernels.coarse_minima_mma_sync(
+            "mirrors", qThi, None, qrow, hi, None, None, col, inv, "dot", 1,
+            False)
         torch.cuda.synchronize()
         read[("K1", "wgmma", data)] = ck._accum_reading(t1, hi.float(), qThi,
                                                         live)
@@ -530,9 +566,11 @@ def accum_phase(rng, code_rng, card, np, torch, ck, cuda_kernels):
             t5, hi.float(), qThi, live, lo.float(), qTlo)
         read[("K3 3-pass", "wgmma", data)] = ck._accum_reading(
             t3, hi.float(), qThi, live, lo.float(), qTlo)
-        read[("K6", "mma_sync", data)] = ck._accum_reading(t6, hi.float(),
+        read[("K6", "wgmma", data)] = ck._accum_reading(t6, hi.float(),
+                                                        qThi, live)
+        read[("K6", "mma_sync", data)] = ck._accum_reading(t6m, hi.float(),
                                                            qThi, live)
-        del xt, hi, lo, qThi, qTlo, codes, t1, t7, t5, t3, t6
+        del xt, hi, lo, qThi, qTlo, codes, t1, t7, t5, t3, t6, t6m
     say(f"phase 2 accumulation reading, max |dot - f64 dot| / (d 2^-24 "
         f"sum|x_i q_i|), N={n} d={D} Q={q}: " + "; ".join(
             f"{name} ({body}) on {data} {v:.6f} (coefficient "
@@ -596,6 +634,7 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
     if kind == "f32":          # tier 2 of the uncertified queries: K5
         bodies["coarse_minima_f32"] = check_wgmma(
             "phase 7 f32", "coarse_minima_f32", cuda_kernels)
+    bodies.update(check_tile_major(f"phase 7 {kind}", cuda_kernels))
     say(f"phase 7 {kind} launch counts (this store's searches): "
         f"{ {k: v for k, v in counts.items() if v} }; by body {bodies}")
 
@@ -662,6 +701,7 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
     cuda_kernels.reset_launches()
     fd, fi = topk.flat_search_batched(qs[:256], forced, E, K)
     fb_counts = dict(cuda_kernels.launches)
+    check_tile_major(f"phase 7 {kind} forced fallback", cuda_kernels)
     if spied:
         setattr(topk, spied, real)
         if not reached:
@@ -720,7 +760,7 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
     tidx, _ = ck._select_tiles_1p(tile_tq, sup_tq, nq, n // 16, mp2, mp)
     del tile_tq, sup_tq
     ms_r, dots_k = cuda_time(lambda: cuda_kernels.refine_dots(
-        tidx, queries, db, mp, scales), torch)
+        tidx, queries, db, mp, scales), torch, iters=10)
     ms_rp, dots_p = cuda_time(lambda: ck._refine_dots_plain(
         tidx, queries, db, mp, scales), torch)
     e_r = float((dots_k - dots_p).abs().max())
@@ -734,14 +774,18 @@ def storage_phase(kind, rows, dead, qs, queries, card, mods, worst):
         n, D, nq, 1, n * D * itemsize, True, scales is not None))
     out["refine"] = (ms_r, ms_rp, refine_bound(tidx, D, itemsize, torch,
                                                scales is not None))
+    out["refine_body"] = cuda_kernels.refine_body(db, queries)
+    out["refine_share"] = refine_sharing(tidx, cuda_kernels)
     say(f"phase 7 {kind} times [{card}]: {coarse_key} N={n} Q={nq} "
         f"{ms_c:.3f} ms ({2.0 * n * nq * D / ms_c / 1e9:.1f} TFLOP/s, body "
         f"{out['body']}; plain {ms_cp:.3f}, "
         f"bf16 matmul {lib_c:.3f}, bound "
         f"{out['coarse'][3][0]:.3f}), max err {e_c:.3e} (limit {lim:.3e}); "
-        f"{refine_key} Q={nq} m={mp} {ms_r:.3f} ms (plain {ms_rp:.3f}, "
-        f"bound {out['refine'][2][0]:.3f}), max err {e_r:.3e} (limit "
-        f"{lim2:.3e})")
+        f"{refine_key} Q={nq} m={mp} {ms_r:.3f} ms (body "
+        f"{out['refine_body']}; plain {ms_rp:.3f}, bound "
+        f"{out['refine'][2][0]:.3f}; {out['refine_share'][0]:.3f} pairs per "
+        f"distinct tile, {out['refine_share'][1]:.3f} per tile read), max "
+        f"err {e_r:.3e} (limit {lim2:.3e})")
     del dots_k, dots_p, tidx
 
     if kind == "f32":
@@ -807,19 +851,29 @@ def f32_extra(state, qs, queries, card, mods, worst, lim):
         if legacy[key] < 1:
             fail(f"the legacy fast path on a 256-row {name} state launched "
                  f"no {key}: {dict(cuda_kernels.launches)}")
-        if key == "coarse_minima_f32":
-            check_wgmma("phase 7 legacy fast f32", key, cuda_kernels)
+        check_wgmma(f"phase 7 legacy fast {name}", key, cuda_kernels)
+        check_tile_major(f"phase 7 legacy fast {name}", cuda_kernels)
         check_exact(f"legacy fast {name}", li[:, :K], ld[:, :K], o_d2, o_i,
                     K, np)
     sThi, _, _, _, sqrow, scol, sinv = ck._query_terms(
         queries, small["sq_norms"], small["norms"], small["valid"], mode)
+    # K6 is one ~0.08 ms launch: 50 launches a reading, the wrapper's call
+    # (its K-major query copy included) on each body, beside the matmul
     ms6, k6 = cuda_time(lambda: cuda_kernels.coarse_minima_1p(
-        sThi, sqrow, mir["hi"], scol, sinv, mode), torch)
+        sThi, sqrow, mir["hi"], scol, sinv, mode), torch, iters=50)
+    ms6m, (k6m, _) = cuda_time(lambda: cuda_kernels.coarse_minima_mma_sync(
+        "mirrors", sThi, None, sqrow, mir["hi"], None, None, scol, sinv,
+        mode, 1, False), torch, iters=50)
     ms6p, k6p = cuda_time(lambda: ck._coarse_minima_1p_plain(
         sThi, sqrow, mir["hi"], scol, sinv, mode), torch)
     e6 = live_err(k6.T, k6p)
-    lib6 = library_ms(mir["hi"], sThi, torch)
+    d6 = live_err(k6, k6m)
+    if d6 != 0.0:
+        fail(f"K6 on wgmma differs from the mma.sync body by {d6:.3e}")
+    lib6, _ = cuda_time(lambda: torch.matmul(mir["hi"], sThi), torch,
+                        iters=50)
     b6 = coarse_bound(256, D, queries.shape[0], 1, 256 * D * 2, False)
+    body6 = cuda_kernels.coarse_body("mirrors", mir["hi"], 1, False)
     slim = limits(mode, float(torch.sqrt(small["sq_norms"].max())),
                   float(torch.sqrt((queries * queries).sum(1)).max()))[0]
     if not (e5 <= lim and e6 <= slim):
@@ -835,11 +889,13 @@ def f32_extra(state, qs, queries, card, mods, worst, lim):
         f"exact ids (every tile refined) via K6 ({legacy['coarse_minima_1p']}"
         f" launches) and K5 at 1 pass ({legacy['coarse_minima_f32']}, body "
         f"wgmma); times [{card}]: K5 3-pass N={n}, body {k5_body}: "
-        f"{k5_line}; K6 N=256 Q={queries.shape[0]} {ms6:.3f} ms (plain "
-        f"{ms6p:.3f}, bf16 matmul {lib6:.3f}, bound {b6[0]:.3f}), max err "
-        f"{e6:.3e}")
+        f"{k5_line}; K6 N=256 Q={queries.shape[0]}, body {body6}: "
+        f"{ms6:.4f} ms a call over 50 (mma_sync body {ms6m:.4f}, max "
+        f"|wgmma - mma_sync| {d6:.1e}; plain {ms6p:.3f}, bf16 matmul "
+        f"{lib6:.4f} over 50, bound {b6[0]:.4f}), max err {e6:.3e}")
     return {"k5": k5[256][:4], "k5_body": k5_body,
-            "k6": (ms6, ms6p, lib6, b6), "legacy": legacy}
+            "k6": (ms6, ms6p, lib6, b6), "k6_body": body6,
+            "k6_mma_sync_ms": ms6m, "legacy": legacy}
 
 
 def http_call(port, method, path, body=None):
@@ -1302,6 +1358,7 @@ def main() -> None:
     k1_bodies = check_wgmma("phase 3", "coarse_minima_1p_sup", cuda_kernels)
     # K3: tier 2 of the big store's uncertified queries, the 20k-row store
     k3_bodies = check_wgmma("phases 3-4", "coarse_minima", cuda_kernels)
+    k2_bodies = check_tile_major("phases 3-4", cuda_kernels)
     k3_small = counts["coarse_minima"] - k3_big
 
     with index._lock:
@@ -1331,7 +1388,8 @@ def main() -> None:
     path_keys = ("coarse_minima_1p_sup", "coarse_minima", "refine_dots")
     say(f"launch counts (main path: the store searches of phases 3 and 4): "
         f"{ {k: counts[k] for k in path_keys} }; K1 by body {k1_bodies}; "
-        f"K3 by body {k3_bodies} ({k3_big} in the 2^20-row store's tier 2)")
+        f"K3 by body {k3_bodies} ({k3_big} in the 2^20-row store's tier 2); "
+        f"K2 by body {k2_bodies}")
     if min(counts[k] for k in path_keys) < 1:
         fail(f"a kernel of the path never launched: {counts}")
 
@@ -1360,6 +1418,7 @@ def main() -> None:
         fail("the forced fallback did not run tier 2 (K3)")
     k3_bodies = check_wgmma("phase 4 forced fallback", "coarse_minima",
                             cuda_kernels)
+    check_tile_major("phase 4 forced fallback", cuda_kernels)
     fties, _ = check_exact("forced fallback", fi[:, :K], fd[:, :K],
                            ora_d2[:256], ora_i[:256], K, np)
     say(f"phase 4 small store 20000 x {D} (tier 2) Q=1024 exact "
@@ -1422,12 +1481,15 @@ def main() -> None:
     mp2, mp = ck._exact1p_pool(K, n // 16)
     tidx, _ = ck._select_tiles_1p(tile_tq, sup_tq, nq, n // 16, mp2, mp)
     del tile_tq, sup_tq
+    # K2: 10 launches a reading (the call, work list included)
     ms2, dots_k = cuda_time(lambda: cuda_kernels.refine_dots(
-        tidx, queries, state["db"], mp), torch)
+        tidx, queries, state["db"], mp), torch, iters=10)
     ms2p, dots_p = cuda_time(lambda: ck._refine_dots_plain(
         tidx, queries, state["db"], mp), torch)
     e2 = float((dots_k - dots_p).abs().max())
     b2 = refine_bound(tidx, D, 4, torch)
+    share2 = refine_sharing(tidx, cuda_kernels)
+    body2 = cuda_kernels.refine_body(state["db"], queries)
     del dots_k, dots_p
     # K3 at its three shapes: the 2^20-row store's tier 2 (Q=65 of its
     # 4096 queries stay uncertified) and forced fallback (Q=256), the
@@ -1471,7 +1533,9 @@ def main() -> None:
         f"({2.0 * n * nq * D / ms1 / 1e9:.1f} TFLOP/s, body "
         f"{cuda_kernels.coarse_body('mirrors', state['hi'], 1, True)}; plain "
         f"{ms1p:.3f}, bf16 matmul {lib1:.3f}, bound {b1[0]:.3f}); K2 Q={nq} "
-        f"m={mp} {ms2:.3f} ms (plain {ms2p:.3f}, bound {b2[0]:.3f}); K3 "
+        f"m={mp} {ms2:.3f} ms (body {body2}; plain {ms2p:.3f}, bound "
+        f"{b2[0]:.3f}; {share2[0]:.3f} pairs per distinct tile, "
+        f"{share2[1]:.3f} per tile read); K3 "
         f"3-pass (body {k3[0]['body']}) {k3_line}; tier-1 "
         f"certification rate {rate:.6f} ({int(cert.sum())}/{nq}) with "
         f"the wgmma coefficient {ck._accum_coeff('wgmma')} (phase-2 K1 "
@@ -1483,7 +1547,7 @@ def main() -> None:
                    body="wgmma"),
         kernel_row("K2 refine_dots", "refine_dots.cu", 471,
                    counts["refine_dots"], worst["refine_dots"], ms2, ms2p,
-                   b2, None),
+                   b2, None, body=body2, pairs_per_tile=share2[0]),
         # K3's row: the big store's tier 2 (most of its launches), the
         # other two shapes beside it
         kernel_row("K3 coarse_minima", "coarse_wgmma.cu", 96,
@@ -1512,12 +1576,16 @@ def main() -> None:
         kernel_row("K2 refine_dots_bf16 (bf16 rows)", "refine_dots.cu", 471,
                    got["bf16"]["counts"]["refine_dots_bf16"],
                    worst["refine_dots_bf16"], *got["bf16"]["refine"][:2],
-                   got["bf16"]["refine"][2], None),
+                   got["bf16"]["refine"][2], None,
+                   body=got["bf16"]["refine_body"],
+                   pairs_per_tile=got["bf16"]["refine_share"][0]),
         kernel_row("K2 refine_dots_int8 (int8 codes x pow2 scales)",
                    "refine_dots.cu", 471,
                    got["int8"]["counts"]["refine_dots_int8"],
                    worst["refine_dots_int8"], *got["int8"]["refine"][:2],
-                   got["int8"]["refine"][2], None)]
+                   got["int8"]["refine"][2], None,
+                   body=got["int8"]["refine_body"],
+                   pairs_per_tile=got["int8"]["refine_share"][0])]
     # K5's windows: the f32 store's searches (tier 2), its forced
     # fallback, the legacy fast run
     k5_launches = (f32["counts"]["coarse_minima_f32"]
@@ -1533,10 +1601,11 @@ def main() -> None:
                    k5_launches, worst["coarse_minima_f32"], f32["k5"][0],
                    f32["k5"][1], f32["k5"][3], f32["k5"][2],
                    body=f32["k5_body"]),
-        kernel_row("K6 coarse_minima_1p", "coarse_minima.cu", 185,
+        kernel_row("K6 coarse_minima_1p", "coarse_wgmma.cu", 185,
                    f32["legacy"]["coarse_minima_1p"],
                    worst["coarse_minima_1p"], f32["k6"][0], f32["k6"][1],
-                   f32["k6"][3], f32["k6"][2]),
+                   f32["k6"][3], f32["k6"][2], body=f32["k6_body"],
+                   mma_sync_ms=f32["k6_mma_sync_ms"]),
         kernel_row("K7 coarse_minima_int8_1p_sup", "coarse_wgmma.cu", 329,
                    got["int8"]["counts"]["coarse_minima_int8_1p_sup"],
                    worst["coarse_minima_int8_1p_sup"],

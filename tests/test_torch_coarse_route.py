@@ -21,16 +21,15 @@ ROUTE_CASES = list(itertools.product(
 
 @pytest.mark.parametrize("src, passes, emit_super, d, aligned", ROUTE_CASES)
 def test_route(src, passes, emit_super, d, aligned):
-    """K1 (mirrors: one pass, super minima), K3 (mirrors: three passes,
-    tile minima only), K4 and K5 (f32: one pass, or three passes without
-    super minima) and K7 (int8: one pass, super minima) take the wgmma
+    """K1 and K6 (mirrors: one pass, with and without super minima), K3
+    (mirrors: three passes or one, tile minima only), K4 and K5 (the same
+    over f32 rows) and K7 (int8: one pass, super minima) take the wgmma
     body when TMA can take their rows: 16-byte aligned rows, and a row
     pitch that is a multiple of 16 bytes for the bf16 queries and the rows
     (d a multiple of 8; of 16 for int8 codes, one byte each). Everything
-    else -- ragged d, unaligned rows, K6 and K3 at one pass (mirrors, one
-    pass, tile minima only), three passes with super minima -- stays on
-    mma_sync."""
-    routed = {"mirrors": (passes == 1) == emit_super,
+    else -- ragged d, unaligned rows, three passes with super minima --
+    stays on mma_sync."""
+    routed = {"mirrors": passes == 1 or not emit_super,
               "f32": passes == 1 or not emit_super,
               "int8": passes == 1 and emit_super}[src]
     pitch = 16 if src == "int8" else 8
@@ -104,9 +103,10 @@ def test_k3_route_reads_both_mirrors(shift, d):
     lo = mirror(shift in ("lo", "both"))
     want = "wgmma" if shift == "none" else "mma_sync"
     assert cuda_kernels.coarse_body("mirrors", hi, 3, False, lo) == want
-    # one pass (K6, and K3's control) reads no lo mirror, and stays on
-    # mma_sync whatever the alignment
-    assert cuda_kernels.coarse_body("mirrors", hi, 1, False) == "mma_sync"
+    # one pass (K6, and K3's control) reads no lo mirror: its route
+    # follows the hi mirror's alignment alone
+    want1 = "wgmma" if shift in ("none", "lo") else "mma_sync"
+    assert cuda_kernels.coarse_body("mirrors", hi, 1, False) == want1
 
 
 @pytest.mark.parametrize("shift", ["none", "lo"])

@@ -271,11 +271,12 @@ def test_new_wgmma_readings_within_coefficient(dev, kernel, data):
 
 @pytest.mark.parametrize("data", ["normal", "uniform12"])
 def test_accumulation_reading_within_coefficient(dev, data):
-    """Raw dots read through each body (K1 on wgmma, K6 on mma_sync) with
-    15 of every 16 rows dead, against f64 dots of the same bf16 operands,
-    in units of d 2^-24 sum|x_i q_i|: each reading is at most the
-    coefficient the certificates use for that body. "uniform12": rows and
-    queries from U(1, 2), every product positive."""
+    """Raw dots read through each body (K1 and K6 on wgmma; K6's operands
+    on mma_sync, through its C entry point) with 15 of every 16 rows dead,
+    against f64 dots of the same bf16 operands, in units of d 2^-24
+    sum|x_i q_i|: each reading is at most the coefficient the certificates
+    use for that body. "uniform12": rows and queries from U(1, 2), every
+    product positive."""
     rng = np.random.default_rng(21)
     n, d, q = 4096, 768, 64
     if data == "normal":
@@ -290,15 +291,23 @@ def test_accumulation_reading_within_coefficient(dev, data):
     qrow = torch.zeros((1, q), device=dev)
     col = torch.zeros((1, n), device=dev)
     before = dict(cuda_kernels.routes["coarse_minima_1p_sup"])
+    before6 = dict(cuda_kernels.routes["coarse_minima_1p"])
     t_w, _ = cuda_kernels.coarse_minima_1p_sup(qThi, qrow, hi, col, inv,
                                                "dot")
-    t_m = cuda_kernels.coarse_minima_1p(qThi, qrow, hi, col, inv, "dot")
+    t_6 = cuda_kernels.coarse_minima_1p(qThi, qrow, hi, col, inv, "dot")
+    t_m, _ = cuda_kernels.coarse_minima_mma_sync(
+        "mirrors", qThi, None, qrow, hi, None, None, col, inv, "dot", 1,
+        False)
     torch.cuda.synchronize()
     assert (cuda_kernels.routes["coarse_minima_1p_sup"]["wgmma"]
             == before["wgmma"] + 1)
+    assert (cuda_kernels.routes["coarse_minima_1p"]["wgmma"]
+            == before6["wgmma"] + 1)
     r_w = ck._accum_reading(t_w, hi.float(), qThi, live)
+    r_6 = ck._accum_reading(t_6, hi.float(), qThi, live)
     r_m = ck._accum_reading(t_m, hi.float(), qThi, live)
     assert r_w <= ck._accum_coeff("wgmma"), r_w
+    assert r_6 <= ck._accum_coeff("wgmma"), r_6
     assert r_m <= ck._accum_coeff("mma_sync"), r_m
 
 
@@ -327,6 +336,110 @@ def test_k2_matches_plain(dev, d):
     want = ck._refine_dots_plain(tidx, queries, db, 33)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= dot_b
+
+
+def _k2_case(dev, src, sharing, qp, m, d, seed=11):
+    """(tile_idx, queries, rows, scales) for a K2 launch over max(qp m,
+    1024) tiles:
+    every query on the same m tiles ("max"), no tile chosen twice
+    ("none"), or uniform ids ("random"); rows N(0,1) as f32, their bf16
+    mirror, or pow2-scaled int8 codes."""
+    rng = np.random.default_rng(seed)
+    tiles = max(qp * m, 1024)
+    if sharing == "max":
+        ids = np.tile(rng.permutation(tiles)[:m], (qp, 1))
+    elif sharing == "none":
+        ids = rng.permutation(tiles)[:qp * m].reshape(qp, m)
+    else:
+        ids = rng.integers(0, tiles, (qp, m))
+    tidx = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    db = torch.from_numpy(rng.standard_normal(
+        (tiles * 16, d), dtype=np.float32)).to(dev)
+    queries = torch.from_numpy(rng.standard_normal(
+        (qp, d), dtype=np.float32)).to(dev)
+    scales = None
+    if src == "bf16":
+        db = db.to(torch.bfloat16)
+    elif src == "int8":
+        db, scales, _ = _int8_rows(db)
+    return tidx, queries, db, scales
+
+
+def _refine_limit(db, scales, queries):
+    """The refine limit 2^-20 S, S = |x|max |q|max over the stored rows."""
+    stored = db.float() if scales is None else db.float() * scales[:, None]
+    return (2.0 ** -20 * float(stored.norm(dim=1).max())
+            * float(queries.norm(dim=1).max()))
+
+
+@pytest.mark.parametrize("src", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("sharing", ["max", "none", "random"])
+@pytest.mark.parametrize("qp, m, d", [(1, 33, 768), (129, 33, 768),
+                                      (129, 33, 200), (65, 33, 1792)])
+def test_k2_tile_major_matches_plain(dev, src, sharing, qp, m, d):
+    """The tile-major K2 body against _refine_dots_plain within the refine
+    limit 2^-20 S, for each source and sharing pattern; each launch is
+    counted under its body."""
+    tidx, queries, db, scales = _k2_case(dev, src, sharing, qp, m, d)
+    key = cuda_kernels._REFINE_SRC[db.dtype][1]
+    assert cuda_kernels.refine_body(db, queries) == "tile_major"
+    before = dict(cuda_kernels.routes[key])
+    got = ck._refine_dots(tidx, queries, db, m, scales)
+    want = ck._refine_dots_plain(tidx, queries, db, m, scales)
+    torch.cuda.synchronize()
+    assert cuda_kernels.routes[key]["tile_major"] == before["tile_major"] + 1
+    lim = _refine_limit(db, scales, queries)
+    assert got.shape == (qp, m * 16)
+    assert float((got - want).abs().max()) <= lim
+
+
+@pytest.mark.parametrize("src", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("shape", ["unaligned", "ragged", "too_wide"])
+def test_k2_query_major_shapes_match_plain(dev, src, shape):
+    """The shapes the tile-major body cannot take run query_major: rows one
+    element off 16-byte alignment, a d whose lane reads would not stay
+    aligned (37), and a tile too large for two stages (f32 d=2048, bf16
+    4096, int8 8192)."""
+    d = {"unaligned": 768, "ragged": 37,
+         "too_wide": {"f32": 2048, "bf16": 4096, "int8": 8192}[src]}[shape]
+    tidx, queries, db, scales = _k2_case(dev, src, "random", 9, 33, d)
+    if shape == "unaligned":
+        buf = torch.empty((db.numel() + 16,), dtype=db.dtype, device=dev)
+        db = buf[1:1 + db.numel()].view_as(db).copy_(db)
+    key = cuda_kernels._REFINE_SRC[db.dtype][1]
+    assert cuda_kernels.refine_body(db, queries) == "query_major"
+    before = dict(cuda_kernels.routes[key])
+    got = ck._refine_dots(tidx, queries, db, 33, scales)
+    want = ck._refine_dots_plain(tidx, queries, db, 33, scales)
+    torch.cuda.synchronize()
+    assert (cuda_kernels.routes[key]["query_major"]
+            == before["query_major"] + 1)
+    lim = _refine_limit(db, scales, queries)
+    assert float((got - want).abs().max()) <= lim
+
+
+@pytest.mark.parametrize("n", [256, 1 << 16])
+@pytest.mark.parametrize("mode", MODES)
+def test_k6_wgmma_matches_plain_and_mma_sync(dev, n, mode):
+    """K6 on the wgmma body (its route at d=768) against its plain version
+    within the coarse limit, and its tile minima equal to the mma.sync
+    body's bit for bit on every live tile, at Q=4096."""
+    db, hi, _, queries, terms, bound, _ = _operands(dev, n, 768, 4096, mode,
+                                                    seed=12)
+    qThi, _, _, _, qrow, col, inv = terms
+    assert cuda_kernels.coarse_body("mirrors", hi, 1, False) == "wgmma"
+    before = dict(cuda_kernels.routes["coarse_minima_1p"])
+    got = cuda_kernels.coarse_minima_1p(qThi, qrow, hi, col, inv, mode)
+    other, _ = cuda_kernels.coarse_minima_mma_sync(
+        "mirrors", qThi, None, qrow, hi, None, None, col, inv, mode, 1,
+        False)
+    want = ck._coarse_minima_1p_plain(qThi, qrow, hi, col, inv, mode)
+    torch.cuda.synchronize()
+    assert (cuda_kernels.routes["coarse_minima_1p"]["wgmma"]
+            == before["wgmma"] + 1)
+    assert _live_err(got.T, want) <= bound
+    live = other < 1e29
+    assert torch.equal(got[live], other[live])
 
 
 def _int8_rows(db):

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the two coarse bodies of K1, K4, K7, K5 and K3 side by side on one
-card, and K9 against its plain version.
+"""Time the two coarse bodies of K1, K4, K7, K5, K3 and K6 side by side
+on one card, K2 on its three sources, and K9 against its plain version.
 
     python3 tools/coarse_bodies.py [--rows N] [--queries Q] [--dim D]
                                    [--iters I] [--seed S]
-                                   [--kernels K1,K4,K7,K5,K3,K9]
+                                   [--kernels K1,K4,K7,K5,K3,K6,K2,K9]
                                    [--root DIR]
 
 Seeded N(0,1) rows (N x D: f32, their bf16 hi and lo mirrors, and int8
@@ -25,14 +25,34 @@ TFLOP/s and the bytes -- rows, queries, per-row terms and minima, each
 once -- at 3.35 TB/s), and the largest difference between the two
 bodies' tile (and super) minima over live tiles.
 
+K6 (``--kernels K6``): one bf16 pass without super minima over the first
+256 rows (the legacy fast path's state) for Q queries on both bodies, the
+"wgmma" body through ``cuda_kernels.coarse_minima_1p`` (its route) and
+the "mma_sync" body through its C entry point, beside a bf16 torch.matmul
+of the same GEMM: each call timed by CUDA events over max(I, 50)
+launches, and each call's kernels timed by ``torch.profiler`` over the
+same count (device time per call, by kernel name: the wgmma call's
+K-major query copy apart from the coarse kernel).
+
+K2 (``--kernels K2``): the refine dots at the main path's selection -- K1's
+minima over the bf16 mirror of the rows, ``_select_tiles_1p`` with the
+pool of k=10 (m=32 at N=2^20) -- over the f32 rows, their bf16 mirror and
+the int8 codes with their pow2 scales, each ``cuda_kernels.refine_dots``
+call (work list included) timed over max(I, 10) launches, beside its body,
+its bound (the distinct candidate rows read once, as chip_smoke.py's
+``refine_bound``), the pairs per distinct tile and the largest difference
+from ``_refine_dots_plain``.
+
 K9 (``--kernels K9``): the euclidean per-tile minima of 512-row tiles of
 the f32 rows for the first min(Q, 1024) queries through
 ``cuda_kernels.scan_min``, timed beside its plain version, one f32
 torch.matmul of the same product and its bound (the flops at the 67
 TFLOP/s f32 rate), with its largest difference from the plain version.
 ``--root`` imports vectordb_tpu_torch from another checkout (a parent
-commit unpacked with ``git archive``), so two versions of K9 are timed by
-running this script once per root, in turns, in one call.
+commit unpacked with ``git archive``), so two versions of K2 or K9 (or of
+the wgmma call of K6) are timed by running this script once per root, in
+turns, in one call; the other bodies are reached through the C entry
+points every version has.
 
 Every line carries the card's nvidia-smi name and power limit. It exits
 non-zero without a card.
@@ -66,7 +86,7 @@ def main() -> None:
     ap.add_argument("--dim", type=int, default=768)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="K1,K4,K7,K5,K3")
+    ap.add_argument("--kernels", default="K1,K4,K7,K5,K3,K6,K2")
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
     kernels = set(args.kernels.split(","))
@@ -87,17 +107,60 @@ def main() -> None:
     valid = torch.rand((n,), generator=gen, device=dev) >= 0.1
     queries = torch.randn((args.queries, d), generator=gen, device=dev)
 
-    def timed(fn):
+    def timed(fn, iters=args.iters):
         out = fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(args.iters):
+        for _ in range(iters):
             fn()
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / args.iters, out
+        return start.elapsed_time(end) / iters, out
+
+    def kernels_ms(fn, iters):
+        """{kernel name: device ms per call} of ``fn`` over ``iters``
+        calls, by torch.profiler (empty if it saw no device time)."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        got = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if us > 0:
+                got[ev.key] = us / 1e3 / iters
+        return got
+
+    def show(by_kernel):
+        if not by_kernel:
+            return "not measured"
+        return ", ".join(f"{name[:48]} {ms:.4f}"
+                         for name, ms in sorted(by_kernel.items(),
+                                                key=lambda kv: -kv[1]))
+
+    def mma_sync_call(src, qThi, qTlo, qrow, arr, arr_lo, sc, col, inv, q,
+                      m, passes, sup):
+        """The mma.sync body through its C entry point (every version of
+        the package has it), whatever the route would pick."""
+        tile = torch.empty((m // 16, q), device=dev)
+        sups = torch.empty((m // 256, q), device=dev) if sup else None
+        ptr = lambda t: t.data_ptr() if t is not None else None  # noqa
+        rc = cuk._lib().vdb_coarse_minima(
+            qThi.data_ptr(), ptr(qTlo if passes == 3 else None),
+            qrow.data_ptr(), arr.data_ptr(), ptr(arr_lo), ptr(sc),
+            col.data_ptr(), inv.data_ptr(), tile.data_ptr(), ptr(sups), m, d,
+            q, 0, cuk._COARSE_SRC[src][0], passes, int(sup),
+            cuk._stream(dev))
+        cuk._raise_on(rc, "coarse_minima (mma_sync)")
+        return tile, sups
+
+    where = os.path.relpath(os.path.abspath(args.root), ROOT) or "."
 
     if "K9" in kernels:
         nq = min(args.queries, 1024)
@@ -115,8 +178,7 @@ def main() -> None:
         nbytes = (n * d * 4 + nq * d * 4 + 3 * n * 4 + nq * 4
                   + nq * (n // K9_TILE) * 4)
         bnd = max(flops / PEAK_F32, nbytes / HBM) * 1e3
-        print(f"K9 N={n} Q={nq} d={d} tile {K9_TILE} (package at "
-              f"{os.path.relpath(os.path.abspath(args.root), ROOT) or '.'}): "
+        print(f"K9 N={n} Q={nq} d={d} tile {K9_TILE} (package at {where}): "
               f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s); plain "
               f"{ms_p:.3f} ms; f32 matmul {ms_l:.3f} ms; bound {bnd:.3f} ms; "
               f"max |kernel - plain| {err:.3e}  [{card}]", flush=True)
@@ -136,6 +198,71 @@ def main() -> None:
         qThi, qlo, _, _, qrow, col, inv = ck._query_terms(
             queries[:q], sq, torch.sqrt(sq), valid[:m], "euclidean")
         return qThi, qlo.to(torch.bfloat16), qrow, col, inv
+
+    if "K2" in coarse:
+        q = args.queries
+        qThi, _, qrow, col, inv = terms(db, q, n)
+        tile_tq, sup_tq = cuk.coarse_minima_1p_sup(qThi, qrow, hi, col, inv,
+                                                   "euclidean")
+        mp2, mp = ck._exact1p_pool(10, n // 16)
+        tidx, _ = ck._select_tiles_1p(tile_tq, sup_tq, q, n // 16, mp2, mp)
+        del tile_tq, sup_tq
+        distinct = int(torch.unique(tidx).numel())
+        iters = max(args.iters, 10)
+        for name, rows, sc in (("f32", db, None), ("bf16", hi, None),
+                               ("int8", codes, scales)):
+            ms, got = timed(lambda: cuk.refine_dots(tidx, queries, rows, mp,
+                                                    sc), iters)
+            want = ck._refine_dots_plain(tidx, queries, rows, mp, sc)
+            err = float((got - want).abs().max())
+            body = (cuk.refine_body(rows, queries)
+                    if hasattr(cuk, "refine_body") else "query_major")
+            nbytes = (distinct * 16 * d * rows.element_size()
+                      + (distinct * 16 * 4 if sc is not None else 0)
+                      + q * d * 4 + q * mp * 8 + q * mp * 16 * 4)
+            bnd = max(2.0 * q * mp * 16 * d / PEAK_F32, nbytes / HBM) * 1e3
+            split = show(kernels_ms(lambda: cuk.refine_dots(
+                tidx, queries, rows, mp, sc), iters))
+            print(f"K2 {name} N={n} Q={q} m={mp} d={d} (package at {where}"
+                  f", body {body}): {ms:.3f} ms over {iters}; bound "
+                  f"{bnd:.3f} ms; {q * mp / distinct:.3f} pairs per distinct "
+                  f"tile; max |kernel - plain| {err:.3e}; kernels of the "
+                  f"call, device ms (torch.profiler): {split}  [{card}]",
+                  flush=True)
+            del got, want
+        del tidx, qThi, qrow, col, inv
+
+    if "K6" in coarse:
+        q, m = args.queries, 256
+        qThi, _, qrow, col, inv = terms(db[:m], q, m)
+        hi6 = hi[:m]
+        iters = max(args.iters, 50)
+        calls = {
+            "wgmma": lambda: cuk.coarse_minima_1p(qThi, qrow, hi6, col, inv,
+                                                  "euclidean"),
+            "mma_sync": lambda: mma_sync_call(
+                "mirrors", qThi, None, qrow, hi6, None, None, col, inv, q, m,
+                1, False)[0],
+            "bf16 matmul": lambda: torch.matmul(hi6, qThi)}
+        ms, outs = {}, {}
+        for name in ("mma_sync", "wgmma", "bf16 matmul", "wgmma",
+                     "mma_sync", "bf16 matmul"):
+            t, outs[name] = timed(calls[name], iters)
+            ms.setdefault(name, []).append(round(t, 4))
+        diff = float((outs["wgmma"] - outs["mma_sync"]).abs()[
+            outs["mma_sync"] < 1e29].max())
+        bnd = max(2.0 * m * q * d / PEAK_BF16,
+                  (m * d * 2 + d * q * 2 + q * 4 + m * 8 + (m // 16) * q * 4)
+                  / HBM) * 1e3
+        route = cuk.coarse_body("mirrors", hi6, 1, False)
+        print(f"K6 N={m} Q={q} d={d} (package at {where}, route {route}): "
+              f"call ms over {iters}: {ms}; bound {bnd:.4f} ms; max |wgmma "
+              f"call - mma_sync| {diff:.3e}  [{card}]", flush=True)
+        for name, fn in calls.items():
+            print(f"K6 kernels of the {name} call, device ms per call over "
+                  f"{iters} (torch.profiler): {show(kernels_ms(fn, iters))}"
+                  f"  [{card}]", flush=True)
+        del outs, qThi, qrow, col, inv
 
     # (name, src, rows read, lo mirror, scales, passes, rows of the terms,
     # queries, row count)
@@ -159,19 +286,10 @@ def main() -> None:
         qThi, qTlo, qrow, col, inv = terms(rows, q, m)
         del rows
         sup = passes == 1
-        code = cuk._COARSE_SRC[src][0]
 
         def mma_sync():
-            tile = torch.empty((m // 16, q), device=dev)
-            sups = torch.empty((m // 256, q), device=dev) if sup else None
-            ptr = lambda t: t.data_ptr() if t is not None else None  # noqa
-            rc = cuk._lib().vdb_coarse_minima(
-                qThi.data_ptr(), ptr(qTlo if passes == 3 else None),
-                qrow.data_ptr(), arr.data_ptr(), ptr(arr_lo), ptr(sc),
-                col.data_ptr(), inv.data_ptr(), tile.data_ptr(), ptr(sups),
-                m, d, q, 0, code, passes, int(sup), cuk._stream(dev))
-            cuk._raise_on(rc, "coarse_minima (mma_sync)")
-            return tile, sups
+            return mma_sync_call(src, qThi, qTlo, qrow, arr, arr_lo, sc, col,
+                                 inv, q, m, passes, sup)
 
         def wgmma():
             if src == "mirrors" and passes == 3:

@@ -1,14 +1,13 @@
 // Coarse bf16 scan with fused tile / super-tile minima, the mma.sync body
-// (kernel K6, K3 at one pass, and the K1 / K3 / K4 / K5 / K7 shapes TMA
-// cannot take).
+// (the K1 / K3 / K4 / K5 / K6 / K7 shapes TMA cannot take).
 //
 // One template, coarse_minima_kernel<SRC, PASSES, EMIT_SUPER>, serves six
-// Pallas kernels of vectordb_tpu/ops/coarse_kernel.py:
+// Pallas kernels of vectordb_tpu/ops/coarse_kernel.py, only for the shapes
+// TMA cannot take (d not a multiple of 8 -- of 16 for int8 codes -- or
+// rows not 16-byte aligned, for K3 either mirror):
 //   K6  _coarse_kernel_1p (launchers _coarse_minima_1p(_tq)): SRC=MIRRORS,
 //       PASSES=1, tile minima only; the same instantiation serves K3 at one
 //       pass, which only chip_smoke.py's control calls;
-// and, only for the shapes TMA cannot take (d not a multiple of 8 -- of 16
-// for int8 codes -- or rows not 16-byte aligned, for K3 either mirror):
 //   K3  _coarse_kernel (launcher _coarse_minima): SRC=MIRRORS, PASSES=3
 //       (bf16x3: hi.qhi + lo.qhi + hi.qlo), tile minima only;
 //   K5  _coarse_kernel_f32 (launcher _coarse_minima_f32): SRC=F32,
@@ -49,9 +48,9 @@
 // instruction throughput (single-stage shared-memory tiles, no cp.async /
 // TMA / wgmma: ~8-10% of the bf16 rate), and K5 adds the on-chip split per
 // element. coarse_wgmma.cu is the redesign for Hopper (K3 at 3 passes is
-// its MIRRORS/3 form); K6 is to move onto its mirrors form at one pass
-// without super minima in a later change (ROADMAP queue 2); this body
-// keeps K6 and the ragged shapes.
+// its MIRRORS/3 form, K6 its MIRRORS/1 form without super minima); this
+// body keeps the ragged shapes, and is called at any shape through
+// cuda_kernels.coarse_minima_mma_sync for side-by-side readings.
 //
 // What the design does about it: one block owns one 256-row super-tile x
 // 64 queries, so the super minimum is a block-local reduction (no second

@@ -1,12 +1,16 @@
 // Coarse bf16 scan for Hopper: a TMA ring feeding wgmma, with the 16-row
 // tile minima (and 256-row super-tile minima) fused into the epilogue
-// (kernels K1, K3, K4, K5 and K7).
+// (kernels K1, K3, K4, K5, K6 and K7).
 //
-// One template, coarse_wgmma_kernel<SRC, PASSES, EMIT_SUPER>, replaces five
-// Pallas kernels of vectordb_tpu/ops/coarse_kernel.py, six instantiations:
+// One template, coarse_wgmma_kernel<SRC, PASSES, EMIT_SUPER>, replaces six
+// Pallas kernels of vectordb_tpu/ops/coarse_kernel.py, seven
+// instantiations:
 //   K1  _coarse_kernel_1p_sup (:261; launcher _minima_1p_sup, src
 //       "mirrors" or "bf16"): MIRRORS/1/super -- one bf16 pass over the hi
 //       mirror (or a bf16-stored database);
+//   K6  _coarse_kernel_1p (:185; launcher _coarse_minima_1p): MIRRORS/1/-
+//       -- the same pass, tile minima only (the legacy fast path; also K3
+//       at one pass);
 //   K3  _coarse_kernel (:96; launcher _coarse_minima): MIRRORS/3/- (bf16x3
 //       over the hi and lo mirrors: hi.qhi + lo.qhi + hi.qlo), tile minima
 //       only -- tier 2 of the mirrors store;
@@ -24,11 +28,10 @@
 // outputs: (N/16, Qp) tile minima and, with EMIT_SUPER, (N/256, Qp) super
 // minima, f32, tile-major. Each super minimum is the minimum of its 16 tile
 // minima, exactly. ops/cuda_kernels.py's _coarse_route sends here the K1,
-// K3 (3 passes), K4, K5 and K7 launches whose operands TMA can take (d %
-// 8 == 0: a 16-byte row pitch for the bf16 queries and the bf16 / f32
-// rows; d % 16 == 0 for int8 codes; 16-byte aligned rows, K3's lo mirror
-// too); every other shape, and K6 and K3 at one pass, stays on
-// coarse_minima.cu.
+// K3, K4, K5, K6 and K7 launches whose operands TMA can take (d % 8 == 0:
+// a 16-byte row pitch for the bf16 queries and the bf16 / f32 rows; d % 16
+// == 0 for int8 codes; 16-byte aligned rows, K3's lo mirror too); every
+// other shape stays on coarse_minima.cu.
 //
 // What bounds it on an H100: a bf16 GEMM of 2*N*Q*d flops per pass (6.6
 // TFLOP at N=2^20, Q=4096, d=768: 6.7 ms at the 989 TFLOP/s dense bf16
@@ -873,11 +876,10 @@ int launch(const void* qk, const void* qk_lo, const void* qrow,
 // codes (src 2, with f32 pow2 row scales ``scales``, n entries) rows,
 // 16-byte aligned, d % 8 == 0 (d % 16 == 0 for src 2); n a positive
 // multiple of 256; qp >= 1. mode: 0 euclidean, 1 dot product, 2 cosine.
-// Routed: src 0 at one pass with super minima and at three passes without;
-// src 2 at one pass with super minima; src 1 at one pass with or without
-// them, and at three passes without. Writes out_tile (n/16, qp) and, with
-// emit_super, out_sup (n/256, qp). Launches on ``stream``, allocates
-// nothing, returns a cudaError_t.
+// Routed: src 0 and src 1 at one pass with or without super minima, and
+// at three passes without; src 2 at one pass with super minima. Writes
+// out_tile (n/16, qp) and, with emit_super, out_sup (n/256, qp). Launches
+// on ``stream``, allocates nothing, returns a cudaError_t.
 extern "C" int vdb_coarse_wgmma(const void* qk, const void* qk_lo,
                                 const void* qrow, const void* db,
                                 const void* db_lo, const void* scales,
@@ -902,6 +904,8 @@ extern "C" int vdb_coarse_wgmma(const void* qk, const void* qk_lo,
                     out_tile, out_sup, n, d, qp, mode, s)
   if (src == SRC_MIRRORS && passes == 1 && emit_super)
     return VDB_LAUNCH(SRC_MIRRORS, 1, true);               // K1
+  if (src == SRC_MIRRORS && passes == 1 && !emit_super)
+    return VDB_LAUNCH(SRC_MIRRORS, 1, false);              // K6; K3, 1 pass
   if (src == SRC_MIRRORS && passes == 3 && !emit_super)
     return VDB_LAUNCH(SRC_MIRRORS, 3, false);              // K3, 3 passes
   if (src == SRC_F32 && passes == 1 && emit_super)

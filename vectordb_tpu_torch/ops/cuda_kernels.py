@@ -15,29 +15,37 @@ of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
 
     K1  coarse_minima_1p_sup       coarse_wgmma.cu or     mirrors, 1 pass,
                                    coarse_minima.cu       super
-    K3  coarse_minima              coarse_wgmma.cu or     mirrors, 3 passes
-                                   coarse_minima.cu       (1 pass: mma.sync)
+    K3  coarse_minima              coarse_wgmma.cu or     mirrors, 3 or 1
+                                   coarse_minima.cu       passes
     K4  coarse_minima_f32_1p_sup   coarse_wgmma.cu or     f32, 1 pass,
                                    coarse_minima.cu       super
     K5  coarse_minima_f32          coarse_wgmma.cu or     f32, 3 or 1 passes
                                    coarse_minima.cu
-    K6  coarse_minima_1p           coarse_minima.cu  mirrors, 1 pass
+    K6  coarse_minima_1p           coarse_wgmma.cu or     mirrors, 1 pass
+                                   coarse_minima.cu
     K7  coarse_minima_int8_1p_sup  coarse_wgmma.cu or     int8, 1 pass,
                                    coarse_minima.cu       super
     K2  refine_dots                refine_dots.cu    f32, bf16 or int8 rows
-        (launch keys refine_dots, refine_dots_bf16, refine_dots_int8)
+        (launch keys refine_dots, refine_dots_bf16, refine_dots_int8;
+        two bodies, see below)
     K8  pq_decode                  pq_decode.cu      uint8 codes -> bf16 rows
     K9  scan_min                   scan_min.cu       f32 per-tile minima
 
 The coarse kernels have two bodies, chosen by shape alone in
 ``_coarse_route``: "wgmma" (``coarse_wgmma.cu``: TMA ring, wgmma,
-persistent blocks) for K1, K3 (3 passes), K4, K5 (3 passes or 1) and K7
-launches whose rows TMA can take (d a multiple of 8 -- of 16 for int8
-codes -- and 16-byte aligned rows, K3's lo mirror too), "mma_sync"
-(``coarse_minima.cu``) for every other shape, for K6 and for K3 at one
-pass. ``routes[key][body]`` counts each coarse kernel's launches by body
-beside ``launches``. No body stands in for another: a failed build or
-launch raises. K9 (``scan_min.cu``) has one body for every shape.
+persistent blocks) for K1, K3, K4, K5, K6 and K7 launches whose rows TMA
+can take (d a multiple of 8 -- of 16 for int8 codes -- and 16-byte
+aligned rows, K3's lo mirror too), "mma_sync" (``coarse_minima.cu``) for
+every other shape. K2 has two bodies in ``refine_dots.cu``, chosen by
+shape in ``_refine_route``: "tile_major" (the pairs grouped by tile, each
+tile brought into a shared-memory ring by bulk copy and read once for all
+the queries of a work item) for 16-byte aligned rows and queries, d a
+multiple of 4 (f32) or 8 (bf16, int8 codes), and a 16-row tile that fits
+twice in shared memory; "query_major" (a warp per candidate row) for
+every other shape. ``routes[key][body]`` counts each coarse kernel's and
+K2's launches by body beside ``launches``. No body stands in for another:
+a failed build or launch raises. K8 (``pq_decode.cu``) and K9
+(``scan_min.cu``) have one body for every shape.
 """
 
 from __future__ import annotations
@@ -56,8 +64,16 @@ import torch
 SUB = 16
 SUPER = 16
 _ROWS_PER_BLOCK = SUB * SUPER          # coarse kernel: one super-tile
-_REFINE_QPB = 4                        # refine kernel: queries per block
+_REFINE_QPB = 4                        # K2 query-major: queries per block
 _MAX_SMEM = 227 * 1024                 # Hopper per-block shared memory
+# K2 tile-major (refine_dots.cu): sorted pairs a block takes at a time
+# (at most this many queries share a work item), ring stages at most, the
+# bytes of its mbarriers, and the elements a lane reads per shared-memory
+# load by row dtype (16 bytes of f32 or bf16, 8 of int8 codes)
+_REFINE_WINDOW = 32
+_REFINE_STAGES = 8
+_REFINE_BAR_BYTES = 128
+_REFINE_VEC = {torch.float32: 4, torch.bfloat16: 8, torch.int8: 8}
 _MODES = {"euclidean": 0, "dot": 1, "cosine": 2}
 # coarse source: (C code, row dtype)
 _COARSE_SRC = {"mirrors": (0, torch.bfloat16), "f32": (1, torch.float32),
@@ -76,9 +92,11 @@ launches = {"coarse_minima_1p_sup": 0, "coarse_minima": 0,
             "coarse_minima_1p": 0, "coarse_minima_int8_1p_sup": 0,
             "refine_dots": 0, "refine_dots_bf16": 0, "refine_dots_int8": 0,
             "pq_decode": 0, "scan_min": 0}
-# coarse launches by body (see _coarse_route), reset with ``launches``
-routes = {key: {"wgmma": 0, "mma_sync": 0}
-          for key in launches if key.startswith("coarse_minima")}
+# coarse and K2 launches by body (see _coarse_route, _refine_route), reset
+# with ``launches``
+routes = {key: ({"wgmma": 0, "mma_sync": 0} if key.startswith("coarse")
+                else {"tile_major": 0, "query_major": 0})
+          for key in launches if key.startswith(("coarse", "refine"))}
 # build facts of the loaded library (path, seconds, compiler output)
 build_info: dict = {}
 
@@ -148,6 +166,8 @@ def _lib() -> ctypes.CDLL:
     lib.vdb_coarse_wgmma.restype = i
     lib.vdb_refine_dots.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.vdb_refine_dots.restype = i
+    lib.vdb_refine_tiles.argtypes = [p, p, i, p, p, p, p, i, i, i, p]
+    lib.vdb_refine_tiles.restype = i
     lib.vdb_pq_decode.argtypes = [p, p, p, l, i, i, i, p]
     lib.vdb_pq_decode.restype = i
     lib.vdb_scan_min.argtypes = [p, p, p, p, p, p, l, i, i, i, i, p]
@@ -186,23 +206,20 @@ def _stream(device) -> ctypes.c_void_p:
 def _coarse_route(src: str, passes: int, emit_super: bool, d: int,
                   ptrs_aligned: bool) -> str:
     """The coarse body a launch takes, from its shape alone: "wgmma"
-    (coarse_wgmma.cu) for K1 (src "mirrors", one pass, super minima), K3
-    ("mirrors", three passes, no super minima), K4 and K5 ("f32": one pass
-    with or without super minima, or three passes without) and K7 ("int8",
-    one pass, super minima) when TMA can take the operands: 16-byte
-    aligned rows (both mirrors for K3) and a row pitch that is a multiple
-    of 16 bytes for the bf16 query copy and the rows (d % 8 == 0; d % 16
-    == 0 for int8 codes, one byte each); "mma_sync" (coarse_minima.cu)
-    otherwise, and for K6 and K3 at one pass ("mirrors", one pass, no
-    super minima)."""
+    (coarse_wgmma.cu) for K1 and K6 (src "mirrors", one pass, with and
+    without super minima), K3 ("mirrors", three passes or one, no super
+    minima), K4 and K5 (the same over "f32" rows) and K7 ("int8", one
+    pass, super minima) when TMA can take the operands: 16-byte aligned
+    rows (both mirrors for K3 at three passes) and a row pitch that is a
+    multiple of 16 bytes for the bf16 query copy and the rows (d % 8 == 0;
+    d % 16 == 0 for int8 codes, one byte each); "mma_sync"
+    (coarse_minima.cu) otherwise."""
     if not ptrs_aligned or d < 8 or d % 8:
         return "mma_sync"
     if src == "int8":
         routed = passes == 1 and emit_super and d % 16 == 0
-    elif src == "f32":
-        routed = passes == 1 or not emit_super
     else:
-        routed = (passes, emit_super) in ((1, True), (3, False))
+        routed = passes == 1 or not emit_super
     return "wgmma" if routed else "mma_sync"
 
 
@@ -274,15 +291,51 @@ def _coarse(key: str, src: str, qThi, qTlo, qrow, db, db_lo, scales, col,
             tile.data_ptr(), ptr(sup), n, d, qp, _MODES[mode], code, passes,
             int(emit_super), _stream(dev))
     else:
-        rc = _lib().vdb_coarse_minima(
-            qThi.data_ptr(), ptr(qTlo if passes == 3 else None),
-            qrow.data_ptr(), db.data_ptr(), ptr(lo), ptr(scales),
-            col.data_ptr(), inv_col.data_ptr(), tile.data_ptr(), ptr(sup), n,
-            d, qp, _MODES[mode], code, passes, int(emit_super),
-            _stream(dev))
+        rc = _mma_sync(src, qThi, qTlo, qrow, db, lo, scales, col, inv_col,
+                       mode, passes, tile, sup)
     _raise_on(rc, f"{key} ({body})")
     launches[key] += 1
     routes[key][body] += 1
+    return tile, sup
+
+
+def _mma_sync(src: str, qThi, qTlo, qrow, db, db_lo, scales, col, inv_col,
+              mode: str, passes: int, tile, sup) -> int:
+    """Launch the mma.sync body (coarse_minima.cu) into ``tile`` (and
+    ``sup``, super minima, or None); returns its cudaError_t."""
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    d, qp = qThi.shape
+    return _lib().vdb_coarse_minima(
+        qThi.data_ptr(), ptr(qTlo if passes == 3 else None), qrow.data_ptr(),
+        db.data_ptr(), ptr(db_lo if passes == 3 else None), ptr(scales),
+        col.data_ptr(), inv_col.data_ptr(), tile.data_ptr(), ptr(sup),
+        db.shape[0], d, qp, _MODES[mode], _COARSE_SRC[src][0], passes,
+        int(sup is not None), _stream(db.device))
+
+
+def coarse_minima_mma_sync(src: str, qThi, qTlo, qrow, db, db_lo, scales,
+                           col, inv_col, mode: str, passes: int,
+                           emit_super: bool):
+    """The mma.sync body (coarse_minima.cu) through its C entry point at
+    any shape, whatever ``_coarse_route`` would pick: the other body for
+    side-by-side readings (chip_smoke.py's accumulation reading of that
+    body, its K6 bit-equality check, the card tests). No search path
+    calls it, so it counts no launch. Operands as ``_coarse``'s; returns
+    (tile minima (N/16, Qp), super minima (N/256, Qp) or None)."""
+    qp = qThi.shape[1]
+    n = db.shape[0]
+    dev = db.device
+    if dev.type != "cuda":
+        raise ValueError(f"coarse kernel needs CUDA tensors, got {dev}")
+    if n % _ROWS_PER_BLOCK or n == 0:
+        raise ValueError(f"rows {n} must be a positive multiple of "
+                         f"{_ROWS_PER_BLOCK}")
+    tile = torch.empty((n // SUB, qp), dtype=torch.float32, device=dev)
+    sup = (torch.empty((n // _ROWS_PER_BLOCK, qp), dtype=torch.float32,
+                       device=dev) if emit_super else None)
+    _raise_on(_mma_sync(src, qThi, qTlo, qrow, db, db_lo, scales, col,
+                        inv_col, mode, passes, tile, sup),
+              "coarse_minima (mma_sync)")
     return tile, sup
 
 
@@ -333,11 +386,65 @@ def coarse_minima_int8_1p_sup(qThi, qrow, codes, scales, col, inv_col,
                    codes, None, scales, col, inv_col, mode, 1, True)
 
 
+def _refine_stages(d: int, itemsize: int) -> int:
+    """Ring stages of K2's tile-major body for rows of width ``d`` and
+    ``itemsize`` bytes an element: as many 16-row tiles as fit in shared
+    memory beside its barriers, at most ``_REFINE_STAGES``; 0 if fewer
+    than two fit (refine_dots.cu, tile_stages)."""
+    fit = (_MAX_SMEM - _REFINE_BAR_BYTES) // (SUB * d * itemsize)
+    return min(fit, _REFINE_STAGES) if fit >= 2 else 0
+
+
+def _refine_route(dtype, d: int, aligned: bool) -> str:
+    """The K2 body a launch takes, from its shape alone: "tile_major" when
+    the rows and queries are 16-byte aligned, a lane's shared-memory read
+    of ``_REFINE_VEC[dtype]`` elements stays aligned (d % 4 == 0 for f32
+    rows, d % 8 == 0 for bf16 rows and int8 codes) and two 16-row tiles
+    fit in shared memory (d <= 1815 f32, 3630 bf16, 7260 int8);
+    "query_major" otherwise."""
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    if aligned and d % _REFINE_VEC[dtype] == 0 and _refine_stages(d,
+                                                                   itemsize):
+        return "tile_major"
+    return "query_major"
+
+
+def refine_body(db, queries) -> str:
+    """``_refine_route`` of a K2 launch over the rows ``db`` (N, d) for
+    ``queries`` (Qp, d): both must be 16-byte aligned."""
+    return _refine_route(db.dtype, db.shape[1],
+                         db.data_ptr() % 16 == 0
+                         and queries.data_ptr() % 16 == 0)
+
+
+def _refine_work(tile_idx):
+    """K2's tile-major work list from ``tile_idx`` (Qp, m): (tiles int32,
+    pairs int64), the pair ids q*m + j in the stable order of their tile
+    ids, and those tile ids in that order. One sort of 32-bit keys on the
+    tensor's device (half the radix passes of 64-bit ones); it only
+    orders the work."""
+    return torch.sort(tile_idx.reshape(-1).to(torch.int32), stable=True)
+
+
+def _refine_items(tiles):
+    """The work items the tile-major body walks over the sorted tile ids
+    ``tiles``: the start positions of each window of ``_REFINE_WINDOW``
+    pairs and of each change of tile within one (the kernel's segment
+    heads). Item i covers sorted positions items[i] .. items[i + 1] - 1,
+    the last one up to the end: one tile, at most ``_REFINE_WINDOW``
+    pairs; each item is one tile read into the ring."""
+    pos = torch.arange(tiles.numel(), device=tiles.device)
+    head = pos % _REFINE_WINDOW == 0
+    head[1:] |= tiles[1:] != tiles[:-1]
+    return pos[head]
+
+
 def refine_dots(tile_idx, queries, db, m: int, scales=None):
     """K2: (Qp, m*16) f32 dots of each query with the rows of its m
     selected 16-row tiles, IEEE f32 FMA. ``db`` holds f32 rows, bf16 rows
     (widened exactly) or int8 codes; for codes, ``scales`` (N,) f32 pow2
-    row scales multiply the finished dots."""
+    row scales multiply the finished dots. The body is
+    ``refine_body(db, queries)``."""
     qp, d = queries.shape
     n = db.shape[0]
     dev = db.device
@@ -345,8 +452,6 @@ def refine_dots(tile_idx, queries, db, m: int, scales=None):
         raise ValueError(f"refine kernel needs CUDA tensors, got {dev}")
     if n % SUB:
         raise ValueError(f"rows {n} must be a multiple of {SUB}")
-    if _REFINE_QPB * d * 4 > _MAX_SMEM:
-        raise ValueError(f"d={d} too wide for the refine kernel")
     if db.dtype not in _REFINE_SRC:
         raise ValueError(f"db: dtype {db.dtype}, expected float32, bfloat16 "
                          "or int8")
@@ -358,15 +463,28 @@ def refine_dots(tile_idx, queries, db, m: int, scales=None):
         raise ValueError("scales= goes with int8 codes, and only with them")
     if scales is not None:
         _check("scales", scales, torch.float32, (n,), dev)
+    if qp * m >= 2 ** 31 or n // SUB >= 2 ** 31:
+        raise ValueError(f"{qp} x {m} pairs over {n} rows: too many for one "
+                         "launch")
+    body = refine_body(db, queries)
+    if body == "query_major" and _REFINE_QPB * d * 4 > _MAX_SMEM:
+        raise ValueError(f"d={d} too wide for the refine kernel")
     out = torch.empty((qp, m * SUB), dtype=torch.float32, device=dev)
     if qp == 0 or m == 0:
         return out
-    rc = _lib().vdb_refine_dots(
-        tile_idx.data_ptr(), queries.data_ptr(), db.data_ptr(),
-        scales.data_ptr() if scales is not None else None, out.data_ptr(),
-        qp, m, d, code, _stream(dev))
-    _raise_on(rc, "refine_dots")
+    sc = scales.data_ptr() if scales is not None else None
+    if body == "tile_major":
+        tiles, pairs = _refine_work(tile_idx)
+        rc = _lib().vdb_refine_tiles(
+            tiles.data_ptr(), pairs.data_ptr(), qp * m, queries.data_ptr(),
+            db.data_ptr(), sc, out.data_ptr(), m, d, code, _stream(dev))
+    else:
+        rc = _lib().vdb_refine_dots(
+            tile_idx.data_ptr(), queries.data_ptr(), db.data_ptr(), sc,
+            out.data_ptr(), qp, m, d, code, _stream(dev))
+    _raise_on(rc, f"{key} ({body})")
     launches[key] += 1
+    routes[key][body] += 1
     return out
 
 
@@ -432,5 +550,5 @@ def scan_min(queries, qaux, db, raux, invalidf, mode: str, tile_rows: int):
 __all__ = ["coarse_minima_1p_sup", "coarse_minima", "coarse_minima_f32_1p_sup",
            "coarse_minima_f32", "coarse_minima_1p",
            "coarse_minima_int8_1p_sup", "refine_dots", "pq_decode",
-           "scan_min", "launches", "routes", "coarse_body",
+           "scan_min", "launches", "routes", "coarse_body", "refine_body",
            "reset_launches", "load", "build_info"]
