@@ -19,7 +19,10 @@ nothing is caught and passed over):
      of the same bf16 operands (for K5 and K3 the sum of their three
      products), max |err| / (d 2^-24 sum|x_i q_i|) on N(0,1) data and on
      U(1, 2) data (every product positive), each held to the
-     certificates' coefficient for its body;
+     certificates' coefficient for its body; and K8 by body, bit for bit
+     against the plain decode (limit 0; control: every code off by one):
+     "tile_ring" and "grid_stride" at the scan chunk (16384 x 96, dsub
+     8), "grid_stride" at a shape only it takes (dsub 4);
   3. the f32 slice at full size through the public entry points:
      VectorStore.with_flat_index(EUCLIDEAN, device="cuda"), 2^20 x 768
      seeded rows through insert_batch, a Q=4096, k=10 search_batch exact
@@ -56,8 +59,12 @@ nothing is caught and passed over):
      the scan's pool with K8 identical to the pool with the plain decode,
      the pool's scores within PQ_SCORE_LIMIT of their f64 recomputation
      (controls: a bf16-output score GEMM, a dropped q_lo term), the
-     "mirror" and "host" re-rank venues in agreement; K8 timed at the
-     scan chunk beside its plain version, F.embedding and its bound;
+     "mirror" and "host" re-rank venues in agreement; K8 at the scan
+     chunk on both bodies, beside its plain version and F.embedding, in
+     turns: the call by CUDA events and its kernel by torch.profiler over
+     200 launches each, and each body followed by the scan's two score
+     GEMMs (over 20); every K8 launch of the store's searches must take
+     the "tile_ring" body;
   9. the two-phase exact scan (ops.flat_kernel.two_phase_search, K9) at
      2^20 x 768 f32, Q=1024, k=10, all three metrics, 10% dead rows,
      exact against an on-card f32 oracle; K9 against its plain version
@@ -74,7 +81,8 @@ stores, every K3 launch of phases 3-4 (the 2^20-row store's tier 2, the
 store's window (tier 2 of the queries tier 1 leaves uncertified), its
 forced fallback (3 passes) and the legacy fast f32 run (1 pass), and
 every K6 launch of the legacy fast mirrors run, must have taken the
-"wgmma" body, and every K2 launch in every window the "tile_major" body
+"wgmma" body, every K2 launch in every window the "tile_major" body and
+every K8 launch of the PQ store's searches the "tile_ring" body
 (``cuda_kernels.routes``; K2 is timed over 10 launches, beside its
 pairs per distinct tile and per tile read). Phase 7 prints each store's
 tier-1 certification rate (and, for the f32 fallback, tier 2's) beside the
@@ -121,6 +129,8 @@ K9_LIMIT = 2.0 ** -18
 # below; a bf16 output (8 mantissa bits) or a dropped q_lo (2^-9 of q)
 # lands far above (phase 8 prints all three)
 PQ_SCORE_LIMIT = 2.0 ** -16
+PQ_CHUNK = 16384           # the PQ scan's chunk (index/pq._SCAN_CHUNK)
+K8_LAUNCHES = 200          # K8 readings: launches a call or kernel time
 
 
 def fail(msg: str) -> None:
@@ -253,6 +263,23 @@ def cuda_time(fn, torch, iters=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, out
+
+
+def device_ms(fn, torch, iters=K8_LAUNCHES):
+    """Device time per call of ``fn``'s kernels (their sum), by
+    torch.profiler over ``iters`` calls after a warm-up; None if the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+             for ev in prof.key_averages())
+    return us / 1e3 / iters if us > 0 else None
 
 
 def bound(flops, nbytes, peak):
@@ -503,6 +530,46 @@ def phase2(rng, mode_of, card, np, torch, ck, cuda_kernels, flat, worst):
         for k in e:
             worst[k] = max(worst.get(k, 0.0), e[k])
         del db, hi, lo, codes, got, plain, out, k6, k3_plain3, k9p, k8p
+
+
+def decode_bodies(rng, card, np, torch, cuda_kernels, worst):
+    """Phase 2's K8 check of each body: bit for bit (limit 0) against the
+    plain decode at the scan chunk (16384 x 96, dsub 8: "tile_ring" by the
+    route, "grid_stride" through its own entry point) and at a shape only
+    "grid_stride" takes (dsub 4); control: every code off by one."""
+    from vectordb_tpu_torch.ops import pq as pq_ops
+    dev = torch.device("cuda")
+    e, c = {}, {}
+    for name, rows, m, dsub, route in (
+            ("scan chunk", PQ_CHUNK, 96, 8, "tile_ring"),
+            ("dsub 4", 4096, 192, 4, "grid_stride")):
+        cb = torch.from_numpy(rng.standard_normal(
+            (m, 256, dsub), dtype=np.float32)).to(dev).to(torch.bfloat16)
+        codes = torch.from_numpy(rng.integers(0, 256, (rows, m),
+                                              dtype=np.uint8)).to(dev)
+        want = pq_ops._decode_rows_plain(codes, cb)
+        before = dict(cuda_kernels.routes["pq_decode"])
+        runs = {route: cuda_kernels.pq_decode(codes, cb)}
+        if cuda_kernels.routes["pq_decode"][route] != before[route] + 1:
+            fail(f"K8 at {name} did not take the {route} body")
+        runs["grid_stride"] = cuda_kernels.pq_decode_grid_stride(codes, cb)
+        for body, got in runs.items():
+            same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+            e[f"{body} at {name}"] = (float((got.float() - want.float())
+                                            .abs().max()) if same else
+                                      float("inf"))
+        c[name] = float((pq_ops._decode_rows_plain(codes ^ 1, cb).float()
+                         - want.float()).abs().max())
+    torch.cuda.synchronize()
+    say("phase 2 K8 by body, max |kernel - plain| (limit 0, bit for bit): "
+        + "; ".join(f"{k} {v:.3e}" for k, v in e.items()) + "; controls "
+        "(codes off by one) " + "; ".join(f"{k} {v:.3e}" for k, v in
+                                          c.items()) + f"  [{card}]")
+    if any(v != 0.0 for v in e.values()):
+        fail(f"a K8 body differs from the plain decode: {e}")
+    if not all(v > 0.0 for v in c.values()):
+        fail(f"a K8 control passed the limit: {c}")
+    worst["pq_decode"] = max(worst.get("pq_decode", 0.0), max(e.values()))
 
 
 def accum_phase(rng, code_rng, card, np, torch, ck, cuda_kernels):
@@ -975,10 +1042,15 @@ def pq_phase(args, rng, card, mods):
             results[refine] = store.search_batch(batch, refine=refine)
             batch_s[refine].append(time.perf_counter() - t0)
     counts = dict(cuda_kernels.launches)
+    k8_routes = dict(cuda_kernels.routes["pq_decode"])
     say(f"phase 8 launch counts (the PQ store's searches): "
-        f"{ {k: v for k, v in counts.items() if v} }")
+        f"{ {k: v for k, v in counts.items() if v} }; K8 by body "
+        f"{k8_routes}")
     if counts["pq_decode"] < 1:
         fail(f"the PQ store's searches launched no K8: {counts}")
+    if k8_routes["tile_ring"] != counts["pq_decode"]:
+        fail(f"K8 launches by body {k8_routes}: every one of the PQ "
+             f"store's must take the tile_ring body")
 
     # (a) distances exact for their ids, (b) recall against an on-card
     # f32 oracle over the rows as inserted (dead rows masked)
@@ -1109,25 +1181,41 @@ def pq_phase(args, rng, card, mods):
     # K8 at the scan chunk, and the scan's other per-chunk steps
     cb_bf = state["codebook"]
     ksub, dsub = cb_bf.shape[1], cb_bf.shape[2]
+    # (each body, the plain decode and F.embedding: the call by CUDA events
+    # and its kernels by torch.profiler over K8_LAUNCHES, in turns)
     cc = state["codes"][:chunk]
-    ms8, dec_k = cuda_time(lambda: cuda_kernels.pq_decode(cc, cb_bf), torch,
-                           iters=20)
-    ms8p, dec_p = cuda_time(lambda: pq_ops._decode_rows_plain(cc, cb_bf),
-                            torch, iters=20)
     flat_cb = cb_bf.reshape(m * ksub, dsub)
     emb_idx = cc.long() + torch.arange(m, device=dev) * ksub
-    ms8l, dec_l = cuda_time(lambda: F.embedding(emb_idx, flat_cb), torch,
-                            iters=20)
-    if not (torch.equal(dec_k.view(torch.int16), dec_p.view(torch.int16))
-            and torch.equal(dec_l.reshape(chunk, -1).view(torch.int16),
-                            dec_p.view(torch.int16))):
-        fail("K8 (or F.embedding) differs from the plain decode at the "
-             "scan chunk")
+    calls = {"tile_ring": lambda: cuda_kernels.pq_decode(cc, cb_bf),
+             "grid_stride": lambda: cuda_kernels.pq_decode_grid_stride(
+                 cc, cb_bf),
+             "plain": lambda: pq_ops._decode_rows_plain(cc, cb_bf),
+             "F.embedding": lambda: F.embedding(emb_idx, flat_cb)}
+    call_ms, kern_ms, outs = {}, {}, {}
+    for name in ("grid_stride", "tile_ring", "plain", "F.embedding",
+                 "tile_ring", "grid_stride"):
+        t, outs[name] = cuda_time(calls[name], torch, iters=K8_LAUNCHES)
+        call_ms.setdefault(name, []).append(t)
+        kern_ms.setdefault(name, []).append(device_ms(calls[name], torch))
+    dec_p = outs["plain"].view(torch.int16)
+    if not all(torch.equal(o.reshape(chunk, -1).view(torch.int16), dec_p)
+               for o in outs.values()):
+        fail("a K8 body (or F.embedding) differs from the plain decode at "
+             "the scan chunk")
+    dec_k = outs["tile_ring"]
+    if cuda_kernels.decode_body(cc, cb_bf, dec_k) != "tile_ring":
+        fail("K8 at the scan chunk does not route to tile_ring")
     b8 = bound(0.0, chunk * m + m * ksub * dsub * 2 + chunk * D * 2,
                PEAK_BF16)
     q_hi, q_lo = pq_ops._split_query(pq_ops._maybe_rotate(queries, rot))
     ms_gemm, scores = cuda_time(lambda: pq_ops._score_dots(q_hi, q_lo,
                                                            dec_k), torch)
+    # K8 followed by the scan's two score GEMMs, as each chunk runs them
+    with_gemms = {}
+    for name in ("grid_stride", "tile_ring", "tile_ring", "grid_stride"):
+        t, _ = cuda_time(lambda f=calls[name]: pq_ops._score_dots(
+            q_hi, q_lo, f()), torch, iters=20)
+        with_gemms.setdefault(name, []).append(t)
     if scores.dtype != torch.float32:
         fail(f"the score GEMM returned {scores.dtype}")
     ms_topk, _ = cuda_time(lambda: torch.topk(scores, 64, dim=1,
@@ -1150,15 +1238,31 @@ def pq_phase(args, rng, card, mods):
         f"{[round(x[0], 3) for x in splits]} ms + device re-rank "
         f"{[round(x[1], 3) for x in splits]} ms + host mapping "
         f"{[round(x[2], 3) for x in splits]} ms; per scan chunk ({chunk} "
-        f"rows, {nc} "
-        f"chunks): K8 {ms8:.4f} ms (plain {ms8p:.4f}, F.embedding "
-        f"{ms8l:.4f}, bound {b8[0]:.4f}), score GEMMs bf16->f32 "
-        f"{ms_gemm:.3f} ms ({4.0 * nq * chunk * D / ms_gemm / 1e9:.1f} "
-        f"TFLOP/s), top-64 {ms_topk:.3f} ms")
-    out = {"launches": counts["pq_decode"], "ms": ms8, "plain_ms": ms8p,
-           "bound": b8, "library_ms": ms8l}
+        f"rows, {nc} chunks): score GEMMs bf16->f32 {ms_gemm:.3f} ms "
+        f"({4.0 * nq * chunk * D / ms_gemm / 1e9:.1f} TFLOP/s), top-64 "
+        f"{ms_topk:.3f} ms")
+
+    def r4(by_name):
+        return {k: [None if t is None else round(t, 4) for t in v]
+                for k, v in by_name.items()}
+
+    say(f"phase 8 K8 at the scan chunk, in turns, ms per launch over "
+        f"{K8_LAUNCHES}: call (CUDA events) {r4(call_ms)}; kernels "
+        f"(torch.profiler) {r4(kern_ms)}; bound {b8[0]:.4f} ({b8[1]}); "
+        f"K8 + the two score GEMMs per chunk, over 20: {r4(with_gemms)}  "
+        f"[{card}]")
+    def mean(ts):
+        return sum(ts) / len(ts)
+
+    # the kernel's time (its call's where the profiler saw no device time)
+    kernel = [t for t in kern_ms["tile_ring"] if t is not None]
+    out = {"launches": counts["pq_decode"],
+           "ms": mean(kernel) if kernel else mean(call_ms["tile_ring"]),
+           "call_ms": mean(call_ms["tile_ring"]),
+           "plain_ms": mean(call_ms["plain"]), "bound": b8,
+           "library_ms": mean(call_ms["F.embedding"])}
     del store, index, state, rr_rows, db_t, queries, scores, dec_k, dec_p
-    del dec_l, sv, sl, dv, ds, sv_k, sl_k, sv_p, sl_p, results, res_m, res_h
+    del outs, sv, sl, dv, ds, sv_k, sl_k, sv_p, sl_p, results, res_m, res_h
     free(torch)
     return out
 
@@ -1303,6 +1407,8 @@ def main() -> None:
     # -- phase 2: kernels against their plain versions ------------------
     worst: dict = {}
     phase2(rng, mode_of, card, np, torch, ck, cuda_kernels, flat, worst)
+    decode_bodies(np.random.default_rng([args.seed, 4]), card, np, torch,
+                  cuda_kernels, worst)
     # its own generators: the rows of the later phases stay those of
     # earlier runs
     accum = accum_phase(np.random.default_rng([args.seed, 2]),
@@ -1620,7 +1726,8 @@ def main() -> None:
     table += [
         kernel_row("K8 pq_decode", "pq_decode.cu", 286, k8["launches"],
                    worst["pq_decode"], k8["ms"], k8["plain_ms"], k8["bound"],
-                   k8["library_ms"], src="vectordb_tpu/ops/pq.py"),
+                   k8["library_ms"], src="vectordb_tpu/ops/pq.py",
+                   body="tile_ring", call_ms=k8["call_ms"]),
         kernel_row("K9 scan_min", "scan_min.cu", 43, k9["launches"],
                    max(worst["scan_min"], k9["err"]), k9["ms"],
                    k9["plain_ms"], k9["bound"], k9["library_ms"],

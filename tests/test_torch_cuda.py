@@ -607,6 +607,61 @@ def test_k8_matches_plain_bitwise(dev, rows, m, dsub, ksub):
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
+def _k8_operands(dev, rows, m, ksub, dsub, seed=12):
+    rng = np.random.default_rng(seed)
+    cb = torch.from_numpy(rng.standard_normal((m, ksub, dsub)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    codes = torch.from_numpy(rng.integers(0, ksub, (rows, m),
+                                          dtype=np.uint8)).to(dev)
+    return codes, cb
+
+
+@pytest.mark.parametrize("rows", [1, 15, 16385])
+@pytest.mark.parametrize("dsub", [2, 4, 8, 16])
+@pytest.mark.parametrize("ksub", [1, 16, 256])
+def test_k8_bodies_match_plain_bitwise(dev, rows, dsub, ksub):
+    """The routed body (tile_ring for dsub % 8 == 0, grid_stride
+    otherwise) and grid_stride through its own entry point, each bit for
+    bit the plain decode at ragged row counts."""
+    from vectordb_tpu_torch.ops import pq
+    m = 7 if rows == 15 else 96
+    codes, cb = _k8_operands(dev, rows, m, ksub, dsub)
+    body = "tile_ring" if dsub % 8 == 0 else "grid_stride"
+    before = dict(cuda_kernels.routes["pq_decode"])
+    got = cuda_kernels.pq_decode(codes, cb)
+    other = cuda_kernels.pq_decode_grid_stride(codes, cb)
+    want = pq._decode_rows_plain(codes, cb).view(torch.int16)
+    torch.cuda.synchronize()
+    assert cuda_kernels.routes["pq_decode"][body] == before[body] + 1
+    assert torch.equal(got.view(torch.int16), want)
+    assert torch.equal(other.view(torch.int16), want)
+
+
+def test_k8_unaligned_views_take_grid_stride(dev):
+    """An output view or a codes view off 16-byte alignment runs
+    grid_stride; an aligned ``out=`` runs tile_ring; both fill the view
+    bit for bit."""
+    from vectordb_tpu_torch.ops import pq
+    rows, m, ksub, dsub = 1000, 96, 256, 8
+    codes, cb = _k8_operands(dev, rows, m, ksub, dsub)
+    want = pq._decode_rows_plain(codes, cb).view(torch.int16)
+    buf = torch.zeros(rows * m * dsub + 8, dtype=torch.bfloat16, device=dev)
+    cbuf = torch.zeros(rows * m + 16, dtype=torch.uint8, device=dev)
+    cbuf[1:rows * m + 1] = codes.reshape(-1)
+    for shift, src, body in ((1, codes, "grid_stride"),
+                             (0, cbuf[1:rows * m + 1].view(rows, m),
+                              "grid_stride"),
+                             (0, codes, "tile_ring")):
+        out = buf[shift:shift + rows * m * dsub].view(rows, m * dsub)
+        out.zero_()
+        before = cuda_kernels.routes["pq_decode"][body]
+        got = cuda_kernels.pq_decode(src, cb, out=out)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == out.data_ptr()
+        assert cuda_kernels.routes["pq_decode"][body] == before + 1
+        assert torch.equal(out.view(torch.int16), want)
+
+
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("n, d, q, tile_rows", [
     (4096, 768, 100, 512), (2048, 40, 7, 128), (1024, 64, 130, 64),

@@ -4,7 +4,7 @@ on one card, K2 on its three sources, and K9 against its plain version.
 
     python3 tools/coarse_bodies.py [--rows N] [--queries Q] [--dim D]
                                    [--iters I] [--seed S]
-                                   [--kernels K1,K4,K7,K5,K3,K6,K2,K9]
+                                   [--kernels K1,K4,K7,K5,K3,K6,K2,K8,K9]
                                    [--root DIR]
 
 Seeded N(0,1) rows (N x D: f32, their bf16 hi and lo mirrors, and int8
@@ -48,6 +48,20 @@ the f32 rows for the first min(Q, 1024) queries through
 ``cuda_kernels.scan_min``, timed beside its plain version, one f32
 torch.matmul of the same product and its bound (the flops at the 67
 TFLOP/s f32 rate), with its largest difference from the plain version.
+K8 (``--kernels K8``): the PQ decode at the scan chunk (16384 rows, m=96,
+ksub=256, dsub=8: seeded codes and a bf16 codebook) through
+``cuda_kernels.pq_decode`` (the route's body: "tile_ring" since K8's
+redesign, the one body before it) and through the "grid_stride" body's C
+entry point (every version has it), beside ``F.embedding`` of the same
+lookup, in turns (grid_stride, route, route, grid_stride): each call
+timed by CUDA events over max(I, 200) launches, and its kernels by
+``torch.profiler`` over the same count; a fill of the output's bytes as
+the floor; the host time of a call, its stream lookup and its
+allocation (perf_counter over 500 calls); then each body followed by
+the scan's two score GEMMs (``pq._score_dots`` of Q queries' hi/lo split
+against the decoded chunk), timed per chunk over 20 and split into
+kernels. Every output is held bit for bit to the plain decode; the bound
+is the codes, the codebook and the output, each once, at 3.35 TB/s.
 ``--root`` imports vectordb_tpu_torch from another checkout (a parent
 commit unpacked with ``git archive``), so two versions of K2 or K9 (or of
 the wgmma call of K6) are timed by running this script once per root, in
@@ -64,12 +78,14 @@ import argparse
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 HBM = 3.35e12
 K9_TILE = 512
+K8_CHUNK = 16384            # ops/pq.py's scan chunk (index/pq._SCAN_CHUNK)
 
 
 def card_line() -> str:
@@ -77,6 +93,141 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters, torch):
+    """(mean ms per call by CUDA events after a warm-up call, its result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, out
+
+
+def kernels_ms(fn, iters, torch):
+    """{kernel name: device ms per call} of ``fn`` over ``iters`` calls,
+    by torch.profiler (empty if it saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    got = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            got[ev.key] = us / 1e3 / iters
+    return got
+
+
+def show(by_kernel):
+    if not by_kernel:
+        return "not measured"
+    return ", ".join(f"{name[:48]} {ms:.4f}"
+                     for name, ms in sorted(by_kernel.items(),
+                                            key=lambda kv: -kv[1]))
+
+
+def k8(args, torch, cuk, card, where) -> None:
+    """K8 at the scan chunk (module docstring)."""
+    import torch.nn.functional as F
+    from vectordb_tpu_torch.ops import pq as pq_ops
+    dev = torch.device("cuda")
+    rows, m, ksub, dsub = K8_CHUNK, 96, 256, 8
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    codes = torch.randint(0, ksub, (rows, m), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    cb = torch.randn((m, ksub, dsub), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    want = pq_ops._decode_rows_plain(codes, cb).view(torch.int16)
+
+    def grid_stride():
+        out = torch.empty((rows, m * dsub), dtype=torch.bfloat16, device=dev)
+        cuk._raise_on(cuk._lib().vdb_pq_decode(
+            codes.data_ptr(), cb.data_ptr(), out.data_ptr(), rows, m, ksub,
+            dsub, cuk._stream(dev)), "pq_decode (grid_stride)")
+        return out
+
+    flat_cb = cb.reshape(m * ksub, dsub)
+    emb_idx = codes.long() + torch.arange(m, device=dev) * ksub
+    calls = {"grid_stride": grid_stride,
+             "route": lambda: cuk.pq_decode(codes, cb),
+             "F.embedding": lambda: F.embedding(emb_idx, flat_cb)}
+    body = (cuk.decode_body(codes, cb, want)
+            if hasattr(cuk, "decode_body") else "grid_stride")
+    iters = max(args.iters, 200)
+    call, kern = {}, {}
+    for name in ("grid_stride", "route", "F.embedding", "route",
+                 "grid_stride", "F.embedding"):
+        t, out = cuda_ms(calls[name], iters, torch)
+        if not torch.equal(out.reshape(rows, -1).view(torch.int16), want):
+            sys.exit(f"K8 {name} differs from the plain decode")
+        call.setdefault(name, []).append(round(t, 4))
+        by = kernels_ms(calls[name], iters, torch)
+        kern.setdefault(name, []).append(show(by))
+    nbytes = rows * m + m * ksub * dsub * 2 + rows * m * dsub * 2
+    bnd = nbytes / HBM * 1e3
+    # the output's bytes alone, written by PyTorch's fill kernel
+    buf = torch.empty((rows, m * dsub), dtype=torch.bfloat16, device=dev)
+    fill_ms = [round(cuda_ms(lambda: buf.fill_(0), iters, torch)[0], 4),
+               show(kernels_ms(lambda: buf.fill_(0), iters, torch))]
+    del buf
+    print(f"K8 rows={rows} m={m} ksub={ksub} dsub={dsub} (package at "
+          f"{where}, route {body}): call ms over {iters}: {call}; bound "
+          f"{bnd:.4f} ms (bytes); a fill of the output's bytes: call, "
+          f"kernels {fill_ms}  [{card}]", flush=True)
+    for name, ks in kern.items():
+        print(f"K8 kernels of the {name} call, device ms per call over "
+              f"{iters} (torch.profiler): {ks}  [{card}]", flush=True)
+
+    def host_us(fn, n=500):
+        """Host microseconds a call of ``fn`` over ``n`` calls (fewer
+        than the launch queue holds, so no call waits on the device)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return round(us, 2)
+
+    on = codes.device
+    host = {"torch.cuda.current_stream": host_us(
+                lambda: torch.cuda.current_stream(on).cuda_stream),
+            "cuda_kernels._stream": host_us(lambda: cuk._stream(on)),
+            "torch.empty": host_us(lambda: torch.empty(
+                (rows, m * dsub), dtype=torch.bfloat16, device=on)),
+            "route call": host_us(calls["route"]),
+            "grid_stride call": host_us(grid_stride)}
+    print(f"K8 host time of a call, us (perf_counter over 500): {host}  "
+          f"[{card}]", flush=True)
+    # each body followed by the scan's two score GEMMs, as one chunk of
+    # pq_scan_topr runs them
+    q = torch.randn((args.queries, m * dsub), generator=gen, device=dev)
+    q_hi, q_lo = pq_ops._split_query(q)
+    chunk = {name: (lambda f=calls[name]: pq_ops._score_dots(q_hi, q_lo,
+                                                             f()))
+             for name in ("grid_stride", "route")}
+    per = {}
+    for name in ("grid_stride", "route", "route", "grid_stride"):
+        t, _ = cuda_ms(chunk[name], 20, torch)
+        per.setdefault(name, []).append(round(t, 4))
+    print(f"K8 + score GEMMs per chunk (Q={args.queries}), ms over 20: "
+          f"{per}  [{card}]", flush=True)
+    for name in ("grid_stride", "route"):
+        print(f"K8 + score GEMMs, kernels of the {name} chunk, device ms "
+              f"per chunk over 20 (torch.profiler): "
+              f"{show(kernels_ms(chunk[name], 20, torch))}  [{card}]",
+              flush=True)
 
 
 def main() -> None:
@@ -101,6 +252,11 @@ def main() -> None:
 
     card = card_line()
     dev = torch.device("cuda")
+    where = os.path.relpath(os.path.abspath(args.root), ROOT) or "."
+    if "K8" in kernels:
+        k8(args, torch, cuk, card, where)
+        if kernels == {"K8"}:
+            return
     n, d = args.rows, args.dim
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     db = torch.randn((n, d), generator=gen, device=dev)
@@ -108,41 +264,7 @@ def main() -> None:
     queries = torch.randn((args.queries, d), generator=gen, device=dev)
 
     def timed(fn, iters=args.iters):
-        out = fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters, out
-
-    def kernels_ms(fn, iters):
-        """{kernel name: device ms per call} of ``fn`` over ``iters``
-        calls, by torch.profiler (empty if it saw no device time)."""
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        got = {}
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-            if us > 0:
-                got[ev.key] = us / 1e3 / iters
-        return got
-
-    def show(by_kernel):
-        if not by_kernel:
-            return "not measured"
-        return ", ".join(f"{name[:48]} {ms:.4f}"
-                         for name, ms in sorted(by_kernel.items(),
-                                                key=lambda kv: -kv[1]))
+        return cuda_ms(fn, iters, torch)
 
     def mma_sync_call(src, qThi, qTlo, qrow, arr, arr_lo, sc, col, inv, q,
                       m, passes, sup):
@@ -159,8 +281,6 @@ def main() -> None:
             cuk._stream(dev))
         cuk._raise_on(rc, "coarse_minima (mma_sync)")
         return tile, sups
-
-    where = os.path.relpath(os.path.abspath(args.root), ROOT) or "."
 
     if "K9" in kernels:
         nq = min(args.queries, 1024)
@@ -184,7 +304,7 @@ def main() -> None:
               f"max |kernel - plain| {err:.3e}  [{card}]", flush=True)
         del got, want
 
-    coarse = kernels - {"K9"}
+    coarse = kernels - {"K8", "K9"}
     if not coarse:
         return
     # int8 storage of the same rows: pow2 row scales, codes within +-127
@@ -222,7 +342,7 @@ def main() -> None:
                       + q * d * 4 + q * mp * 8 + q * mp * 16 * 4)
             bnd = max(2.0 * q * mp * 16 * d / PEAK_F32, nbytes / HBM) * 1e3
             split = show(kernels_ms(lambda: cuk.refine_dots(
-                tidx, queries, rows, mp, sc), iters))
+                tidx, queries, rows, mp, sc), iters, torch))
             print(f"K2 {name} N={n} Q={q} m={mp} d={d} (package at {where}"
                   f", body {body}): {ms:.3f} ms over {iters}; bound "
                   f"{bnd:.3f} ms; {q * mp / distinct:.3f} pairs per distinct "
@@ -259,9 +379,10 @@ def main() -> None:
               f"call ms over {iters}: {ms}; bound {bnd:.4f} ms; max |wgmma "
               f"call - mma_sync| {diff:.3e}  [{card}]", flush=True)
         for name, fn in calls.items():
+            by = kernels_ms(fn, iters, torch)
             print(f"K6 kernels of the {name} call, device ms per call over "
-                  f"{iters} (torch.profiler): {show(kernels_ms(fn, iters))}"
-                  f"  [{card}]", flush=True)
+                  f"{iters} (torch.profiler): {show(by)}  [{card}]",
+                  flush=True)
         del outs, qThi, qrow, col, inv
 
     # (name, src, rows read, lo mirror, scales, passes, rows of the terms,

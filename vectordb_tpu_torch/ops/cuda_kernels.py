@@ -29,6 +29,7 @@ of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
         (launch keys refine_dots, refine_dots_bf16, refine_dots_int8;
         two bodies, see below)
     K8  pq_decode                  pq_decode.cu      uint8 codes -> bf16 rows
+                                   (two bodies, see below)
     K9  scan_min                   scan_min.cu       f32 per-tile minima
 
 The coarse kernels have two bodies, chosen by shape alone in
@@ -42,10 +43,17 @@ tile brought into a shared-memory ring by bulk copy and read once for all
 the queries of a work item) for 16-byte aligned rows and queries, d a
 multiple of 4 (f32) or 8 (bf16, int8 codes), and a 16-row tile that fits
 twice in shared memory; "query_major" (a warp per candidate row) for
-every other shape. ``routes[key][body]`` counts each coarse kernel's and
-K2's launches by body beside ``launches``. No body stands in for another:
-a failed build or launch raises. K8 (``pq_decode.cu``) and K9
-(``scan_min.cu``) have one body for every shape.
+every other shape. K8 has two bodies in ``pq_decode.cu``, chosen by shape
+in ``_decode_route``: "tile_ring" (persistent blocks, each keeping to a
+group of subspaces whose codebook stays in L1, walk tiles of rows; each
+tile's codes come into a shared-memory ring by bulk copy) for 16-byte
+codewords or a multiple of them (dsub % 8 == 0), 16-byte aligned codes,
+codebook and output and m <= 4096; "grid_stride" (a thread per codeword
+word) for every other shape.
+``routes[key][body]`` counts the coarse kernels', K2's and K8's launches
+by body beside ``launches``. No body stands in for another: a failed
+build or launch raises. K9 (``scan_min.cu``) has one body for every
+shape.
 """
 
 from __future__ import annotations
@@ -74,6 +82,14 @@ _REFINE_WINDOW = 32
 _REFINE_STAGES = 8
 _REFINE_BAR_BYTES = 128
 _REFINE_VEC = {torch.float32: 4, torch.bfloat16: 8, torch.int8: 8}
+# K8 tile_ring (pq_decode.cu): the codebook bytes a group of subspaces may
+# hold (it stays in L1), the output words a work item aims at, the code
+# bytes a ring stage holds unless 16 rows need more, and the widest m the
+# route sends to it (two stages of 16 rows of codes fit in shared memory)
+_DECODE_L1_SLICE = 96 * 1024
+_DECODE_TILE_WORDS = 768
+_DECODE_STAGE_BYTES = 16384
+_DECODE_MAX_M = 4096
 _MODES = {"euclidean": 0, "dot": 1, "cosine": 2}
 # coarse source: (C code, row dtype)
 _COARSE_SRC = {"mirrors": (0, torch.bfloat16), "f32": (1, torch.float32),
@@ -92,11 +108,12 @@ launches = {"coarse_minima_1p_sup": 0, "coarse_minima": 0,
             "coarse_minima_1p": 0, "coarse_minima_int8_1p_sup": 0,
             "refine_dots": 0, "refine_dots_bf16": 0, "refine_dots_int8": 0,
             "pq_decode": 0, "scan_min": 0}
-# coarse and K2 launches by body (see _coarse_route, _refine_route), reset
-# with ``launches``
+# coarse, K2 and K8 launches by body (see _coarse_route, _refine_route,
+# _decode_route), reset with ``launches``
 routes = {key: ({"wgmma": 0, "mma_sync": 0} if key.startswith("coarse")
                 else {"tile_major": 0, "query_major": 0})
           for key in launches if key.startswith(("coarse", "refine"))}
+routes["pq_decode"] = {"tile_ring": 0, "grid_stride": 0}
 # build facts of the loaded library (path, seconds, compiler output)
 build_info: dict = {}
 
@@ -170,6 +187,8 @@ def _lib() -> ctypes.CDLL:
     lib.vdb_refine_tiles.restype = i
     lib.vdb_pq_decode.argtypes = [p, p, p, l, i, i, i, p]
     lib.vdb_pq_decode.restype = i
+    lib.vdb_pq_decode_tiles.argtypes = [p, p, p, l, i, i, i, i, i, p]
+    lib.vdb_pq_decode_tiles.restype = i
     lib.vdb_scan_min.argtypes = [p, p, p, p, p, p, l, i, i, i, i, p]
     lib.vdb_scan_min.restype = i
     build_info.update(path=str(so), seconds=seconds, log=log)
@@ -199,8 +218,13 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
 
 
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _stream(device) -> int:
+    """The raw handle of ``device``'s current stream, by torch's own
+    lookup (building the ``torch.cuda.Stream`` object instead took ~8 us
+    a call on an H100's host)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def _coarse_route(src: str, passes: int, emit_super: bool, d: int,
@@ -488,11 +512,42 @@ def refine_dots(tile_idx, queries, db, m: int, scales=None):
     return out
 
 
-def pq_decode(codes, cb):
-    """K8: (rows, m) uint8 codes, (m, ksub, dsub) bf16 codebook -> (rows,
-    m*dsub) bf16 rows, row i's subspace c = codeword codes[i, c] bit for
-    bit. Any row count, any dsub, ksub <= 256; every code must be < ksub
-    (pq_encode emits them so, PqFlatIndex.adopt_codes checks)."""
+def _decode_route(dsub: int, aligned: bool, m: int) -> str:
+    """The K8 body a launch takes, from its shape alone: "tile_ring" for
+    codewords of 16 bytes or a multiple of them (dsub % 8 == 0) when the
+    codes, the codebook and the output are 16-byte aligned and m <=
+    ``_DECODE_MAX_M`` (two stages of 16 rows of codes fit in shared
+    memory); "grid_stride" otherwise."""
+    if aligned and dsub % 8 == 0 and m <= _DECODE_MAX_M:
+        return "tile_ring"
+    return "grid_stride"
+
+
+def decode_body(codes, cb, out) -> str:
+    """``_decode_route`` of a K8 launch from ``codes`` (rows, m) into
+    ``out`` with the codebook ``cb`` (m, ksub, dsub): all three must be
+    16-byte aligned."""
+    aligned = (codes.data_ptr() | cb.data_ptr() | out.data_ptr()) % 16 == 0
+    return _decode_route(cb.shape[2], aligned, cb.shape[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_plan(m: int, ksub: int, dsub: int):
+    """The tile_ring body's work items: (tile_rows, group). A group holds
+    as many subspaces as fit their codebook in ``_DECODE_L1_SLICE`` bytes
+    (at least one, at most m); a tile holds a multiple of 16 rows (so
+    each tile's codes start 16-byte aligned), as many as keep the item
+    near ``_DECODE_TILE_WORDS`` 16-byte output words and its codes within
+    ``_DECODE_STAGE_BYTES``."""
+    words = dsub // 8
+    group = max(1, min(m, _DECODE_L1_SLICE // (ksub * dsub * 2)))
+    tiles = min(_DECODE_TILE_WORDS // (16 * group * words),
+                _DECODE_STAGE_BYTES // (16 * m))
+    return 16 * max(1, tiles), group
+
+
+def _decode_args(codes, cb, out):
+    """Check K8's operands; returns (out, rows, m, ksub, dsub)."""
     dev = codes.device
     if dev.type != "cuda":
         raise ValueError(f"pq_decode kernel needs CUDA tensors, got {dev}")
@@ -505,14 +560,50 @@ def pq_decode(codes, cb):
         raise ValueError(f"pq_decode: ksub {ksub} must be in [1, 256]")
     _check("codes", codes, torch.uint8, (rows, m), dev)
     _check("cb", cb, torch.bfloat16, (m, ksub, dsub), dev)
-    out = torch.empty((rows, m * dsub), dtype=torch.bfloat16, device=dev)
+    if out is None:
+        out = torch.empty((rows, m * dsub), dtype=torch.bfloat16, device=dev)
+    else:
+        _check("out", out, torch.bfloat16, (rows, m * dsub), dev)
+    return out, rows, m, ksub, dsub
+
+
+def pq_decode(codes, cb, out=None):
+    """K8: (rows, m) uint8 codes, (m, ksub, dsub) bf16 codebook -> (rows,
+    m*dsub) bf16 rows (into ``out`` if given), row i's subspace c =
+    codeword codes[i, c] bit for bit. Any row count, any dsub, ksub <=
+    256; every code must be < ksub (pq_encode emits them so,
+    PqFlatIndex.adopt_codes checks). The body is
+    ``decode_body(codes, cb, out)``."""
+    out, rows, m, ksub, dsub = _decode_args(codes, cb, out)
     if rows == 0 or m == 0:
         return out
-    rc = _lib().vdb_pq_decode(codes.data_ptr(), cb.data_ptr(),
-                              out.data_ptr(), rows, m, ksub, dsub,
-                              _stream(dev))
-    _raise_on(rc, "pq_decode")
+    ptrs = (codes.data_ptr(), cb.data_ptr(), out.data_ptr())
+    body = decode_body(codes, cb, out)
+    if body == "tile_ring":
+        rc = _lib().vdb_pq_decode_tiles(*ptrs, rows, m, ksub, dsub,
+                                        *_decode_plan(m, ksub, dsub),
+                                        _stream(codes.device))
+    else:
+        rc = _lib().vdb_pq_decode(*ptrs, rows, m, ksub, dsub,
+                                  _stream(codes.device))
+    _raise_on(rc, f"pq_decode ({body})")
     launches["pq_decode"] += 1
+    routes["pq_decode"][body] += 1
+    return out
+
+
+def pq_decode_grid_stride(codes, cb, out=None):
+    """The grid_stride body of K8 through its C entry point at any shape,
+    whatever ``_decode_route`` would pick: the other body for side-by-side
+    readings (chip_smoke.py, tools/coarse_bodies.py, the card tests). No
+    search path calls it, so it counts no launch."""
+    out, rows, m, ksub, dsub = _decode_args(codes, cb, out)
+    if rows == 0 or m == 0:
+        return out
+    _raise_on(_lib().vdb_pq_decode(codes.data_ptr(), cb.data_ptr(),
+                                   out.data_ptr(), rows, m, ksub, dsub,
+                                   _stream(codes.device)),
+              "pq_decode (grid_stride)")
     return out
 
 
@@ -550,5 +641,6 @@ def scan_min(queries, qaux, db, raux, invalidf, mode: str, tile_rows: int):
 __all__ = ["coarse_minima_1p_sup", "coarse_minima", "coarse_minima_f32_1p_sup",
            "coarse_minima_f32", "coarse_minima_1p",
            "coarse_minima_int8_1p_sup", "refine_dots", "pq_decode",
-           "scan_min", "launches", "routes", "coarse_body", "refine_body",
-           "reset_launches", "load", "build_info"]
+           "pq_decode_grid_stride", "scan_min", "launches", "routes",
+           "coarse_body", "refine_body", "decode_body", "reset_launches",
+           "load", "build_info"]

@@ -204,7 +204,7 @@ def _decode_rows_plain(codes: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
     (rows, m*dsub) bf16, row i's subspace c = codeword codes[i, c]."""
     rows, m = codes.shape
     ar = torch.arange(m, device=codes.device)
-    return cb[ar, codes.long()].reshape(rows, -1)
+    return cb[ar, codes.long()].reshape(rows, m * cb.shape[2])
 
 
 def pq_decode_rows(codes: torch.Tensor, cb_bf: torch.Tensor) -> torch.Tensor:
