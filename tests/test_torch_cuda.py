@@ -638,28 +638,41 @@ def test_k8_bodies_match_plain_bitwise(dev, rows, dsub, ksub):
 
 
 def test_k8_unaligned_views_take_grid_stride(dev):
-    """An output view or a codes view off 16-byte alignment runs
-    grid_stride; an aligned ``out=`` runs tile_ring; both fill the view
-    bit for bit."""
+    """A codes view or a codebook view off 16-byte alignment runs
+    grid_stride; aligned operands run tile_ring; each bit for bit the
+    plain decode."""
     from vectordb_tpu_torch.ops import pq
     rows, m, ksub, dsub = 1000, 96, 256, 8
     codes, cb = _k8_operands(dev, rows, m, ksub, dsub)
     want = pq._decode_rows_plain(codes, cb).view(torch.int16)
-    buf = torch.zeros(rows * m * dsub + 8, dtype=torch.bfloat16, device=dev)
     cbuf = torch.zeros(rows * m + 16, dtype=torch.uint8, device=dev)
     cbuf[1:rows * m + 1] = codes.reshape(-1)
-    for shift, src, body in ((1, codes, "grid_stride"),
-                             (0, cbuf[1:rows * m + 1].view(rows, m),
-                              "grid_stride"),
-                             (0, codes, "tile_ring")):
-        out = buf[shift:shift + rows * m * dsub].view(rows, m * dsub)
-        out.zero_()
+    bbuf = torch.zeros(cb.numel() + 8, dtype=torch.bfloat16, device=dev)
+    bbuf[1:cb.numel() + 1] = cb.reshape(-1)
+    for src, book, body in ((cbuf[1:rows * m + 1].view(rows, m), cb,
+                             "grid_stride"),
+                            (codes, bbuf[1:cb.numel() + 1].view(cb.shape),
+                             "grid_stride"),
+                            (codes, cb, "tile_ring")):
+        assert cuda_kernels.decode_body(src, book) == body
         before = cuda_kernels.routes["pq_decode"][body]
-        got = cuda_kernels.pq_decode(src, cb, out=out)
+        got = cuda_kernels.pq_decode(src, book)
         torch.cuda.synchronize()
-        assert got.data_ptr() == out.data_ptr()
         assert cuda_kernels.routes["pq_decode"][body] == before + 1
-        assert torch.equal(out.view(torch.int16), want)
+        assert torch.equal(got.view(torch.int16), want)
+
+
+def test_k8_stream_lookup_is_torchs_current_stream(dev):
+    """K8's launcher reads the current stream by torch's private raw
+    lookup: it must exist and name the stream the public API names, on
+    the default stream and inside a side stream."""
+    assert hasattr(torch._C, "_cuda_getCurrentRawStream")
+    for d in (dev, torch.device("cuda")):
+        assert (cuda_kernels._raw_stream(d)
+                == torch.cuda.current_stream(d).cuda_stream)
+    side = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(side):
+        assert cuda_kernels._raw_stream(dev) == side.cuda_stream
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -4,6 +4,9 @@ the route reads dsub, m and alignment, the plan is arithmetic, and the
 walk is modelled in numpy, one step of all the block's threads at a
 time, with the kernel's own index stepping."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -11,10 +14,24 @@ import torch
 from vectordb_tpu_torch.ops import cuda_kernels
 from vectordb_tpu_torch.ops import pq as pq_ops
 
-# pq_decode.cu's tile_ring constants
-RTHREADS, STAGES, BLOCKS_PER_SM, BATCH, BAR_BYTES = 256, 2, 4, 4, 64
-SMEM_LIMIT = 232448
 SCAN_CHUNK = 16384
+
+
+def _cu_constants() -> dict:
+    """The ``constexpr int`` constants of pq_decode.cu's tile_ring body,
+    read from the source, so that the model walks as the kernel does."""
+    src = (Path(cuda_kernels.__file__).resolve().parent.parent / "csrc"
+           / "pq_decode.cu").read_text()
+    src = src[:src.index("constexpr int THREADS")]    # grid_stride's own
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+_CU = _cu_constants()
+RTHREADS, STAGES, BLOCKS_PER_SM = (_CU["RTHREADS"], _CU["STAGES"],
+                                   _CU["BLOCKS_PER_SM"])
+BATCH, BAR_BYTES, SMEM_LIMIT = _CU["BATCH"], _CU["BAR_BYTES"], \
+    _CU["SMEM_LIMIT"]
 
 
 @pytest.mark.parametrize("dsub", [1, 2, 4, 5, 8, 16, 24, 64])
@@ -22,14 +39,16 @@ SCAN_CHUNK = 16384
 @pytest.mark.parametrize("m", [1, 96, 4096, 4097])
 def test_decode_route(dsub, aligned, m):
     """tile_ring takes 16-byte codewords or multiples of them (dsub % 8
-    == 0) with aligned codes, codebook and output and m <= 4096; every
-    other shape runs grid_stride."""
+    == 0) with aligned codes and codebook and m <= 4096; every other
+    shape runs grid_stride."""
     want = ("tile_ring" if aligned and dsub % 8 == 0 and m <= 4096
             else "grid_stride")
     assert cuda_kernels._decode_route(dsub, aligned, m) == want
 
 
 def test_decode_body_reads_alignment_from_codes_cb_and_out():
+    """The route reads the alignment of the codes and the codebook; the
+    output is the wrapper's own ``torch.empty``, which is aligned."""
     rows, m, ksub, dsub = 64, 96, 256, 8
     cbuf = torch.zeros(rows * m + 16, dtype=torch.uint8)
     codes, codes_off = (cbuf[:rows * m].view(rows, m),
@@ -37,15 +56,14 @@ def test_decode_body_reads_alignment_from_codes_cb_and_out():
     bbuf = torch.zeros(m * ksub * dsub + 8, dtype=torch.bfloat16)
     cb, cb_off = (bbuf[:m * ksub * dsub].view(m, ksub, dsub),
                   bbuf[1:m * ksub * dsub + 1].view(m, ksub, dsub))
-    obuf = torch.zeros(rows * m * dsub + 8, dtype=torch.bfloat16)
-    out, out_off = (obuf[:rows * m * dsub].view(rows, m * dsub),
-                    obuf[1:rows * m * dsub + 1].view(rows, m * dsub))
     body = cuda_kernels.decode_body
-    assert body(codes, cb, out) == "tile_ring"
-    assert body(codes_off, cb, out) == "grid_stride"
-    assert body(codes, cb_off, out) == "grid_stride"
-    assert body(codes, cb, out_off) == "grid_stride"
-    assert body(codes, cb[:, :, :4].contiguous(), out) == "grid_stride"
+    assert body(codes, cb) == "tile_ring"
+    assert body(codes_off, cb) == "grid_stride"
+    assert body(codes, cb_off) == "grid_stride"
+    assert body(codes, cb[:, :, :4].contiguous()) == "grid_stride"
+    for r in (1, 15, SCAN_CHUNK):
+        out = torch.empty((r, m * dsub), dtype=torch.bfloat16)
+        assert out.data_ptr() % 16 == 0
 
 
 @pytest.mark.parametrize("m, ksub, dsub", [
@@ -53,8 +71,8 @@ def test_decode_body_reads_alignment_from_codes_cb_and_out():
     (1, 16, 16), (3, 1, 64), (192, 256, 8), (8, 256, 768)])
 def test_decode_plan_fits_the_kernel(m, ksub, dsub):
     """Tiles are a multiple of 16 rows (aligned code copies); a group's
-    codebook slice fits the L1 budget unless it is one subspace; the three
-    code stages fit in shared memory; an item stays near the aimed number
+    codebook slice fits the L1 budget unless it is one subspace; the
+    ring's code stages fit in shared memory; an item stays near the aimed number
     of output words unless 16 rows already pass it."""
     tile_rows, group = cuda_kernels._decode_plan(m, ksub, dsub)
     words = dsub // 8
@@ -197,6 +215,17 @@ def test_tile_walk_other_shapes_and_grids(rows, m, ksub, dsub, sms):
     want = pq_ops._decode_rows_plain(torch.from_numpy(codes), cb)
     assert np.array_equal(out.reshape(rows, m * dsub),
                           want.view(torch.int16).numpy().view(np.uint16))
+
+
+def test_model_constants_are_the_kernels():
+    """The walk's constants come from pq_decode.cu itself, and the host
+    side's ring sizes agree with them: two stages of 16 rows of codes at
+    the widest routed m fit in the kernel's shared memory."""
+    assert {"RTHREADS", "STAGES", "BLOCKS_PER_SM", "BATCH", "BAR_BYTES",
+            "SMEM_LIMIT"} <= set(_CU)
+    assert RTHREADS % 32 == 0 and STAGES >= 2 and BATCH >= 1
+    assert BAR_BYTES >= 8 * STAGES
+    assert BAR_BYTES + STAGES * 16 * cuda_kernels._DECODE_MAX_M <= SMEM_LIMIT
 
 
 def test_decode_routes_are_counted_beside_launches():

@@ -161,7 +161,7 @@ def k8(args, torch, cuk, card, where) -> None:
     calls = {"grid_stride": grid_stride,
              "route": lambda: cuk.pq_decode(codes, cb),
              "F.embedding": lambda: F.embedding(emb_idx, flat_cb)}
-    body = (cuk.decode_body(codes, cb, want)
+    body = (cuk.decode_body(codes, cb)
             if hasattr(cuk, "decode_body") else "grid_stride")
     iters = max(args.iters, 200)
     call, kern = {}, {}
@@ -203,7 +203,8 @@ def k8(args, torch, cuk, card, where) -> None:
     on = codes.device
     host = {"torch.cuda.current_stream": host_us(
                 lambda: torch.cuda.current_stream(on).cuda_stream),
-            "cuda_kernels._stream": host_us(lambda: cuk._stream(on)),
+            "K8's stream lookup": host_us(lambda: getattr(
+                cuk, "_raw_stream", cuk._stream)(on)),
             "torch.empty": host_us(lambda: torch.empty(
                 (rows, m * dsub), dtype=torch.bfloat16, device=on)),
             "route call": host_us(calls["route"]),

@@ -218,10 +218,16 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
 
 
-def _stream(device) -> int:
-    """The raw handle of ``device``'s current stream, by torch's own
-    lookup (building the ``torch.cuda.Stream`` object instead took ~8 us
-    a call on an H100's host)."""
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raw_stream(device) -> int:
+    """K8's launcher's stream lookup: the raw handle of ``device``'s
+    current stream by torch's private ``_cuda_getCurrentRawStream``, the
+    handle ``_stream`` reads without building a ``torch.cuda.Stream``
+    (4.6-5.7 us of K8's host time a call on an H100's host; the card
+    tests hold the two handles equal)."""
     index = device.index
     return torch._C._cuda_getCurrentRawStream(
         torch.cuda.current_device() if index is None else index)
@@ -515,19 +521,20 @@ def refine_dots(tile_idx, queries, db, m: int, scales=None):
 def _decode_route(dsub: int, aligned: bool, m: int) -> str:
     """The K8 body a launch takes, from its shape alone: "tile_ring" for
     codewords of 16 bytes or a multiple of them (dsub % 8 == 0) when the
-    codes, the codebook and the output are 16-byte aligned and m <=
-    ``_DECODE_MAX_M`` (two stages of 16 rows of codes fit in shared
-    memory); "grid_stride" otherwise."""
+    codes and the codebook are 16-byte aligned and m <= ``_DECODE_MAX_M``
+    (two stages of 16 rows of codes fit in shared memory); "grid_stride"
+    otherwise."""
     if aligned and dsub % 8 == 0 and m <= _DECODE_MAX_M:
         return "tile_ring"
     return "grid_stride"
 
 
-def decode_body(codes, cb, out) -> str:
-    """``_decode_route`` of a K8 launch from ``codes`` (rows, m) into
-    ``out`` with the codebook ``cb`` (m, ksub, dsub): all three must be
-    16-byte aligned."""
-    aligned = (codes.data_ptr() | cb.data_ptr() | out.data_ptr()) % 16 == 0
+def decode_body(codes, cb) -> str:
+    """``_decode_route`` of a K8 launch over ``codes`` (rows, m) with the
+    codebook ``cb`` (m, ksub, dsub): both must be 16-byte aligned. The
+    output needs no test: the wrapper allocates it with ``torch.empty``,
+    whose storage is aligned."""
+    aligned = (codes.data_ptr() | cb.data_ptr()) % 16 == 0
     return _decode_route(cb.shape[2], aligned, cb.shape[0])
 
 
@@ -546,8 +553,9 @@ def _decode_plan(m: int, ksub: int, dsub: int):
     return 16 * max(1, tiles), group
 
 
-def _decode_args(codes, cb, out):
-    """Check K8's operands; returns (out, rows, m, ksub, dsub)."""
+def _decode_args(codes, cb):
+    """Check K8's operands; returns (out, rows, m, ksub, dsub), ``out`` a
+    new (rows, m*dsub) bf16 tensor."""
     dev = codes.device
     if dev.type != "cuda":
         raise ValueError(f"pq_decode kernel needs CUDA tensors, got {dev}")
@@ -560,49 +568,45 @@ def _decode_args(codes, cb, out):
         raise ValueError(f"pq_decode: ksub {ksub} must be in [1, 256]")
     _check("codes", codes, torch.uint8, (rows, m), dev)
     _check("cb", cb, torch.bfloat16, (m, ksub, dsub), dev)
-    if out is None:
-        out = torch.empty((rows, m * dsub), dtype=torch.bfloat16, device=dev)
-    else:
-        _check("out", out, torch.bfloat16, (rows, m * dsub), dev)
+    out = torch.empty((rows, m * dsub), dtype=torch.bfloat16, device=dev)
     return out, rows, m, ksub, dsub
 
 
-def pq_decode(codes, cb, out=None):
+def pq_decode(codes, cb):
     """K8: (rows, m) uint8 codes, (m, ksub, dsub) bf16 codebook -> (rows,
-    m*dsub) bf16 rows (into ``out`` if given), row i's subspace c =
-    codeword codes[i, c] bit for bit. Any row count, any dsub, ksub <=
-    256; every code must be < ksub (pq_encode emits them so,
-    PqFlatIndex.adopt_codes checks). The body is
-    ``decode_body(codes, cb, out)``."""
-    out, rows, m, ksub, dsub = _decode_args(codes, cb, out)
+    m*dsub) bf16 rows, row i's subspace c = codeword codes[i, c] bit for
+    bit. Any row count, any dsub, ksub <= 256; every code must be < ksub
+    (pq_encode emits them so, PqFlatIndex.adopt_codes checks). The body
+    is ``decode_body(codes, cb)``."""
+    out, rows, m, ksub, dsub = _decode_args(codes, cb)
     if rows == 0 or m == 0:
         return out
     ptrs = (codes.data_ptr(), cb.data_ptr(), out.data_ptr())
-    body = decode_body(codes, cb, out)
+    body = decode_body(codes, cb)
     if body == "tile_ring":
         rc = _lib().vdb_pq_decode_tiles(*ptrs, rows, m, ksub, dsub,
                                         *_decode_plan(m, ksub, dsub),
-                                        _stream(codes.device))
+                                        _raw_stream(codes.device))
     else:
         rc = _lib().vdb_pq_decode(*ptrs, rows, m, ksub, dsub,
-                                  _stream(codes.device))
+                                  _raw_stream(codes.device))
     _raise_on(rc, f"pq_decode ({body})")
     launches["pq_decode"] += 1
     routes["pq_decode"][body] += 1
     return out
 
 
-def pq_decode_grid_stride(codes, cb, out=None):
+def pq_decode_grid_stride(codes, cb):
     """The grid_stride body of K8 through its C entry point at any shape,
     whatever ``_decode_route`` would pick: the other body for side-by-side
     readings (chip_smoke.py, tools/coarse_bodies.py, the card tests). No
     search path calls it, so it counts no launch."""
-    out, rows, m, ksub, dsub = _decode_args(codes, cb, out)
+    out, rows, m, ksub, dsub = _decode_args(codes, cb)
     if rows == 0 or m == 0:
         return out
     _raise_on(_lib().vdb_pq_decode(codes.data_ptr(), cb.data_ptr(),
                                    out.data_ptr(), rows, m, ksub, dsub,
-                                   _stream(codes.device)),
+                                   _raw_stream(codes.device)),
               "pq_decode (grid_stride)")
     return out
 
