@@ -68,12 +68,38 @@ nothing is caught and passed over):
   9. the two-phase exact scan (ops.flat_kernel.two_phase_search, K9) at
      2^20 x 768 f32, Q=1024, k=10, all three metrics, 10% dead rows,
      exact against an on-card f32 oracle; K9 against its plain version
-     (control: bf16 operands), timed beside an f32 torch.matmul.
+     (control: bf16 operands), timed beside an f32 torch.matmul;
+ 10. durability, in a temporary data directory (its filesystem type and
+     free bytes printed first; fewer than 8 GB free fails; removed at the
+     end): a child process of this script (``--writer``) opens
+     StorageEngine(dir, EngineConfig(index_type="flat", device="cuda")),
+     loads 2^20 x 768 seeded f32 rows through insert_batch (65536 a
+     batch, metadata on every 64th row), checkpoints, writes a WAL tail
+     (65536 rows in one insert_batch, 1024 deletes, 15 single inserts),
+     saves its exact and fast answers (Q=4096, k=10), logs one more
+     insert and ends with os._exit(0). This script cuts 3 bytes off the
+     WAL's last frame, reopens the directory and searches, timed by the
+     host clock (the split: snapshot apply, WAL replay, the device build
+     on its thread), and holds the reopened store to the child's: len,
+     next_id, the torn insert and the deleted ids absent, sampled
+     metadata, the stored values (sha256), exact and fast ids (but for
+     ties) and distances; exact against the on-card f32 oracle over the
+     stored values; K1 on "wgmma" and K2 on "tile_major"; the tier-1
+     certification rate beside phase 6's. Then a checkpoint, a close and
+     a second reopen that answers the same. bf16 and int8 stores go
+     through the same cycle at 2^17 rows, Q=1024 (K1 / K7 + K2). A
+     PQ-Flat store of 2^17 intrinsic-dim-32 rows is trained, searched,
+     checkpointed (pq_state.npz) and reopened: the codebook bit-equal, no
+     train, the same ids and distances, every K8 launch "tile_ring".
+     ``serve --durable-dir`` on 127.0.0.1:0 (a process): a batch insert of
+     4096 rows, POST /checkpoint, 64 inserts, a stop by SIGINT, and a
+     second server on the directory answers /search/batch the same.
 Launch counters are zeroed just before each path's run and read right
 after it: the store searches of phases 3 and 4 (K1, K2, K3); each
 storage store's searches (K4/K7 and K2 by source); each forced fallback
 (K5); the legacy fast runs (K6, K5); the PQ store's searches (K8); the
-two-phase searches (K9). Every kernel of a path must have launched in its
+two-phase searches (K9); each phase-10 reopen with its first searches (K1
+or K7, and K2; K8). Every kernel of a path must have launched in its
 window; the direct comparison calls are outside them. Every K1, K4 and K7
 launch in the windows of phase 3 and of phase 7's bf16, int8 and f32
 stores, every K3 launch of phases 3-4 (the 2^20-row store's tier 2, the
@@ -1357,11 +1383,534 @@ def k9_phase(rows, qs, rng, card, mods):
             "bound": b9, "library_ms": lib9}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: durability on the card
+# ---------------------------------------------------------------------------
+
+P10_SMALL = 1 << 17        # the bf16, int8 and PQ stores' rows (reduced)
+P10_TAIL = 65536           # WAL tail: one insert_batch of this many rows
+P10_DELETES = 1024
+P10_SINGLES = 15
+P10_META_EVERY = 64
+P10_MIN_FREE = 8 * 10 ** 9
+P10_HTTP_ROWS = 4096
+P10_HTTP_SINGLES = 64
+P10_SMALL_QUERIES = 1024
+
+
+def p10_config(kind):
+    """The engine's config for a phase-10 store ("f32", "bf16", "int8" or
+    "pq"); the checkpoint interval is above every count the phase writes,
+    so only its explicit checkpoints run."""
+    from vectordb_tpu_torch.persistence import EngineConfig
+    if kind == "pq":
+        return EngineConfig(index_type="pq", device="cuda",
+                            checkpoint_interval=10 ** 9)
+    return EngineConfig(index_type="flat", storage=kind, device="cuda",
+                        checkpoint_interval=10 ** 9)
+
+
+def stored_digest(store, np):
+    """sha256 of the internal ids and stored values (f32 bits) of the live
+    rows in internal-id order, read from the host rows chunk by chunk."""
+    import hashlib
+    index = store.index
+    with index._lock:
+        live = np.nonzero(index._valid)[0]
+        ids = index._id_of_slot[live]
+        order = live[np.argsort(ids, kind="stable")]
+        h = hashlib.sha256(np.sort(ids).tobytes())
+        for a in range(0, order.size, 1 << 16):
+            rows = index._stored(index._vectors[order[a:a + (1 << 16)]])
+            h.update(np.ascontiguousarray(rows, np.float32).tobytes())
+    return h.hexdigest()
+
+
+def writer_main(args) -> None:
+    """The phase-10 writer, a child process of this script on the card:
+    open a durable store, load seeded rows through ``insert_batch`` (65536
+    a batch, metadata on every 64th row), checkpoint, write a WAL tail (one
+    batch of P10_TAIL rows, P10_DELETES deletes, P10_SINGLES single
+    inserts), search exact and fast and save the answers into the
+    directory, write one more single insert and end with ``os._exit(0)``:
+    no close, no checkpoint."""
+    import numpy as np
+    from vectordb_tpu_torch import BatchInsertItem, Metadata, Vector
+    from vectordb_tpu_torch.persistence import StorageEngine
+    d, n, kind = args.writer, args.rows, args.storage
+    rng = np.random.default_rng([args.seed, 10, n])
+    torn = n + P10_TAIL + P10_SINGLES
+    rows = make_rows(rng, torn + 1, D, np)
+    out = {}
+    t0 = time.perf_counter()
+    eng = StorageEngine.open(d, p10_config(kind))
+    out["open_s"] = time.perf_counter() - t0
+
+    def items(lo, hi):
+        return [BatchInsertItem(
+            str(i), Vector(rows[i]),
+            Metadata({"m": str(i)}) if i % P10_META_EVERY == 0
+            else Metadata()) for i in range(lo, hi)]
+
+    t0 = time.perf_counter()
+    for r0 in range(0, n, 1 << 16):
+        eng.insert_batch(items(r0, min(r0 + (1 << 16), n)))
+    out["load_s"] = time.perf_counter() - t0
+    out["wal_bytes_loaded"] = os.path.getsize(os.path.join(d, "wal.log"))
+    t0 = time.perf_counter()
+    eng.checkpoint()
+    out["checkpoint_s"] = time.perf_counter() - t0
+    out["snapshot_bytes"] = os.path.getsize(os.path.join(d, "snapshot.bin"))
+    t0 = time.perf_counter()
+    eng.insert_batch(items(n, n + P10_TAIL))
+    dead = rng.choice(n, P10_DELETES, replace=False)
+    for i in dead:
+        eng.delete(str(int(i)))
+    for i in range(n + P10_TAIL, torn):
+        eng.insert(str(i), Vector(rows[i]))
+    out["tail_s"] = time.perf_counter() - t0
+    qs = rng.standard_normal((args.queries, D), dtype=np.float32)
+    np.save(os.path.join(d, "queries.npy"), qs)
+    batch = [(Vector(q), K) for q in qs]
+    t0 = time.perf_counter()
+    res = eng.search_batch(batch)
+    out["first_search_s"] = time.perf_counter() - t0
+    eng.store.index.search_mode = "fast"
+    res_fast = eng.search_batch(batch)
+    eng.store.index.search_mode = "exact"
+    for name, r in (("exact", res), ("fast", res_fast)):
+        ids, dists = store_ids(r, np)
+        np.save(os.path.join(d, f"{name}_ids.npy"), ids)
+        np.save(os.path.join(d, f"{name}_dists.npy"), dists)
+    out.update(len=len(eng), next_id=eng.store.next_internal_id,
+               dead=[int(i) for i in dead], torn=str(torn),
+               digest=stored_digest(eng.store, np))
+    with open(os.path.join(d, "expect.json"), "w") as f:
+        json.dump(out, f)
+    eng.insert(str(torn), Vector(rows[torn]))     # logged, then the crash
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def fs_info(path):
+    """(filesystem type from /proc/mounts, mount point) of ``path``."""
+    path = os.path.realpath(path)
+    best = ("?", "/")
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1].replace("\\040", " ")
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best[1]):
+                best = (parts[2], mnt)
+    return best
+
+
+def same_answers(name, ids, dists, want_ids, want_d, ora_d, ora_i, np):
+    """Ids equal ``want_ids`` except at the oracle's k-th / (k+1)-th ties
+    (or a swap of two tied ids); returns (ties, max |dists - want_d|)."""
+    tol = 2e-5 * np.abs(ora_d) + 2e-5
+    ties = 0
+    for qi in range(ids.shape[0]):
+        if np.array_equal(ids[qi], want_ids[qi]):
+            continue
+        boundary = ora_d[qi, K] - ora_d[qi, K - 1] <= tol[qi, K]
+        swap = set(ids[qi]) == set(want_ids[qi])
+        if not (boundary or swap):
+            fail(f"{name}: query {qi} ids {ids[qi].tolist()} != before "
+                 f"{want_ids[qi].tolist()}")
+        ties += 1
+    return ties, float(np.abs(dists - want_d).max())
+
+
+def crash_cycle(kind, n, nq, base, args, card, mods):
+    """Phase 10's write / crash / torn tail / reopen cycle of one flat
+    store (module docstring). Returns its numbers."""
+    np, torch, ck = mods["np"], mods["torch"], mods["ck"]
+    cuda_kernels, Vector = mods["cuda_kernels"], mods["Vector"]
+    from vectordb_tpu_torch.persistence import StorageEngine
+    d = os.path.join(base, kind)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--writer", d,
+         "--storage", kind, "--rows", str(n), "--queries", str(nq),
+         "--seed", str(args.seed)], capture_output=True, text=True,
+        timeout=900)
+    writer_s = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(
+            os.path.join(d, "expect.json")):
+        fail(f"phase 10 {kind} writer exited {proc.returncode}: "
+             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    with open(os.path.join(d, "expect.json")) as f:
+        want = json.load(f)
+    wal = os.path.join(d, "wal.log")
+    wal_bytes = os.path.getsize(wal)
+    os.truncate(wal, wal_bytes - 3)           # a torn last frame
+    qs = np.load(os.path.join(d, "queries.npy"))
+    batch = [(Vector(q), K) for q in qs]
+    coarse = ("coarse_minima_int8_1p_sup" if kind == "int8"
+              else "coarse_minima_1p_sup")
+    refine = {"f32": "refine_dots", "bf16": "refine_dots_bf16",
+              "int8": "refine_dots_int8"}[kind]
+
+    # the path's run: reopen, hydration and the first searches
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng = StorageEngine.open(d, p10_config(kind))
+    open_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = eng.search_batch(batch)
+    first_s = time.perf_counter() - t0
+    eng.store.index.search_mode = "fast"
+    res_fast = eng.search_batch(batch)
+    eng.store.index.search_mode = "exact"
+    counts = dict(cuda_kernels.launches)
+    bodies = check_wgmma(f"phase 10 {kind} reopen", coarse, cuda_kernels)
+    bodies.update(check_tile_major(f"phase 10 {kind} reopen", cuda_kernels))
+    if counts[coarse] < 1 or counts[refine] < 1:
+        fail(f"phase 10 {kind}: the reopened store's searches launched "
+             f"{coarse} {counts[coarse]}, {refine} {counts[refine]} times")
+    marks = dict(eng.recovery_marks)
+    if len(eng) != want["len"] or \
+            eng.store.next_internal_id != want["next_id"]:
+        fail(f"phase 10 {kind}: reopened len {len(eng)} next_id "
+             f"{eng.store.next_internal_id}, before the crash {want['len']} "
+             f"{want['next_id']}")
+    if eng.get(want["torn"]) is not None:
+        fail(f"phase 10 {kind}: the torn insert {want['torn']} is present")
+    if any(eng.get(str(i)) is not None for i in want["dead"]):
+        fail(f"phase 10 {kind}: a deleted id is present")
+    dead = set(want["dead"])
+    sample = [i for i in range(0, n, P10_META_EVERY) if i not in dead]
+    sample = sample[::max(1, len(sample) // 512)]
+    for i in sample:
+        meta = eng.get_metadata(str(i))
+        if meta is None or meta.fields() != {"m": str(i)}:
+            fail(f"phase 10 {kind}: metadata of {i} reads {meta}")
+    plain = next(i for i in range(1, P10_META_EVERY) if i not in dead)
+    if eng.get_metadata(str(plain)).fields():
+        fail(f"phase 10 {kind}: row {plain} has metadata")
+    digest = stored_digest(eng.store, np)
+    if digest != want["digest"]:
+        fail(f"phase 10 {kind}: the stored values differ from before the "
+             f"crash")
+    index = eng.store.index
+    with index._lock:
+        state = dict(index._sync_device())
+    queries = torch.from_numpy(qs).to("cuda")
+    vals = state["db"].float()
+    if kind == "int8":
+        vals = vals * state["scales"][:, None]
+    ora_d2, ora_i = oracle_sq(queries, vals, state["sq_norms"],
+                              state["valid"], K, torch)
+    del vals
+    # the oracle ranks slots: single inserts of the tail took the slots of
+    # deleted rows, so map slots to the rows' ids
+    with index._lock:
+        iid_of_slot = index._id_of_slot.copy()
+    sid = eng.store.internal_to_string_ids()
+    id_of_slot = np.array([int(sid[i]) if i >= 0 else -1
+                           for i in iid_of_slot.tolist()])
+    ora_i = id_of_slot[ora_i]
+    ora_d = np.sqrt(np.maximum(ora_d2, 0.0))
+    ids, dists = store_ids(res, np)
+    oties, oerr = check_exact(f"phase 10 {kind} reopen", ids, dists, ora_d2,
+                              ora_i, K, np)
+    ties, derr = same_answers(
+        f"phase 10 {kind} exact", ids, dists,
+        np.load(os.path.join(d, "exact_ids.npy")),
+        np.load(os.path.join(d, "exact_dists.npy")), ora_d, ora_i, np)
+    fids, fd = store_ids(res_fast, np)
+    fties, ferr = same_answers(
+        f"phase 10 {kind} fast", fids, fd,
+        np.load(os.path.join(d, "fast_ids.npy")),
+        np.load(os.path.join(d, "fast_dists.npy")), ora_d, ora_i, np)
+    rate = None
+    if kind == "f32":
+        rate = float(ck.coarse_search_1p(
+            queries, state["db"], state["sq_norms"], state["norms"],
+            state["valid"], state["hi"], state["elo_max"],
+            mods["DistanceMetric"].EUCLIDEAN, K)[2].float().mean())
+    del state, queries
+    # checkpoint the recovered state, close, and reopen a second time
+    t0 = time.perf_counter()
+    eng.checkpoint()
+    ckpt_s = time.perf_counter() - t0
+    eng.close()
+    del eng, index
+    free(torch)
+    t0 = time.perf_counter()
+    eng = StorageEngine.open(d, p10_config(kind))
+    open2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res2 = eng.search_batch(batch)
+    first2_s = time.perf_counter() - t0
+    ids2, dists2 = store_ids(res2, np)
+    if not (np.array_equal(ids2, ids) and np.array_equal(dists2, dists)):
+        fail(f"phase 10 {kind}: the second reopen answers differently "
+             f"(max dist diff {float(np.abs(dists2 - dists).max()):.3e})")
+    eng.close()
+    del eng, res, res_fast, res2
+    free(torch)
+    return {"kind": kind, "n": n, "nq": nq, "writer_s": writer_s,
+            "want": want, "wal_bytes": wal_bytes, "open_s": open_s,
+            "first_s": first_s, "marks": marks, "counts": counts,
+            "bodies": bodies, "coarse": coarse, "refine": refine,
+            "ties": ties, "oracle_ties": oties, "oracle_err": oerr,
+            "dist_diff": derr, "fast_ties": fties, "fast_diff": ferr,
+            "rate": rate, "checkpoint_s": ckpt_s, "open2_s": open2_s,
+            "first2_s": first2_s, "meta_checked": len(sample)}
+
+
+def pq_reopen(base, args, card, mods):
+    """Phase 10's PQ-Flat store: trained once, checkpointed, reopened
+    without training; the same codebook, answers and tile_ring K8."""
+    np, torch = mods["np"], mods["torch"]
+    cuda_kernels, Vector = mods["cuda_kernels"], mods["Vector"]
+    from vectordb_tpu_torch import BatchInsertItem
+    from vectordb_tpu_torch.index.pq import PqFlatIndex
+    from vectordb_tpu_torch.persistence import StorageEngine
+    d = os.path.join(base, "pq")
+    rng = np.random.default_rng([args.seed, 11])
+    n, nq = P10_SMALL, P10_SMALL_QUERIES
+    # benchmarks/pq_bench.py's intrinsic-dim-32 rows, as phase 8's
+    basis = (rng.standard_normal((32, D), dtype=np.float32)
+             / np.float32(np.sqrt(32)))
+    rows = rng.standard_normal((n, 32), dtype=np.float32) @ basis
+    qs = rng.standard_normal((nq, 32), dtype=np.float32) @ basis
+    batch = [(Vector(q), K) for q in qs]
+    eng = StorageEngine.open(d, p10_config("pq"))
+    t0 = time.perf_counter()
+    for r0 in range(0, n, 1 << 16):
+        eng.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                          for i in range(r0, min(r0 + (1 << 16), n))])
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.store.index.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    ids0, d0 = store_ids(eng.search_batch(batch), np)
+    cb0 = eng.store.index._codebook.copy()
+    t0 = time.perf_counter()
+    eng.checkpoint()
+    ckpt_s = time.perf_counter() - t0
+    eng.close()
+    del eng
+    free(torch)
+    if not os.path.exists(os.path.join(d, "pq_state.npz")):
+        fail("phase 10 pq: the checkpoint wrote no pq_state.npz")
+    trains = []
+    real_train = PqFlatIndex.train
+
+    def counted(self):
+        trains.append(1)
+        return real_train(self)
+
+    PqFlatIndex.train = counted
+    try:
+        # the path's run: reopen and the first search
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        eng = StorageEngine.open(d, p10_config("pq"))
+        open_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids, dists = store_ids(eng.search_batch(batch), np)
+        first_s = time.perf_counter() - t0
+    finally:
+        PqFlatIndex.train = real_train
+    k8 = cuda_kernels.launches["pq_decode"]
+    routes = dict(cuda_kernels.routes["pq_decode"])
+    if trains or not eng.store.index.is_trained:
+        fail(f"phase 10 pq: the reopen trained {len(trains)} times")
+    if not np.array_equal(eng.store.index._codebook.view(np.uint32),
+                          cb0.view(np.uint32)):
+        fail("phase 10 pq: the reopened codebook differs")
+    if k8 < 1 or routes["tile_ring"] != k8:
+        fail(f"phase 10 pq: K8 launches {k8}, by body {routes}: every one "
+             f"must take tile_ring")
+    if not (np.array_equal(ids, ids0) and np.array_equal(dists, d0)):
+        fail(f"phase 10 pq: the reopened store answers differently "
+             f"({int((ids != ids0).any(1).sum())} queries' ids, max dist "
+             f"diff {float(np.abs(dists - d0).max()):.3e})")
+    eng.close()
+    del eng
+    free(torch)
+    return {"n": n, "nq": nq, "load_s": load_s, "train_s": train_s,
+            "checkpoint_s": ckpt_s, "open_s": open_s, "first_s": first_s,
+            "k8": k8, "routes": routes}
+
+
+def durable_http(base, rows, np):
+    """Phase 10's durable HTTP server: ``serve --durable-dir`` (the CLI's
+    entry point to ``start_durable``) on 127.0.0.1:0 as its own process:
+    a batch insert, a checkpoint, single inserts, a batch search; a stop
+    by SIGINT; a second process on the same directory answers the same."""
+    import signal
+    d = os.path.join(base, "http")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    queries = {"queries": [{"vector": rows[P10_HTTP_ROWS + 100 + j].tolist(),
+                            "k": K} for j in range(16)]}
+
+    def start():
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "vectordb_tpu_torch", "serve",
+             "--durable-dir", d, "--addr", "127.0.0.1:0"], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        line = proc.stdout.readline()
+        if "listening on" not in line:
+            proc.kill()
+            fail(f"phase 10 http: the server did not start: {line}"
+                 f"{proc.stdout.read()[-2000:]}")
+        return proc, int(line.strip().rsplit(":", 1)[1])
+
+    def stop(proc):
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        return proc.returncode
+
+    t0 = time.perf_counter()
+    proc, port = start()
+    try:
+        st0, _ = http_call(port, "POST", "/vectors/batch", {"vectors": [
+            {"id": f"h{i}", "vector": rows[i].tolist()}
+            for i in range(P10_HTTP_ROWS)]})
+        st1, ck = http_call(port, "POST", "/checkpoint")
+        singles = [http_call(port, "POST", "/vectors", {
+            "id": f"h{i}", "vector": rows[i].tolist()})[0]
+            for i in range(P10_HTTP_ROWS, P10_HTTP_ROWS + P10_HTTP_SINGLES)]
+        st2, before = http_call(port, "POST", "/search/batch", queries)
+        st3, health = http_call(port, "GET", "/health")
+    finally:
+        rc0 = stop(proc)
+    proc, port = start()
+    try:
+        st4, after = http_call(port, "POST", "/search/batch", queries)
+        st5, health2 = http_call(port, "GET", "/health")
+    finally:
+        rc1 = stop(proc)
+    total_s = time.perf_counter() - t0
+    if (st0, st1, st2, st3, st4, st5) != (201, 200, 200, 200, 200, 200) \
+            or set(singles) != {201}:
+        fail(f"phase 10 http statuses {(st0, st1, st2, st3, st4, st5)}, "
+             f"singles {set(singles)}")
+    n_rows = P10_HTTP_ROWS + P10_HTTP_SINGLES
+    if ck["vector_count"] != P10_HTTP_ROWS or \
+            health["vector_count"] != n_rows or \
+            health2["vector_count"] != n_rows:
+        fail(f"phase 10 http counts: checkpoint {ck}, health {health}, "
+             f"after the reopen {health2}")
+    ids = [[h["id"] for h in row] for row in before]
+    if [[h["id"] for h in row] for row in after] != ids:
+        fail("phase 10 http: /search/batch ids differ after the reopen")
+    d0 = np.array([[h["distance"] for h in row] for row in before])
+    d1 = np.array([[h["distance"] for h in row] for row in after])
+    if not np.allclose(d1, d0, rtol=2e-5, atol=2e-5):
+        fail(f"phase 10 http: distances moved by up to "
+             f"{float(np.abs(d1 - d0).max()):.3e} after the reopen")
+    return {"total_s": total_s, "rcs": (rc0, rc1), "rows": n_rows,
+            "dist_diff": float(np.abs(d1 - d0).max())}
+
+
+def say_cycle(r, card, fs, rate3):
+    """Phase 10's lines for one crash cycle (crash_cycle's numbers)."""
+    m, w = r["marks"], r["want"]
+    say(f"phase 10 {r['kind']} store N={r['n']} x {D} (+{P10_TAIL} "
+        f"WAL-tail rows, {P10_DELETES} deletes, {P10_SINGLES} single "
+        f"inserts; metadata on every {P10_META_EVERY}th row) Q={r['nq']} "
+        f"k={K} [{card}; {fs}]: writer process {r['writer_s']:.3f} s "
+        f"(load through the WAL {w['load_s']:.3f} s, "
+        f"{w['wal_bytes_loaded']} WAL bytes; checkpoint "
+        f"{w['checkpoint_s']:.3f} s, {w['snapshot_bytes']} snapshot "
+        f"bytes; tail {w['tail_s']:.3f} s; first search "
+        f"{w['first_search_s']:.3f} s); torn tail: 3 bytes cut off "
+        f"{r['wal_bytes']} WAL bytes; reopen {r['open_s']:.3f} s "
+        f"(snapshot apply {m['snapshot applied']:.3f} s, WAL replay "
+        f"{m['wal replayed'] - m['snapshot applied']:.3f} s, hydration "
+        f"build {m.get('hydration build', 0.0):.3f} s on its thread, "
+        f"joined {m['hydration joined'] - m['wal replayed']:.3f} s after "
+        f"the replay); first search {r['first_s']:.3f} s; time to "
+        f"recover {r['open_s'] + r['first_s']:.3f} s")
+    say(f"phase 10 {r['kind']} checks: len {w['len']} and next_id "
+        f"{w['next_id']} as before the crash; the torn insert and the "
+        f"{P10_DELETES} deleted ids absent; {r['meta_checked']} sampled "
+        f"metadata read back; stored values bit-equal (sha256 "
+        f"{w['digest'][:16]}); exact ids as before ({r['ties']} ties), "
+        f"max |dist - before| {r['dist_diff']:.3e}; fast ids as before "
+        f"({r['fast_ties']} ties), max |dist - before| "
+        f"{r['fast_diff']:.3e}; exact against the on-card f32 oracle "
+        f"over the stored values ({r['oracle_ties']} ties, max err "
+        f"{r['oracle_err']:.3e}); launch counts (reopen + searches) "
+        f"{r['coarse']} {r['counts'][r['coarse']]}, {r['refine']} "
+        f"{r['counts'][r['refine']]}, by body {r['bodies']}"
+        + (f"; tier-1 certification rate {r['rate']:.6f} (phase 6: "
+           f"{rate3:.6f})" if r["rate"] is not None else "")
+        + f"; after a checkpoint ({r['checkpoint_s']:.3f} s) and close, "
+        f"a second reopen {r['open2_s']:.3f} s + first search "
+        f"{r['first2_s']:.3f} s answers the same")
+
+
+def durability_phase(args, rows, card, mods, rate3):
+    """Phase 10 (module docstring). Returns the launch counts of its
+    windows by kernel key."""
+    import shutil
+    import tempfile
+    base = tempfile.mkdtemp(prefix="vdb_phase10_")
+    fs, mnt = fs_info(base)
+    free_b = shutil.disk_usage(base).free
+    say(f"phase 10 data directory {base}: filesystem {fs} (mounted at "
+        f"{mnt}), {free_b} bytes free")
+    try:
+        if free_b < P10_MIN_FREE:
+            fail(f"phase 10 needs {P10_MIN_FREE} free bytes for its data "
+                 f"directory; {base} has {free_b}")
+        cycles = []
+        for kind in ("f32", "bf16", "int8"):
+            n, nq = ((args.rows, args.queries) if kind == "f32"
+                     else (P10_SMALL, P10_SMALL_QUERIES))
+            cycles.append(crash_cycle(kind, n, nq, base, args, card, mods))
+            say_cycle(cycles[-1], card, fs, rate3)
+        pq = pq_reopen(base, args, card, mods)
+        say(f"phase 10 pq store N={pq['n']} x {D} intrinsic-dim-32 rows "
+            f"(reduced from phase 8's 2^20) Q={pq['nq']} k={K} [{card}; "
+            f"{fs}]: load {pq['load_s']:.3f} s, train {pq['train_s']:.3f} "
+            f"s, checkpoint {pq['checkpoint_s']:.3f} s (pq_state.npz); "
+            f"reopen {pq['open_s']:.3f} s with no train, codebook "
+            f"bit-equal; first search {pq['first_s']:.3f} s, ids and "
+            f"distances as before; K8 launches {pq['k8']} by body "
+            f"{pq['routes']}")
+        http = durable_http(base, rows, mods["np"])
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    say(f"phase 10 http: serve --durable-dir on 127.0.0.1:0, POST "
+        f"/vectors/batch {P10_HTTP_ROWS} rows, POST /checkpoint, "
+        f"{P10_HTTP_SINGLES} POST /vectors, stop (exit {http['rcs'][0]}), "
+        f"a second server on the directory: /health {http['rows']}, the "
+        f"same /search/batch ids, max |dist - before| "
+        f"{http['dist_diff']:.3e} (exit {http['rcs'][1]}); "
+        f"{http['total_s']:.3f} s")
+    counts: dict = {}
+    for r in cycles:
+        for key in (r["coarse"], r["refine"]):
+            counts[key] = counts.get(key, 0) + r["counts"][key]
+    counts["pq_decode"] = pq["k8"]
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
     ap.add_argument("--queries", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=0)
+    # phase 10's writer process (this script, run by itself on the card)
+    ap.add_argument("--writer", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--storage", default="f32", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     try:
@@ -1383,6 +1932,8 @@ def main() -> None:
     except ImportError as e:
         fail(f"the vectordb_tpu_torch package is not beside this script "
              f"({e})")
+    if args.writer:
+        writer_main(args)
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1724,6 +2275,8 @@ def main() -> None:
     k8 = pq_phase(args, rng, card, mods)
     # -- phase 9: the two-phase exact scan (K9) ---------------------------
     k9 = k9_phase(rows, qs, rng, card, mods)
+    # -- phase 10: durability on the card ---------------------------------
+    p10 = durability_phase(args, rows, card, mods, rate)
     table += [
         kernel_row("K8 pq_decode", "pq_decode.cu", 286, k8["launches"],
                    worst["pq_decode"], k8["ms"], k8["plain_ms"], k8["bound"],
@@ -1733,6 +2286,12 @@ def main() -> None:
                    max(worst["scan_min"], k9["err"]), k9["ms"],
                    k9["plain_ms"], k9["bound"], k9["library_ms"],
                    src="vectordb_tpu/ops/flat_kernel.py")]
+    # phase 10's windows (the durable stores' reopens and searches), by
+    # the launch key each row's name carries
+    for row in table:
+        key = row["name"].split()[1]
+        if key in p10:
+            row["recovery_launches"] = p10[key]
     if min(r["launches"] for r in table) < 1:
         fail(f"a kernel never launched on its path: "
              f"{[(r['name'], r['launches']) for r in table]}")

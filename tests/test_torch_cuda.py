@@ -770,3 +770,60 @@ def test_two_phase_on_card_matches_cpu(dev, metric):
         out.append((d_.cpu().numpy(), i_.cpu().numpy()))
     np.testing.assert_array_equal(out[0][1], out[1][1])
     np.testing.assert_allclose(out[0][0], out[1][0], rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("when", ["during_build", "after_install"])
+def test_search_while_prehydrate_runs(dev, when, monkeypatch):
+    """The recovery overlap on the card: ``prehydrate`` builds the device
+    state on a side thread and its own stream. A search issued while the
+    build runs (it builds its own state under the lock) and one issued
+    right after the side thread installed its state, on another stream,
+    while the build's last kernels are still queued behind a sleep (it
+    waits on the build's event), both return the oracle's ids."""
+    import threading
+    import time
+
+    from vectordb_tpu_torch.index.flat import FlatIndex
+    rng = np.random.default_rng(30)
+    n, d = 65536, 128
+    rows = rng.standard_normal((n, d), dtype=np.float32)
+    qs = rng.standard_normal((64, d), dtype=np.float32)
+    ix = FlatIndex(DistanceMetric.EUCLIDEAN, device="cuda")
+    ix.bulk_append_matrix(np.arange(n, dtype=np.int64), rows)
+    real = FlatIndex._build_device_full
+    started = threading.Event()
+
+    def slow_build(self):
+        started.set()
+        if when == "during_build":
+            time.sleep(1.0)
+            return real(self)
+        # the state's last writes queued on the side stream behind ~0.3 s
+        # of sleep: installed before the card has written them
+        dev = real(self)
+        torch.cuda._sleep(int(5e8))
+        return {k: v.clone() if isinstance(v, torch.Tensor) else v
+                for k, v in dev.items()}
+
+    monkeypatch.setattr(FlatIndex, "_build_device_full", slow_build)
+    side = torch.cuda.Stream()
+
+    def hydrate():
+        with torch.cuda.stream(side):
+            ix.prehydrate()
+
+    t = threading.Thread(target=hydrate)
+    t.start()
+    started.wait(30)
+    if when == "after_install":
+        t.join()
+        assert ix._device is not None and ix._device_ready is not None
+    main = torch.cuda.Stream()
+    with torch.cuda.stream(main):
+        got = ix.search_batch(qs, 10)
+    t.join()
+    monkeypatch.setattr(FlatIndex, "_build_device_full", real)
+    d2 = ((qs.astype(np.float64)[:, None, :] - rows[None, :, :]) ** 2).sum(-1)
+    want = np.argsort(d2, axis=1)[:, :10]
+    assert [[i for i, _ in r] for r in got] == want.tolist()
+    assert ix._device_ready is None

@@ -27,6 +27,17 @@ import vectordb_tpu_torch.cli, vectordb_tpu_torch.convert
 import vectordb_tpu_torch.server, vectordb_tpu_torch.ops.cuda_kernels
 import vectordb_tpu_torch.index.pq, vectordb_tpu_torch.ops.pq
 import vectordb_tpu_torch.ops.flat_kernel
+import vectordb_tpu_torch.persistence
+from vectordb_tpu_torch.server.app import start_durable
+import tempfile
+from vectordb_tpu_torch import Vector
+from vectordb_tpu_torch.persistence import EngineConfig, StorageEngine
+with tempfile.TemporaryDirectory() as d:
+    with StorageEngine.open(d, EngineConfig(device="cpu")) as eng:
+        eng.insert("a", Vector([1.0, 2.0]))
+        eng.checkpoint()
+    with StorageEngine.open(d, EngineConfig(device="cpu")) as eng:
+        assert eng.search(Vector([1.0, 2.0]), 1)[0].id == "a"
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'vectordb_tpu'))
 print(repr(bad))
@@ -87,3 +98,51 @@ def test_cuda_device_without_card_raises():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         VectorStore.with_flat_index(DistanceMetric.EUCLIDEAN)
+
+
+def _tree(path):
+    return sorted((p.relative_to(path).as_posix(), p.stat().st_size,
+                   p.stat().st_mtime_ns) for p in path.rglob("*"))
+
+
+def test_native_build_writes_only_the_ports_build_dir(tmp_path,
+                                                      monkeypatch):
+    """The persistence core builds from the JAX package's sources by path
+    into the port's build directory, and writes nothing beside its
+    sources (the JAX loader's make target writes there). The build runs
+    on a copy of the sources, so JAX builds in other test processes
+    cannot race the check."""
+    import shutil
+    from vectordb_tpu_torch.persistence import native_lib
+    assert native_lib.BUILD_DIR == PKG / "_build"
+    assert native_lib.NATIVE_SRC == ROOT / "vectordb_tpu" / "persistence" \
+        / "native"
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in native_lib.SOURCES:
+        shutil.copy(native_lib.NATIVE_SRC / name, src / name)
+    before = _tree(src)
+    monkeypatch.setattr(native_lib, "NATIVE_SRC", src)
+    monkeypatch.setattr(native_lib, "BUILD_DIR", tmp_path / "_build")
+    so = native_lib._build()
+    assert so.parent == tmp_path / "_build" and so.exists()
+    assert [p.name for p in (tmp_path / "_build").iterdir()] == [so.name]
+    assert _tree(src) == before
+
+
+def test_native_build_failure_raises_with_the_log(tmp_path, monkeypatch):
+    """A failed compile raises with the compiler's log; the Python
+    backend is never taken in its place."""
+    from vectordb_tpu_torch.persistence import native_lib
+    for name in native_lib.SOURCES:
+        (tmp_path / name).write_text("int broken( {\n")
+    monkeypatch.setattr(native_lib, "NATIVE_SRC", tmp_path)
+    monkeypatch.setattr(native_lib, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(native_lib, "_lib", None)
+    monkeypatch.delenv("VDB_TPU_NO_NATIVE", raising=False)
+    with pytest.raises(RuntimeError, match="build failed") as err:
+        native_lib.get_native()
+    assert "walcore.cpp" in str(err.value)
+    assert not list((tmp_path / "_build").iterdir())
+    monkeypatch.setenv("VDB_TPU_NO_NATIVE", "1")
+    assert native_lib.get_native() is None

@@ -604,17 +604,41 @@ def test_calibrate_refine_meets_target():
 def test_unported_options_raise():
     with pytest.raises(IndexOpError, match="item 13"):
         PqFlatIndex(_tm("euclidean"), mesh=object(), device="cpu")
-    with pytest.raises(IndexOpError, match="item 7"):
-        PqFlatIndex(_tm("euclidean"), host_backing="/nonexistent",
-                    device="cpu")
-    idx = PqFlatIndex(_tm("euclidean"), device="cpu")
-    for fn in (idx.bulk_load_stream, idx.bulk_attach_memmap):
-        with pytest.raises(IndexOpError, match="not ported"):
-            fn()
     # the JAX scan's recall target and mesh axis have no meaning here
     for kw in ({"scan_recall": 0.9}, {"row_axis": "shard"}):
         with pytest.raises(TypeError):
             PqFlatIndex(_tm("euclidean"), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("loader", ["stream", "attach"])
+def test_bulk_loaders_match_jax(loader, tmp_path):
+    """bulk_load_stream and bulk_attach_memmap (host_backing) load the
+    rows the JAX index loads; with its trained state carried across, the
+    port re-encodes them to its codes and answers the same."""
+    rng = np.random.default_rng(21)
+    db = _clustered(rng, 2048, 32, scale=0.3)
+    j = JPq(_jm("euclidean"), m=8, ksub=32, refine=32)
+    j.bulk_load_stream(2048, 32, iter([db[:1000], db[1000:]]))
+    j.train()
+    if loader == "stream":
+        t = PqFlatIndex(_tm("euclidean"), m=8, ksub=32, refine=32,
+                        device="cpu")
+        t.bulk_load_stream(2048, 32, iter([db[:700], db[700:]]))
+    else:
+        src = JPq(_jm("euclidean"), m=8, ksub=32,
+                  host_backing=str(tmp_path / "jax"))
+        src.bulk_load_stream(2048, 32, iter([db]))
+        src._vectors.flush()
+        t = PqFlatIndex(_tm("euclidean"), m=8, ksub=32, refine=32,
+                        device="cpu", host_backing=str(tmp_path / "port"))
+        t.bulk_attach_memmap(src._vectors_path, 2048, 32)
+        assert t._rerank_venue() == "host"
+    t.import_trained_state(j.export_trained_state())
+    q = np.ascontiguousarray(db[:16] + 0.01)
+    want = j.search_batch(q, 5)
+    t.search_batch(q, 5)                       # sync: encode every row
+    np.testing.assert_array_equal(t._codes[:2048], np.asarray(j._codes)[:2048])
+    _same_results(want, t.search_batch(q, 5))
 
 
 def test_adopt_codes_rejects_codes_past_ksub():

@@ -351,9 +351,30 @@ def test_cli_storage_insert_then_search(storage, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--data-dir", "d", "list"], ["--index", "hnsw", "list"],
-    ["--index", "ivf", "list"], ["serve", "--durable-dir", "d"],
+    ["--index", "hnsw", "list"], ["--index", "ivf", "list"],
     ["serve", "--http", "native"], ["serve", "--batch-window-ms", "2"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert cli.main(["--device", "cpu", *argv]) == 1
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("verb", ["list", "serve"])
+def test_cli_runs_data_dir_and_durable_dir(verb, tmp_path, monkeypatch,
+                                           capsys):
+    """Once refused: ``--data-dir`` runs the verbs against a durable store
+    and ``serve --durable-dir`` serves one (start_durable, stubbed here;
+    tests/test_torch_durable.py drives it over a socket)."""
+    d = str(tmp_path / "db")
+    if verb == "list":
+        assert cli.main(["--device", "cpu", "--data-dir", d, "insert", "a",
+                         "--vector", "1,2"]) == 0
+        assert cli.main(["--device", "cpu", "--data-dir", d, "list"]) == 0
+        assert "  - a" in capsys.readouterr().out
+        return
+    from vectordb_tpu_torch.server import app
+    seen = []
+    monkeypatch.setattr(app, "start_durable",
+                        lambda addr, data_dir, config, **kw: seen.append(
+                            (data_dir, config.device)))
+    assert cli.main(["--device", "cpu", "serve", "--durable-dir", d]) == 0
+    assert seen == [(d, "cpu")]

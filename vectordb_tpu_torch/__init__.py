@@ -10,8 +10,10 @@ Ported so far: the exact flat-search slice — ``VectorStore`` over a
 ``FlatIndex`` (f32, bf16 or int8 storage) with the certified coarse
 ladder (kernels K1-K7), metadata filters, radius search, the stdlib HTTP
 server and the CLI; ``PqFlatIndex`` (PQ codes, decode kernel K8, exact
-re-rank); and the first-generation two-phase scan
-(``ops.flat_kernel``, kernel K9).
+re-rank); the first-generation two-phase scan
+(``ops.flat_kernel``, kernel K9); and the durability layer
+(``persistence``: WAL, snapshots and recovery in the JAX package's file
+formats, the CLI's ``--data-dir`` and ``serve --durable-dir``).
 """
 
 from .distance import (DistanceMetric, cosine_distance, dot_product,  # noqa: F401

@@ -12,11 +12,14 @@ src/main.rs:10-198):
   * ``--index pq`` serves a PQ-Flat store (PqFlatIndex: codes on the
     device, exact re-rank); it owns its device representation, so
     ``--storage`` other than f32 is refused, as the JAX package does
+  * ``--data-dir DIR`` runs insert, search, list and delete against a
+    durable store there (persistence.StorageEngine: WAL + snapshots, the
+    JAX package's files); ``serve --durable-dir DIR`` serves one over
+    HTTP. ``serve`` with ``--data-dir`` is rejected, as in the reference
 
 Refused with a clear error until their slices land (ROADMAP queue 1):
-``--data-dir`` and ``serve --durable-dir`` (persistence), ``--index``
-hnsw, ivf and ivfpq, ``--http native`` and ``--batch-window-ms`` (native
-HTTP + batcher).
+``--index`` hnsw, ivf and ivfpq, ``--http native`` and
+``--batch-window-ms`` (native HTTP + batcher).
 """
 
 from __future__ import annotations
@@ -42,8 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Index type to use for search (flat and pq "
                              "are ported so far)")
     parser.add_argument("--data-dir", default=None,
-                        help="Data directory for persistence (not ported "
-                             "yet)")
+                        help="Data directory for persistence (if not "
+                             "specified, uses in-memory storage)")
     parser.add_argument("--metric",
                         choices=[m.value for m in DistanceMetric],
                         default="euclidean", help="Distance metric")
@@ -91,8 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
     p_serve.add_argument("--addr", default="0.0.0.0:3000",
                          help="Address to bind to")
     p_serve.add_argument("--durable-dir", default=None,
-                         help="WAL-backed persistent serving (not ported "
-                              "yet)")
+                         help="Serve a WAL-backed persistent store from this "
+                              "directory (every write durable before its "
+                              "response; POST /checkpoint compacts)")
     p_serve.add_argument("--batch-window-ms", type=float, default=0.0,
                          help="Query batcher window (not ported yet; 0 = "
                               "disabled)")
@@ -140,8 +144,6 @@ def _run_commands(db, args) -> int:
 
 def _refusal(args) -> Optional[str]:
     """Why this command line needs a slice that is not ported yet."""
-    if args.data_dir:
-        return "--data-dir needs the persistence slice (ROADMAP queue 1 item 7)"
     if args.index not in ("flat", "pq"):
         return (f"--index {args.index} is not ported yet (ROADMAP queue 1); "
                 "use --index flat or pq")
@@ -149,15 +151,19 @@ def _refusal(args) -> Optional[str]:
         return (f"--index {args.index} owns its device representation "
                 "(codes); --storage does not compose with it.")
     if args.command == "serve":
-        if args.durable_dir:
-            return ("serve --durable-dir needs the persistence slice "
-                    "(ROADMAP queue 1 item 7)")
         if args.http == "native":
             return "--http native is not ported yet (ROADMAP queue 1 item 8)"
         if args.batch_window_ms > 0:
             return ("--batch-window-ms needs the query batcher (ROADMAP "
                     "queue 1 item 8)")
     return None
+
+
+def _engine_config(args, metric: DistanceMetric):
+    from .persistence import EngineConfig
+    return EngineConfig(checkpoint_interval=1000, metric=metric,
+                        index_type=args.index, search_mode=args.search_mode,
+                        storage=args.storage, device=args.device)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -169,6 +175,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     metric = DistanceMetric.from_name(args.metric)
     try:
         if args.command == "serve":
+            if args.data_dir:
+                # reference main.rs:100-102 (durable serving is the
+                # explicit opt-in `serve --durable-dir` extension instead)
+                print("Error: Serve command is not supported with --data-dir "
+                      "(persistent storage). Use in-memory mode, or "
+                      "`serve --durable-dir DIR` for a WAL-backed server.",
+                      file=sys.stderr)
+                return 1
+            if args.durable_dir:
+                from .server.app import start_durable
+                start_durable(args.addr, args.durable_dir,
+                              _engine_config(args, metric),
+                              batch_window_ms=args.batch_window_ms,
+                              backend=args.http)
+                return 0
             if args.index == "pq":
                 from .index.pq import PqFlatIndex
                 from .server.app import AppState, serve
@@ -182,6 +203,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             start_flat(args.addr, metric, search_mode=args.search_mode,
                        device=args.device, storage=args.storage)
             return 0
+        if args.data_dir:
+            from .persistence import StorageEngine
+            with StorageEngine.open(args.data_dir,
+                                    _engine_config(args, metric)) as engine:
+                return _run_commands(engine, args)
         if args.index == "pq":
             from .index.pq import PqFlatIndex
             store = VectorStore.with_index(PqFlatIndex(metric,

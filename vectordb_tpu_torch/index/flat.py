@@ -24,15 +24,25 @@ storage modes. Capability parity with reference src/flat_index.rs:12-74
     an in-flight search scatters into a copy (the search's fallback tier
     reads its snapshot later, on the host's schedule);
   * ``search_masked`` applies a precompiled metadata mask *before* top-k,
-    making filtered search exact.
+    making filtered search exact;
+  * ``host_backing``: the packed host rows live in a disk-backed
+    ``np.memmap`` in that directory instead of RAM;
+  * the storage engine's recovery hooks: ``reserve``,
+    ``bulk_append_matrix`` (``quantized=True`` takes snapshot rows as
+    stored values, with no second rounding), the bulk loaders
+    (``bulk_load_matrix``, ``bulk_load_stream``, ``bulk_attach_memmap``)
+    and ``prehydrate``, which builds the device state on a side thread
+    while the WAL tail replays. The first search waits on the CUDA event
+    the build recorded, so its launches never read a half-copied state.
 
-Not in this slice: mesh sharding, ``host_backing`` and progressive
-hydration (ROADMAP queue 1).
+Not in this slice: mesh sharding and its progressive hydration (ROADMAP
+queue 1 item 13).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import threading
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -193,7 +203,8 @@ class FlatIndex(Index):
     """Exact k-NN via the certified device flat scan."""
 
     def __init__(self, metric: DistanceMetric, search_mode: str = "exact",
-                 storage: str = "f32", device="cuda"):
+                 storage: str = "f32", device="cuda",
+                 host_backing: Optional[str] = None):
         if search_mode not in ("exact", "fast"):
             raise ValueError(f"unknown search_mode: {search_mode!r}")
         if storage not in _STORAGES:
@@ -210,6 +221,12 @@ class FlatIndex(Index):
         self._host_dtype = np.dtype(np.uint16 if storage == "bf16"
                                     else np.float32)
         self._device_t = prepare_device(device)
+        # host_backing: a directory; the packed row matrix lives in a
+        # disk-backed np.memmap there instead of RAM (the OS page cache
+        # keeps the hot set); device-side limits are unchanged
+        self._host_backing = host_backing
+        self._vectors_path: Optional[str] = None
+        self._backing_uid: Optional[str] = None
         self._metric = metric
         self._dim: Optional[int] = None
         self._capacity = 0
@@ -230,6 +247,15 @@ class FlatIndex(Index):
         # device state + dirty tracking
         self._device: Optional[dict] = None
         self._dirty_slots: set[int] = set()
+        # True while an UNLOCKED device build is reading the host arrays
+        # (prehydrate): mutations in that window are tracked although no
+        # device state is installed yet, so the first locked sync
+        # re-scatters them. When False and no device state exists,
+        # mutations skip dirty bookkeeping (the next sync builds in full).
+        self._build_inflight = False
+        # the CUDA event a side-thread build recorded after its last
+        # launch; the first sync after installing it waits on it
+        self._device_ready = None
         self._lock = threading.RLock()
         # readers that copied the device dict and released the lock; while
         # any are in flight, syncs scatter into copies (see _sync_device)
@@ -282,13 +308,17 @@ class FlatIndex(Index):
         if self._capacity >= needed:
             return
         new_cap = next_pow2(needed, floor=_MIN_CAPACITY)
-        new_vectors = np.zeros((new_cap, self._dim), dtype=self._host_dtype)
+        old_path = self._vectors_path
+        new_vectors = self._alloc_rows(new_cap, self._dim)
         new_valid = np.zeros(new_cap, dtype=bool)
         new_sq = np.zeros(new_cap, dtype=np.float32)
         new_norms = np.zeros(new_cap, dtype=np.float32)
         new_ids = np.full(new_cap, -1, dtype=np.int64)
         if self._capacity:
-            new_vectors[: self._capacity] = self._vectors
+            # chunked: bounds dirty page-cache pressure under host_backing
+            for lo in range(0, self._capacity, _QUANT_CHUNK):
+                hi = min(lo + _QUANT_CHUNK, self._capacity)
+                new_vectors[lo:hi] = self._vectors[lo:hi]
             new_valid[: self._capacity] = self._valid
             new_sq[: self._capacity] = self._sq_norms
             new_norms[: self._capacity] = self._norms
@@ -299,6 +329,31 @@ class FlatIndex(Index):
         self._capacity = new_cap
         self._device = None  # full re-upload on next search
         self._dirty_slots.clear()
+        if old_path is not None and old_path != self._vectors_path:
+            try:
+                os.remove(old_path)
+            except OSError:
+                pass
+
+    def _alloc_rows(self, rows: int, dim: int) -> np.ndarray:
+        """Packed row matrix: RAM by default; a zero-initialized
+        disk-backed memmap under ``host_backing``. The file name carries a
+        per-instance token, so two indexes sharing a backing directory
+        never truncate each other's row file; files of crashed processes
+        are not reaped (the directory may be shared)."""
+        if self._host_backing is None:
+            return np.zeros((rows, dim), dtype=self._host_dtype)
+        if self._backing_uid is None:
+            import uuid
+            self._backing_uid = f"{os.getpid()}_{uuid.uuid4().hex[:8]}"
+        os.makedirs(self._host_backing, exist_ok=True)
+        ext = "f32" if self._host_dtype == np.float32 else "bf16"
+        path = os.path.join(self._host_backing,
+                            f"rows_{self._backing_uid}_{rows}x{dim}.{ext}")
+        mm = np.memmap(path, dtype=self._host_dtype, mode="w+",
+                       shape=(rows, dim))
+        self._vectors_path = path
+        return mm
 
     def _take_slot(self) -> int:
         if not self._free_slots:
@@ -368,14 +423,18 @@ class FlatIndex(Index):
         if error is not None:
             raise error
 
-    def _append_matrix_locked(self, ids: np.ndarray, mat: np.ndarray) -> None:
+    def _append_matrix_locked(self, ids: np.ndarray, mat: np.ndarray,
+                              quantized: bool = False) -> None:
         """Append a validated (n, d) f32 matrix of fresh distinct ids
-        (lock held, storage pre-sized)."""
+        (lock held, storage pre-sized). ``quantized``: the rows already
+        hold this index's stored values (snapshot replay), so the
+        idempotent re-quantize is skipped."""
         n = len(ids)
         slots = np.fromiter((self._take_slot() for _ in range(n)),
                             dtype=np.int64, count=n)
         try:
-            mat = self._quantize(mat)   # norms below see the stored values
+            if not quantized:
+                mat = self._quantize(mat)   # norms below see stored values
             self._vectors[slots] = self._host_rows(mat)
             sq = np.einsum("ij,ij->i", mat, mat).astype(np.float32)
             self._sq_norms[slots] = sq
@@ -388,7 +447,7 @@ class FlatIndex(Index):
         finally:
             # even on a partial failure, every possibly-touched slot is
             # recorded (stale-dirty is safe; missed-dirty is not)
-            if self._device is not None:
+            if self._device is not None or self._build_inflight:
                 self._dirty_slots.update(slots.tolist())
             self._note_appended(slots)
 
@@ -449,6 +508,174 @@ class FlatIndex(Index):
             self._device = None
             self._dirty_slots.clear()
 
+    def reserve(self, n_rows: int, dim: Optional[int] = None) -> None:
+        """Pre-size packed storage for ``n_rows`` live rows: recovery calls
+        it with the snapshot's row count before the chunked apply, which
+        would otherwise grow by ~log2(n/chunk) pow2 doublings, each copying
+        the whole packed array. No-op if the capacity already suffices or
+        the dimension is still unknown."""
+        with self._lock:
+            d = dim if dim is not None else self._dim
+            if d is None:
+                return
+            if self._dim is not None and d != self._dim:
+                raise DimensionMismatchError(self._dim, d)
+            if n_rows <= self._capacity:
+                return
+            self._ensure_storage(int(d), int(n_rows))
+
+    def bulk_append_matrix(self, ids: np.ndarray, mat: np.ndarray,
+                           quantized: bool = False) -> None:
+        """Vectorized append of fresh distinct int64 ids from a validated
+        (n, d) f32 matrix into a possibly non-empty index, with no per-row
+        Python objects (the recovery path). ``quantized``: ONLY for rows
+        that hold this index's stored values already (snapshot replay);
+        raw rows must quantize."""
+        with self._lock:
+            mat = np.ascontiguousarray(mat, dtype=np.float32)
+            ids = np.ascontiguousarray(ids, dtype=np.int64)
+            if mat.ndim != 2:
+                raise ValueError("mat must be a (n, d) matrix")
+            n, dim = mat.shape
+            if ids.shape[0] != n:
+                raise ValueError("ids/matrix length mismatch")
+            if n == 0:
+                return
+            if np.unique(ids).size != n:
+                raise ValueError("duplicate ids in bulk_append_matrix")
+            if self._dim is not None and dim != self._dim:
+                raise DimensionMismatchError(self._dim, dim)
+            if self._slot_of_id and any(
+                    map(self._slot_of_id.__contains__, ids.tolist())):
+                raise ValueError("bulk_append_matrix ids must be fresh (use "
+                                 "add_batch for upserts)")
+            self._ensure_storage(dim, self._len + n)
+            self._append_matrix_locked(ids, mat, quantized=quantized)
+
+    def bulk_load_matrix(self, ids: np.ndarray, mat: np.ndarray) -> None:
+        """Fresh load of a validated (n, d) f32 matrix with distinct int64
+        ids into slots 0..n-1. Requires an empty index."""
+        with self._lock:
+            if self._len or self._slot_of_id:
+                raise ValueError("bulk_load_matrix requires an empty index")
+            mat = np.ascontiguousarray(mat, dtype=np.float32)
+            ids = np.ascontiguousarray(ids, dtype=np.int64)
+            n, dim = mat.shape
+            if ids.shape[0] != n:
+                raise ValueError("ids/matrix length mismatch")
+            if np.unique(ids).size != n:
+                raise ValueError("duplicate ids in bulk_load_matrix")
+            if self._dim is not None and dim != self._dim:
+                raise DimensionMismatchError(self._dim, dim)
+            self._load_prefix(ids, dim, (mat,))
+
+    def bulk_load_stream(self, n: int, dim: int, chunks) -> None:
+        """Fresh load from an ITERATOR of (c, d) f32 row chunks totaling
+        exactly ``n`` rows, with ids 0..n-1, written straight into the
+        packed storage (a disk memmap under ``host_backing``), so no second
+        n x d matrix exists. Requires an empty index."""
+        with self._lock:
+            if self._len or self._slot_of_id:
+                raise ValueError("bulk_load_stream requires an empty index")
+            if n < 1:
+                raise ValueError("n must be >= 1")
+            if self._dim is not None and dim != self._dim:
+                raise DimensionMismatchError(self._dim, dim)
+            self._load_prefix(np.arange(n, dtype=np.int64), dim, chunks)
+
+    def _load_prefix(self, ids: np.ndarray, dim: int, chunks) -> None:
+        """Fill slots 0..len(ids)-1 of an empty index from (c, d) f32
+        chunks, quantized chunk-wise straight into the packed storage (lock
+        held). Norms come from the f32 stored values of each chunk."""
+        n = len(ids)
+        self._ensure_storage(dim, n)
+        pos = 0
+        for blk in chunks:
+            blk = np.ascontiguousarray(blk, dtype=np.float32)
+            if blk.ndim != 2 or blk.shape[1] != dim:
+                raise DimensionMismatchError(
+                    dim, blk.shape[-1] if blk.ndim else 0)
+            if pos + len(blk) > n:
+                raise ValueError("chunks exceed declared row count")
+            for lo in range(0, len(blk), _QUANT_CHUNK):
+                sub = self._quantize(blk[lo:lo + _QUANT_CHUNK])
+                a, b = pos + lo, pos + lo + len(sub)
+                self._vectors[a:b] = self._host_rows(sub)
+                sq = np.einsum("ij,ij->i", sub, sub).astype(np.float32)
+                self._sq_norms[a:b] = sq
+                self._norms[a:b] = np.sqrt(sq)
+            pos += len(blk)
+        if pos != n:
+            raise ValueError(f"chunks yielded {pos} rows, declared {n}")
+        self._valid[:n] = True
+        self._id_of_slot[:n] = ids
+        self._slot_of_id = dict(zip(ids.tolist(), range(n)))
+        self._free_slots = [s for s in self._free_slots if s >= n]
+        self._len = n
+        self._zero_norm_live = int((self._sq_norms[:n] == 0.0).sum())
+        self._device = None
+        self._dirty_slots.clear()
+
+    def bulk_attach_memmap(self, path: str, n: int, dim: int,
+                           sq_norms: Optional[np.ndarray] = None) -> None:
+        """Adopt an EXISTING packed f32 row file as this index's storage
+        (the beyond-RAM reopen path): rows get ids 0..n-1, as after
+        ``bulk_load_stream``. Requires an empty f32 index constructed with
+        ``host_backing``, and a file of exactly the capacity
+        ``bulk_load_stream(n)`` allocates (``next_pow2(n)`` rows of ``dim``
+        f32s). ``sq_norms`` (shape ``(n,)``) skips the streaming pass that
+        otherwise recomputes the per-row norms."""
+        with self._lock:
+            if self._len or self._slot_of_id:
+                raise ValueError("bulk_attach_memmap requires an empty "
+                                 "index")
+            if self._host_backing is None:
+                raise ValueError("bulk_attach_memmap requires host_backing")
+            if self.storage != "f32":
+                raise ValueError("bulk_attach_memmap supports f32 storage "
+                                 "only")
+            if n < 1:
+                raise ValueError("n must be >= 1")
+            if self._dim is not None and dim != self._dim:
+                raise DimensionMismatchError(self._dim, dim)
+            cap = next_pow2(max(n, _MIN_CAPACITY), floor=_MIN_CAPACITY)
+            want = cap * dim * 4
+            have = os.path.getsize(path)
+            if have != want:
+                raise ValueError(
+                    f"row file holds {have} bytes; capacity {cap} x {dim} "
+                    f"f32 rows needs {want}")
+            mm = np.memmap(path, dtype=np.float32, mode="r+",
+                           shape=(cap, dim))
+            if sq_norms is not None:
+                sq = np.ascontiguousarray(sq_norms, np.float32)
+                if sq.shape != (n,):
+                    raise ValueError(f"sq_norms must have shape ({n},)")
+            else:
+                sq = np.empty(n, np.float32)
+                for lo in range(0, n, _QUANT_CHUNK):
+                    blk = mm[lo:min(lo + _QUANT_CHUNK, n)]
+                    sq[lo:lo + len(blk)] = np.einsum(
+                        "ij,ij->i", blk, blk).astype(np.float32)
+            self._dim = dim
+            self._capacity = cap
+            self._vectors = mm
+            self._vectors_path = path
+            self._sq_norms = np.zeros(cap, np.float32)
+            self._sq_norms[:n] = sq
+            self._norms = np.zeros(cap, np.float32)
+            self._norms[:n] = np.sqrt(sq)
+            self._valid = np.zeros(cap, dtype=bool)
+            self._valid[:n] = True
+            self._id_of_slot = np.full(cap, -1, np.int64)
+            self._id_of_slot[:n] = np.arange(n, dtype=np.int64)
+            self._slot_of_id = {j: j for j in range(n)}
+            self._free_slots = list(range(cap - 1, n - 1, -1))
+            self._len = n
+            self._zero_norm_live = int((sq == 0.0).sum())
+            self._device = None
+            self._dirty_slots.clear()
+
     def _write_slot(self, slot: int, internal_id: int, arr: np.ndarray) -> None:
         arr = self._quantize(arr)   # norms below see the stored values
         self._vectors[slot] = self._host_rows(arr)
@@ -461,7 +688,7 @@ class FlatIndex(Index):
         self._len += 1
         if sq == 0.0:
             self._zero_norm_live += 1
-        if self._device is not None:
+        if self._device is not None or self._build_inflight:
             self._dirty_slots.add(slot)
 
     def _clear_slot(self, slot: int) -> None:
@@ -473,7 +700,7 @@ class FlatIndex(Index):
         self._slot_of_id.pop(internal_id, None)
         self._free_slots.append(slot)
         self._len -= 1
-        if self._device is not None:
+        if self._device is not None or self._build_inflight:
             self._dirty_slots.add(slot)
 
     def remove(self, internal_id: int) -> None:
@@ -549,8 +776,48 @@ class FlatIndex(Index):
     def _bf16_to_device(self, bits: np.ndarray) -> torch.Tensor:
         return self._to_device(bits.view(np.int16)).view(torch.bfloat16)
 
+    def prehydrate(self) -> None:
+        """Build the device state OUTSIDE the index lock and install it if
+        no sync got there first: the recovery overlap, where the WAL tail
+        replays into the host arrays on one thread while the host-to-device
+        copies run on another. Rows written during the unlocked build may
+        be read torn, but each such slot is in ``_dirty_slots`` (never
+        cleared here) and the next locked sync re-scatters it. If storage
+        grew mid-build (the host arrays were reallocated), the state is
+        discarded and the first search builds in full.
+
+        The build's copies and kernels run on this thread's current stream,
+        which a searching thread need not share: the build records a CUDA
+        event after its last launch, and the first sync after the install
+        waits on it (``_sync_device``)."""
+        with self._lock:
+            if self._device is not None or self._len == 0:
+                return
+            vec0 = self._vectors
+            self._build_inflight = True
+        ready = None
+        try:
+            dev = self._build_device_full()
+            if self._device_t.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self._device_t))
+        except Exception:
+            with self._lock:
+                self._build_inflight = False
+            return  # the first search surfaces the real error
+        with self._lock:
+            self._build_inflight = False
+            if self._device is None and self._vectors is vec0:
+                self._device = dev
+                self._device_ready = ready
+
     def _sync_device(self) -> dict:
         """Bring the device state up to date. Called with the lock held."""
+        if self._device_ready is not None:
+            # a side-thread build installed this state: its copies and
+            # kernels finish before any launch of this caller reads it
+            self._device_ready.synchronize()
+            self._device_ready = None
         if self._device is None:
             self._device = self._build_device_full()
             self._dirty_slots.clear()

@@ -14,9 +14,11 @@ Re-rank venues (``_rerank_venue``):
     without bf16 mirrors: ``_want_mirrors = False``); gather, distances
     and top-k run there (ops/pq.pq_rerank_topk). "auto" picks it when the
     index lives on a CUDA device and the rows fit _RERANK_DEV_ROW_BYTES;
-  * "host": numpy over the host rows (the CPU, and rows past the budget);
-  * "gathered": rows past the budget with rerank="device": the host
-    gathers the candidate rows and the device ranks them.
+  * "host": numpy over the host rows (the CPU, ``host_backing``, and rows
+    past the budget);
+  * "gathered": ``host_backing`` or rows past the budget, with
+    rerank="device": the host gathers the candidate rows and the device
+    ranks them.
 
 Mutations follow the flat index's slot semantics: PQ never repacks slots,
 so store-compiled filter masks stay valid across training. Post-train
@@ -26,9 +28,12 @@ slot mutated after a search's snapshot are dropped by per-slot mutation
 stamps. Filtered searches run the masked scan, or the exact host paths for
 selective filters.
 
-Not in this slice: ``mesh=`` (ROADMAP item 13), ``host_backing=`` and the
-bulk stream / memmap loaders (with persistence, item 7), IVF-PQ (after
-item 11).
+``host_backing`` keeps the f32 rows in a disk-backed memmap (the flat
+index's option): the device holds only the codes. The bulk loaders
+(``bulk_load_matrix``, ``bulk_load_stream``, ``bulk_attach_memmap``) stamp
+every slot and, on a trained index, re-encode in full at the next sync.
+
+Not in this slice: ``mesh=`` (ROADMAP item 13), IVF-PQ (after item 11).
 """
 
 from __future__ import annotations
@@ -283,13 +288,26 @@ class _PqCodesCore:
             self._codes_dev = None
             self._pq_valid_dirty = True
 
-    def bulk_load_stream(self, *args, **kwargs) -> None:
-        raise IndexOpError("bulk_load_stream is not ported yet (ROADMAP "
-                           "queue 1 item 7, with persistence)")
+    def bulk_load_matrix(self, ids: np.ndarray, mat: np.ndarray) -> None:
+        super().bulk_load_matrix(ids, mat)
+        with self._lock:
+            self._after_bulk_load()
+
+    def bulk_load_stream(self, n: int, dim: int, chunks) -> None:
+        super().bulk_load_stream(n, dim, chunks)
+        with self._lock:
+            self._after_bulk_load()
 
     def bulk_attach_memmap(self, *args, **kwargs) -> None:
-        raise IndexOpError("bulk_attach_memmap is not ported yet (ROADMAP "
-                           "queue 1 item 7, with persistence)")
+        super().bulk_attach_memmap(*args, **kwargs)
+        with self._lock:
+            # attach bypasses _ensure_storage: size the per-slot PQ arrays
+            if (self._slot_tick is None
+                    or len(self._slot_tick) != self._capacity):
+                self._slot_tick = np.zeros(self._capacity, np.int64)
+            if self._trained and len(self._codes) != self._capacity:
+                self._codes = np.zeros((self._capacity, self._m), np.uint8)
+            self._after_bulk_load()
 
     # -- device sync ----------------------------------------------------------
 
@@ -369,7 +387,9 @@ class _PqCodesCore:
         keys it on the index's device."""
         if self.rerank_mode == "host":
             return "host"
-        if self._capacity * (self._dim or 0) * 4 > _RERANK_DEV_ROW_BYTES:
+        if (self._host_backing is not None
+                or self._capacity * (self._dim or 0) * 4
+                > _RERANK_DEV_ROW_BYTES):
             return "gathered" if self.rerank_mode == "device" else "host"
         if self.rerank_mode == "device":
             return "mirror"
@@ -860,18 +880,16 @@ class PqFlatIndex(_PqCodesCore, FlatIndex):
                  auto_train_min: int = 8192, seed: int = 0,
                  host_backing: Optional[str] = None, rotate: bool = True,
                  mesh=None, rerank: str = "auto", device="cuda"):
-        # rotate: learn an OPQ pre-rotation at train time; rerank: venue
-        # of the exact candidate re-rank (module docstring); device: where
-        # the codes, the scan and the "mirror" re-rank live
+        # host_backing: the f32 rows in a disk-backed memmap (the device
+        # holds m bytes a row of codes); rotate: learn an OPQ pre-rotation
+        # at train time; rerank: venue of the exact candidate re-rank
+        # (module docstring); device: where the codes, the scan and the
+        # "mirror" re-rank live
         if mesh is not None:
             raise IndexOpError("PqFlatIndex(mesh=...) is not ported yet "
                                "(ROADMAP queue 1 item 13, multi-device)")
-        if host_backing is not None:
-            raise IndexOpError("PqFlatIndex(host_backing=...) is not ported "
-                               "yet (ROADMAP queue 1 item 7, with "
-                               "persistence)")
         super().__init__(metric, search_mode="exact", storage="f32",
-                         device=device)
+                         device=device, host_backing=host_backing)
         self._pq_init(m, ksub, refine, train_iters, auto_train_min, seed,
                       rotate=rotate, rerank=rerank)
 

@@ -1,13 +1,14 @@
 """HTTP API layer.
 
 Parity with reference src/server/mod.rs: ``AppState`` (store + metrics
-behind a readers-writer lock), the ``start_flat`` entry point, and the
-9-endpoint router (src/server/routes.rs:102-120). The route logic is
-framework-agnostic (``Api.handle`` takes method/path/body and returns
-status + JSON) so tests drive it in-process with no socket.
+behind a readers-writer lock), the ``start_flat`` and ``start_durable``
+entry points, and the 9-endpoint router (src/server/routes.rs:102-120).
+The route logic is framework-agnostic (``Api.handle`` takes
+method/path/body and returns status + JSON) so tests drive it in-process
+with no socket.
 """
 
-from .app import AppState, serve, start_flat  # noqa: F401
+from .app import AppState, serve, start_durable, start_flat  # noqa: F401
 from .routes import Api  # noqa: F401
 
 

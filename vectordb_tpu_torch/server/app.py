@@ -6,12 +6,13 @@ Port of ``vectordb_tpu/server/app.py`` (reference src/server/mod.rs:13-51):
 ``ThreadingHTTPServer``; ``serve`` takes any store's state, e.g. a PQ
 store's (``VectorStore.with_index(PqFlatIndex(metric))``, as the CLI's
 ``--index pq serve`` builds it; the ``refine`` knob reaches it through
-the routes). Route logic lives in routes.Api, which the in-process tests
-drive directly.
+the routes); ``start_durable`` serves a WAL-backed ``StorageEngine``.
+Route logic lives in routes.Api, which the in-process tests drive
+directly.
 
 Not in this slice: the native epoll front-end (``backend="native"``,
 ROADMAP queue 1 item 8), the query batcher (``batch_window_ms > 0``,
-same item), and HNSW / durable serving (items 7 and 10).
+same item), and HNSW serving (item 10).
 """
 
 from __future__ import annotations
@@ -155,4 +156,21 @@ def start_flat(addr: str, metric: DistanceMetric,
           batch_window_ms=batch_window_ms, backend=backend)
 
 
-__all__ = ["AppState", "serve", "start_flat", "start_server_background"]
+def start_durable(addr: str, data_dir, config=None,
+                  batch_window_ms: float = 0.0,
+                  backend: str = "auto") -> None:
+    """Serve a WAL-backed persistent store (beyond the reference, which
+    rejects serve + --data-dir: src/main.rs:100-102). Every HTTP insert and
+    delete is durable in the WAL before the response is sent (routes hold
+    the write lock across the engine call, so appends serialize); reads go
+    to the recovered store; POST /checkpoint forces a snapshot and a WAL
+    truncate. ``config.device`` (default "cuda") places the index."""
+    _check_serving_options(batch_window_ms, backend)
+    from ..persistence import StorageEngine
+    with StorageEngine.open(data_dir, config) as engine:
+        serve(addr, AppState(engine), batch_window_ms=batch_window_ms,
+              backend=backend)
+
+
+__all__ = ["AppState", "serve", "start_durable", "start_flat",
+           "start_server_background"]

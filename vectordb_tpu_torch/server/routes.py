@@ -18,8 +18,8 @@ Same JSON shapes as the reference DTOs (routes.rs:21-98): search hits are
 (routes.rs:365-369).
 
 Carried over unchanged from ``vectordb_tpu/server/routes.py``. POST
-/checkpoint answers 404 on the in-memory store (the only store of this
-slice; durable serving arrives with the persistence slice), keeping the
+/checkpoint forces a snapshot and a WAL truncate on a durable store
+(``start_durable``) and answers 404 on an in-memory one, keeping the
 9-endpoint surface identical.
 """
 

@@ -1,8 +1,10 @@
 """VectorStore: string-ID CRUD + metadata + filtered/batch search over any index.
 
-Port of ``vectordb_tpu/store.py`` (the in-memory store; the persistence
-hooks arrive with the persistence slice). Capability parity with reference src/storage.rs:83-348, preserving its
-observable semantics:
+Port of ``vectordb_tpu/store.py``, with the hooks the storage engine's
+recovery calls (``reserve``, ``restore_snapshot_chunk``,
+``next_internal_id``, ``restore_next_internal_id``). Capability parity
+with reference src/storage.rs:83-348, preserving its observable
+semantics:
 
   * upsert: re-inserting an existing string ID removes the old entry and
     assigns a *fresh* internal ID (src/storage.rs:157-168);
@@ -633,6 +635,53 @@ class VectorStore:
 
     def internal_to_string_ids(self) -> Dict[int, str]:
         return dict(self._internal_to_id)
+
+    def restore_snapshot_chunk(self, internal_ids, string_ids,
+                               rows, metadata: Dict[int, Dict[str, str]]
+                               ) -> None:
+        """Vectorized snapshot replay: adopt one chunk of rows under their
+        ORIGINAL internal ids, with no per-row Python objects (the engine's
+        recovery path). The caller guarantees ids unique across chunks and
+        rows validated by the snapshot codec; ``metadata`` maps
+        internal_id -> fields for the whole snapshot and is probed per
+        id."""
+        rows = np.ascontiguousarray(rows, dtype=np.float32)
+        self._check_or_fix_dimension(int(rows.shape[1]))
+        iids_arr = np.ascontiguousarray(internal_ids, dtype=np.int64)
+        # quantized=True: snapshot rows ARE the stored (already quantized)
+        # values, so the idempotent re-quantize is skipped
+        self._index.bulk_append_matrix(iids_arr, rows, quantized=True)
+        # no _cow_inflight_id_maps: this path only ADDS fresh ids
+        iids = iids_arr.tolist()
+        self._id_to_internal.update(zip(string_ids, iids))
+        self._internal_to_id.update(zip(iids, string_ids))
+        for iid in iids:
+            fields = metadata.get(iid)
+            if fields:
+                self._record_metadata(iid, Metadata(fields))
+            else:
+                # one object per id: Metadata is mutable
+                self._metadata[iid] = Metadata()
+        self._next_id = max(self._next_id, max(iids, default=-1) + 1)
+
+    def reserve(self, n_rows: int, dim: "int | None" = None) -> None:
+        """Pre-size the index's packed storage for ``n_rows`` rows
+        (recovery: one allocation instead of chunk-by-chunk pow2 growth).
+        No-op on indexes without packed storage."""
+        fn = getattr(self._index, "reserve", None)
+        if fn is not None:
+            fn(n_rows, dim)
+
+    @property
+    def next_internal_id(self) -> int:
+        """The internal ID the next insert will be assigned (the storage
+        engine logs WAL entries before applying them)."""
+        return self._next_id
+
+    def restore_next_internal_id(self, value: int) -> None:
+        """Raise the internal-ID counter (recovery: monotonicity across
+        restarts). Never lowers it."""
+        self._next_id = max(self._next_id, int(value))
 
     def adopt_index_state(self, id_map: Dict[int, str],
                           metadata: Dict[int, Dict[str, str]],
