@@ -1745,6 +1745,7 @@ def durable_http(base, rows, np):
     entry point to ``start_durable``) on 127.0.0.1:0 as its own process:
     a batch insert, a checkpoint, single inserts, a batch search; a stop
     by SIGINT; a second process on the same directory answers the same."""
+    import select
     import signal
     d = os.path.join(base, "http")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -1757,9 +1758,11 @@ def durable_http(base, rows, np):
              "--durable-dir", d, "--addr", "127.0.0.1:0"], cwd=ROOT,
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
-        line = proc.stdout.readline()
+        ready, _, _ = select.select([proc.stdout], [], [], 300)
+        line = proc.stdout.readline() if ready else ""
         if "listening on" not in line:
             proc.kill()
+            proc.wait()
             fail(f"phase 10 http: the server did not start: {line}"
                  f"{proc.stdout.read()[-2000:]}")
         return proc, int(line.strip().rsplit(":", 1)[1])

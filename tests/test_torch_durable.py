@@ -11,6 +11,7 @@ the JAX package's.
 
 import json
 import os
+import select
 import signal
 import subprocess
 import sys
@@ -278,6 +279,11 @@ class TestDurableSocket:
                  "cpu", "serve", "--durable-dir", str(tmp_path), "--addr",
                  "127.0.0.1:0"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)
+            ready, _, _ = select.select([proc.stdout], [], [], 120)
+            if not ready:
+                proc.kill()
+                proc.wait()
+                pytest.fail("the server printed nothing in 120 s")
             line = proc.stdout.readline()
             assert "listening on" in line, line
             return proc, int(line.strip().rsplit(":", 1)[1])
