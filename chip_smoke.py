@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flat-search paths once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card.
 
     python3 chip_smoke.py [--rows N] [--queries Q] [--seed S]
 
@@ -91,15 +91,47 @@ nothing is caught and passed over):
      PQ-Flat store of 2^17 intrinsic-dim-32 rows is trained, searched,
      checkpointed (pq_state.npz) and reopened: the codebook bit-equal, no
      train, the same ids and distances, every K8 launch "tile_ring".
-     ``serve --durable-dir`` on 127.0.0.1:0 (a process): a batch insert of
-     4096 rows, POST /checkpoint, 64 inserts, a stop by SIGINT, and a
-     second server on the directory answers /search/batch the same.
+     ``serve --durable-dir`` on 127.0.0.1:0 (a process, on the native
+     front end): 4096 rows by four batch inserts (the front end
+     takes bodies up to 48 MB), POST /checkpoint, 64 inserts, a stop by
+     SIGINT, and a second server on the directory answers /search/batch
+     the same.
+ 11. serving on the card, run between phases 6 and 7 over phase 3's
+     2^20 x 768 f32 store (still loaded): first one drain cycle's submit
+     timed apart from its collect (Q=64 and 512; the submit behind one
+     batch in flight must not wait for the card); then
+     ``serve(..., backend="auto")`` on 127.0.0.1:0, which must resolve
+     to the native front end, at VDB_HTTP_DEPTH 1 and 2, each under 64
+     and 512 closed-loop clients (threads of 4 child processes of this
+     script, ``--http-client``, keep-alive HTTP/1.1 POST /search k=10
+     over raw sockets with phase 3's queries) for 3 s: requests/s, p50
+     and p99 latency,
+     mean requests per drained batch, and every 8th answer of a client
+     held to phase 3's oracle (ids but for k-th/(k+1)-th ties, distances
+     at rtol 2e-5); then through the native server one POST
+     /search/batch, a filtered and a radius search, insert / get /
+     delete / health / metrics; then the query batcher,
+     ``serve(..., batch_window_ms=2.0, backend="python")``, under 64
+     clients with the same checks. In each window every K1 launch must
+     take "wgmma" and every K2 launch "tile_major";
+ 12. HNSW: 16384 x 768 intrinsic-dim-32 rows (phase 8's generator, its
+     own seed; reduced from the 1M-row north star, the graph builds on
+     the host) into three seeded graphs built at once, each on its own
+     host thread: ``python -m vectordb_tpu_torch --index hnsw
+     --hnsw-seed S serve`` (a child process, native front end, by POST
+     /vectors/batch of 1024 rows), an in-process HnswIndex store fed the
+     same batches, and a durable HNSW engine; Q=1024 through
+     /search/batch at ef 50, 100 and 200: recall@10 against an on-card
+     f32 oracle (>= 0.90 at ef=200), host ms per query, the served ids
+     equal to the in-process index's; then the engine's checkpoint
+     (hnsw_graph.npz), close and reopen: the graph imported, not
+     rebuilt, and the answers equal the writer's.
 Launch counters are zeroed just before each path's run and read right
 after it: the store searches of phases 3 and 4 (K1, K2, K3); each
 storage store's searches (K4/K7 and K2 by source); each forced fallback
 (K5); the legacy fast runs (K6, K5); the PQ store's searches (K8); the
 two-phase searches (K9); each phase-10 reopen with its first searches (K1
-or K7, and K2; K8). Every kernel of a path must have launched in its
+or K7, and K2; K8); each phase-11 load run and route window (K1, K2). Every kernel of a path must have launched in its
 window; the direct comparison calls are outside them. Every K1, K4 and K7
 launch in the windows of phase 3 and of phase 7's bf16, int8 and f32
 stores, every K3 launch of phases 3-4 (the 2^20-row store's tier 2, the
@@ -1781,9 +1813,12 @@ def durable_http(base, rows, np):
     t0 = time.perf_counter()
     proc, port = start()
     try:
-        st0, _ = http_call(port, "POST", "/vectors/batch", {"vectors": [
+        # four POSTs of 1024 rows: the native front end (the default of
+        # "auto") takes bodies up to 48 MB (httpcore.cpp kMaxBody)
+        st0 = max(http_call(port, "POST", "/vectors/batch", {"vectors": [
             {"id": f"h{i}", "vector": rows[i].tolist()}
-            for i in range(P10_HTTP_ROWS)]})
+            for i in range(r0, r0 + 1024)]})[0]
+            for r0 in range(0, P10_HTTP_ROWS, 1024))
         st1, ck = http_call(port, "POST", "/checkpoint")
         singles = [http_call(port, "POST", "/vectors", {
             "id": f"h{i}", "vector": rows[i].tolist()})[0]
@@ -1892,7 +1927,7 @@ def durability_phase(args, rows, card, mods, rate3):
     finally:
         shutil.rmtree(base, ignore_errors=True)
     say(f"phase 10 http: serve --durable-dir on 127.0.0.1:0, POST "
-        f"/vectors/batch {P10_HTTP_ROWS} rows, POST /checkpoint, "
+        f"/vectors/batch {P10_HTTP_ROWS} rows in 4, POST /checkpoint, "
         f"{P10_HTTP_SINGLES} POST /vectors, stop (exit {http['rcs'][0]}), "
         f"a second server on the directory: /health {http['rows']}, the "
         f"same /search/batch ids, max |dist - before| "
@@ -1906,6 +1941,548 @@ def durability_phase(args, rows, card, mods, rate3):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: serving on the card; phase 12: HNSW
+# ---------------------------------------------------------------------------
+
+P11_SECONDS = 3.0          # each closed-loop load run
+P11_CLIENT_PROCS = 4       # client processes; the clients are their threads
+P11_SAMPLE_EVERY = 8       # every 8th answer of a client is held to the oracle
+P11_SUBMIT_ROUNDS = 5
+P12_ROWS = 16384           # reduced from the 1M-row north star (host build)
+P12_QUERIES = 1024
+P12_CHUNK = 1024           # rows per POST /vectors/batch
+P12_EFS = (50, 100, 200)
+P12_RECALL_MIN = 0.90      # at ef=200
+
+
+def client_main(args) -> None:
+    """A load-generating child of this script (phase 11): ``threads``
+    closed-loop clients, each on its own keep-alive HTTP/1.1 connection
+    (a raw socket and prebuilt request bytes, so that the clients' own
+    Python is light), POST /search k=K with the queries of an .npy file
+    from a start time until a deadline; writes its latencies and sampled
+    answers as JSON. Imports no torch: the card is the server's."""
+    import socket
+    import threading
+
+    import numpy as np
+    spec = json.loads(args.http_client)
+    qs = np.load(spec["queries"])
+    reqs = []
+    for q in qs:
+        body = json.dumps({"vector": q.tolist(), "k": K}).encode()
+        reqs.append(b"POST /search HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                    b"Content-Type: application/json\r\nContent-Length: "
+                    + str(len(body)).encode() + b"\r\n\r\n" + body)
+    lats, samples, errors = [], [], []
+    lock = threading.Lock()
+
+    def response(sock, buf):
+        """(status, body, rest of buf) of the next response."""
+        while b"\r\n\r\n" not in buf:
+            chunk = sock.recv(65536)
+            if not chunk:
+                raise ConnectionError("closed by the server")
+            buf += chunk
+        head, _, buf = buf.partition(b"\r\n\r\n")
+        lines = head.split(b"\r\n")
+        status = int(lines[0].split()[1])
+        length = next(int(v) for k, _, v in (ln.partition(b":")
+                                             for ln in lines[1:])
+                      if k.strip().lower() == b"content-length")
+        while len(buf) < length:
+            chunk = sock.recv(65536)
+            if not chunk:
+                raise ConnectionError("closed by the server")
+            buf += chunk
+        return status, buf[:length], buf[length:]
+
+    def run(tid):
+        sock = socket.create_connection(("127.0.0.1", spec["port"]),
+                                        timeout=120)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        my_lat, my_samples, n, buf = [], [], 0, b""
+        qi = (spec["offset"] + tid * 37) % len(reqs)
+        while time.time() < spec["start"]:
+            time.sleep(0.001)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                if t0 > spec["deadline"]:
+                    break
+                sock.sendall(reqs[qi])
+                status, data, buf = response(sock, buf)
+                my_lat.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise RuntimeError(f"status {status}: {data[:200]}")
+                if n % P11_SAMPLE_EVERY == 0:
+                    my_samples.append([int(qi), json.loads(data)])
+                n += 1
+                qi = (qi + 1) % len(reqs)
+        except Exception as e:  # noqa: BLE001 — reported to the parent
+            with lock:
+                errors.append(repr(e))
+        finally:
+            sock.close()
+        with lock:
+            lats.extend(my_lat)
+            samples.extend(my_samples)
+
+    # the deadline is on the perf_counter clock of this process
+    spec["deadline"] = time.perf_counter() + (spec["start"] - time.time()) \
+        + spec["seconds"]
+    threads = [threading.Thread(target=run, args=(t,))
+               for t in range(spec["threads"])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    with open(spec["out"], "w") as f:
+        json.dump({"lat": lats, "samples": samples, "errors": errors}, f)
+    sys.exit(0)
+
+
+def load_run(port, clients, qfile, tmp, offset):
+    """Drive a server with ``clients`` closed-loop clients spread over
+    P11_CLIENT_PROCS child processes for P11_SECONDS. Returns (requests
+    per second, p50 ms, p99 ms, samples)."""
+    import numpy as np
+    per = [clients // P11_CLIENT_PROCS + (1 if p < clients % P11_CLIENT_PROCS
+                                          else 0)
+           for p in range(P11_CLIENT_PROCS)]
+    start = time.time() + 3.0          # the children's imports come first
+    procs = []
+    for p, threads in enumerate(per):
+        out = os.path.join(tmp, f"client_{clients}_{p}.json")
+        spec = {"port": port, "queries": qfile, "threads": threads,
+                "seconds": P11_SECONDS, "start": start, "out": out,
+                "offset": offset + p * 1009}
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--http-client",
+             json.dumps(spec)], cwd=ROOT), out))
+    lats, samples = [], []
+    for proc, out in procs:
+        if proc.wait(timeout=300) != 0:
+            fail(f"phase 11: a client process exited {proc.returncode}")
+        with open(out) as f:
+            got = json.load(f)
+        if got["errors"]:
+            fail(f"phase 11: client errors {got['errors'][:3]}")
+        lats += got["lat"]
+        samples += got["samples"]
+    lat = np.array(lats)
+    return (len(lats) / P11_SECONDS, float(np.percentile(lat, 50)),
+            float(np.percentile(lat, 99)), samples)
+
+
+def check_samples(name, samples, ora_d2, ora_i, np):
+    """Served answers against the phase-3 oracle: ids but for k-th /
+    (k+1)-th ties, distances at rtol 2e-5 (check_exact)."""
+    qi = np.array([s[0] for s in samples])
+    ids = np.array([[int(h["id"]) for h in s[1]] for s in samples])
+    dists = np.array([[h["distance"] for h in s[1]] for s in samples],
+                     np.float32)
+    if ids.shape != (len(samples), K):
+        fail(f"{name}: answers of shape {ids.shape}")
+    return check_exact(name, ids, dists, ora_d2[qi], ora_i[qi], K, np)
+
+
+def serve_thread(store, **kw):
+    """``serve`` on 127.0.0.1:0 in a thread; returns (state, thread)."""
+    import threading
+
+    from vectordb_tpu_torch.server.app import AppState, serve
+    state = AppState(store)
+    ready = threading.Event()
+    thread = threading.Thread(target=serve, args=("127.0.0.1:0", state),
+                              kwargs={"ready_event": ready, **kw},
+                              daemon=True)
+    thread.start()
+    if not ready.wait(120):
+        fail("phase 11: the server did not start")
+    return state, thread
+
+
+def stop_server(state, thread):
+    state.server.shutdown()
+    thread.join(timeout=60)
+    if thread.is_alive():
+        fail("phase 11: the server thread did not stop")
+
+
+def submit_timing(store, qs, Vector, torch, np):
+    """One drain cycle's submit apart from its collect, at the batch
+    sizes the load runs drain: the submit with the card idle, the submit
+    behind one batch in flight (were it to wait for the card, it would
+    take about the device time), the collect, and the device time of one
+    batch (submit + synchronize)."""
+    out = {}
+    for nb in (64, 512):
+        batch = [(Vector(q), K) for q in qs[:nb]]
+        store.search_batch(batch)
+        rec = {"submit_idle": [], "submit_busy": [], "collect": [],
+               "device": []}
+        for _ in range(P11_SUBMIT_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h1 = store.search_batch_submit(batch)
+            t1 = time.perf_counter()
+            h2 = store.search_batch_submit(batch)
+            t2 = time.perf_counter()
+            h1.collect()
+            t3 = time.perf_counter()
+            h2.collect()
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            h3 = store.search_batch_submit(batch)
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            h3.collect()
+            rec["submit_idle"].append((t1 - t0) * 1e3)
+            rec["submit_busy"].append((t2 - t1) * 1e3)
+            rec["collect"].append((t3 - t2) * 1e3)
+            rec["device"].append((t5 - t4) * 1e3)
+            del t4
+        out[nb] = {k: float(np.median(v)) for k, v in rec.items()}
+    return out
+
+
+def serving_phase(store, rows, dead, qs, ora_d2, ora_i, card, mods):
+    """Phase 11 (module docstring). Returns the K1 and K2 launch counts
+    of the serving windows."""
+    import tempfile
+
+    from vectordb_tpu_torch.server.native_http import (DEFAULT_DEPTH,
+                                                       NativeHttpServer)
+    np, torch, cuda_kernels = mods["np"], mods["torch"], mods["cuda_kernels"]
+    Vector = mods["Vector"]
+    gone = set(int(i) for i in dead)
+    live = next(i for i in range(11, rows.shape[0]) if i not in gone)
+    timing = submit_timing(store, qs, Vector, torch, np)
+    say("phase 11 submit vs collect, median of "
+        f"{P11_SUBMIT_ROUNDS} rounds, ms [{card}]: " + "; ".join(
+            f"Q={nb}: submit {t['submit_idle']:.3f} idle, "
+            f"{t['submit_busy']:.3f} behind one batch in flight; collect "
+            f"{t['collect']:.3f}; device (submit + synchronize) "
+            f"{t['device']:.3f}" for nb, t in timing.items()))
+    launches = {"coarse_minima_1p_sup": 0, "refine_dots": 0}
+    runs = []
+    tmp = tempfile.mkdtemp(prefix="vdb_p11_")
+    qfile = os.path.join(tmp, "queries.npy")
+    np.save(qfile, qs)
+    old_depth = os.environ.get("VDB_HTTP_DEPTH")
+
+    def window(name, fn):
+        """Reset the counters, run, check and count the window."""
+        cuda_kernels.reset_launches()
+        out = fn()
+        for key in launches:
+            if cuda_kernels.launches[key] < 1:
+                fail(f"phase 11 {name}: {key} never launched")
+            launches[key] += cuda_kernels.launches[key]
+        check_wgmma(f"phase 11 {name}", "coarse_minima_1p_sup",
+                    cuda_kernels)
+        check_tile_major(f"phase 11 {name}", cuda_kernels)
+        return out
+
+    try:
+        for depth in (1, 2):
+            os.environ["VDB_HTTP_DEPTH"] = str(depth)
+            state, thread = serve_thread(store, backend="auto")
+            try:
+                if not isinstance(state.server, NativeHttpServer):
+                    fail(f"phase 11: backend 'auto' served with "
+                         f"{type(state.server).__name__}")
+                for clients in (64, 512):
+                    state.server.drain_sizes.clear()
+                    rps, p50, p99, samples = window(
+                        f"native depth {depth} clients {clients}",
+                        lambda: load_run(state.server.port, clients, qfile,
+                                         tmp, 17 * clients + depth))
+                    drains = [s for s in state.server.drain_sizes]
+                    ties, err = check_samples(
+                        f"phase 11 native depth {depth} clients {clients}",
+                        samples, ora_d2, ora_i, np)
+                    runs.append(("native", depth, clients, rps, p50, p99,
+                                 float(np.mean(drains)), len(samples),
+                                 ties, err))
+            finally:
+                stop_server(state, thread)
+        # the other routes through the native front end (default depth)
+        if old_depth is None:
+            os.environ.pop("VDB_HTTP_DEPTH", None)
+        else:
+            os.environ["VDB_HTTP_DEPTH"] = old_depth
+        state, thread = serve_thread(store, backend="native")
+        try:
+            routes = window("native routes", lambda: native_routes(
+                state.server.port, rows, live, qs, ora_d2, ora_i, np))
+        finally:
+            stop_server(state, thread)
+        # the query batcher behind the stdlib server
+        state, thread = serve_thread(store, backend="python",
+                                     batch_window_ms=2.0)
+        try:
+            port = state.server.server_address[1]
+            rps, p50, p99, samples = window(
+                "batcher clients 64", lambda: load_run(port, 64, qfile, tmp,
+                                                       5))
+            ties, err = check_samples("phase 11 batcher", samples, ora_d2,
+                                      ora_i, np)
+            runs.append(("batcher 2 ms", 0, 64, rps, p50, p99, float("nan"),
+                         len(samples), ties, err))
+        finally:
+            stop_server(state, thread)
+    finally:
+        if old_depth is None:
+            os.environ.pop("VDB_HTTP_DEPTH", None)
+        else:
+            os.environ["VDB_HTTP_DEPTH"] = old_depth
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    for kind, depth, clients, rps, p50, p99, mean_drain, ns, ties, err in runs:
+        say(f"phase 11 {kind}" + (f" depth {depth}" if depth else "")
+            + f" clients {clients}: {rps:.1f} req/s, p50 {p50:.3f} ms, p99 "
+            f"{p99:.3f} ms, mean requests per drained batch "
+            + (f"{mean_drain:.2f}" if mean_drain == mean_drain else "n/a")
+            + f"; {ns} sampled answers exact against the oracle ({ties} "
+            f"boundary ties, max dist err {err:.3e})  [{card}]")
+    say(f"phase 11 native routes: {routes}; default VDB_HTTP_DEPTH "
+        f"{DEFAULT_DEPTH}; launch counts over the serving windows "
+        f"{launches}, K1 all wgmma, K2 all tile_major")
+    return launches
+
+
+def native_routes(port, rows, live, qs, ora_d2, ora_i, np):
+    """POST /search/batch (the pre-parsed batch path), a filtered and a
+    radius search (around live row ``live``), and insert / get / delete /
+    health / metrics through the native front end; the store is left as
+    it was."""
+    qi = [3, 9, 27, 81]
+    st, batch = http_call(port, "POST", "/search/batch", {"queries": [
+        {"vector": qs[i].tolist(), "k": K} for i in qi]})
+    if st != 200:
+        fail(f"phase 11 /search/batch status {st}")
+    check_samples("phase 11 /search/batch", list(zip(qi, batch)), ora_d2,
+                  ora_i, np)
+    probe = (rows[live] + np.float32(1e-3)).tolist()
+    st1, _ = http_call(port, "POST", "/vectors", {
+        "id": "p11", "vector": probe, "metadata": {"tag": "served"}})
+    st2, got = http_call(port, "GET", "/vectors/p11")
+    st3, flt = http_call(port, "POST", "/search", {
+        "vector": probe, "k": K,
+        "filter": {"op": "eq", "field": "tag", "value": "served"}})
+    st4, rad = http_call(port, "POST", "/search", {
+        "vector": rows[live].tolist(), "radius": 0.05, "limit": 10})
+    st5, _ = http_call(port, "DELETE", "/vectors/p11")
+    st6, health = http_call(port, "GET", "/health")
+    st7, metrics = http_call(port, "GET", "/metrics")
+    if (st1, st2, st3, st4, st5, st6, st7) != (201, 200, 200, 200, 200,
+                                               200, 200):
+        fail(f"phase 11 route statuses {(st1, st2, st3, st4, st5, st6, st7)}")
+    if got["metadata"] != {"tag": "served"} or [h["id"] for h in flt] != \
+            ["p11"]:
+        fail(f"phase 11 get / filtered search: {got.get('metadata')}, {flt}")
+    if sorted(h["id"] for h in rad) != sorted([str(live), "p11"]):
+        fail(f"phase 11 radius search: {rad}")
+    return (f"/search/batch Q={len(qi)} exact; filtered search -> p11; "
+            f"radius 0.05 -> {sorted(h['id'] for h in rad)}; insert/get/"
+            f"delete 201/200/200; /health {health['vector_count']}; "
+            f"/metrics {metrics['total_queries']} queries")
+
+
+def hnsw_phase(args, card, mods):
+    """Phase 12 (module docstring)."""
+    import select
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from vectordb_tpu_torch import HnswIndex, HnswParams
+    from vectordb_tpu_torch.persistence import EngineConfig, StorageEngine
+    np, torch = mods["np"], mods["torch"]
+    VectorStore, Vector = mods["VectorStore"], mods["Vector"]
+    BatchInsertItem = mods["BatchInsertItem"]
+    E = mods["DistanceMetric"].EUCLIDEAN
+    n, nq = P12_ROWS, P12_QUERIES
+    # the intrinsic-dim-32 protocol of benchmarks/pq_bench.py:103-108, as
+    # phase 8's rows, from a generator of its own
+    rng = np.random.default_rng([args.seed, 12])
+    basis = (rng.standard_normal((32, D), dtype=np.float32)
+             / np.float32(np.sqrt(32)))
+    rows = rng.standard_normal((n, 32), dtype=np.float32) @ basis
+    qs = rng.standard_normal((nq, 32), dtype=np.float32) @ basis
+    chunks = [(c0, min(c0 + P12_CHUNK, n)) for c0 in range(0, n, P12_CHUNK)]
+
+    def items(c0, c1):
+        return [BatchInsertItem(str(i), Vector(rows[i]))
+                for i in range(c0, c1)]
+
+    # three builds of one graph, each on its own host thread: the served
+    # store (a child process, over HTTP), an in-process store and a
+    # durable engine; a seeded graph builds on one thread, so all three
+    # are the same graph
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vectordb_tpu_torch", "--index", "hnsw",
+         "--hnsw-seed", str(args.seed), "serve", "--addr", "127.0.0.1:0"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    base = tempfile.mkdtemp(prefix="vdb_p12_")
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 300)
+        line = proc.stdout.readline() if ready else ""
+        if "(native) listening on" not in line:
+            fail(f"phase 12: the HNSW server did not start natively: {line}"
+                 f"{proc.stdout.read()[-2000:] if proc.poll() else ''}")
+        port = int(line.strip().rsplit(":", 1)[1])
+        params = HnswParams(seed=args.seed)
+        local = VectorStore.with_index(HnswIndex(E, params))
+        # no auto-checkpoint mid-load: one checkpoint after it
+        cfg = EngineConfig(checkpoint_interval=1 << 30, index_type="hnsw",
+                           hnsw_params=params, device="cuda")
+        times = {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            fn()
+            times[name] = time.perf_counter() - t0
+
+        def serve_build():
+            for c0, c1 in chunks:
+                st, _ = http_call(port, "POST", "/vectors/batch", {
+                    "vectors": [{"id": str(i), "vector": rows[i].tolist()}
+                                for i in range(c0, c1)]})
+                if st != 201:
+                    raise RuntimeError(f"POST /vectors/batch status {st}")
+
+        def local_build():
+            for c0, c1 in chunks:
+                local.insert_batch(items(c0, c1))
+
+        def durable_build():
+            with StorageEngine.open(base, cfg) as eng:
+                for c0, c1 in chunks:
+                    eng.insert_batch(items(c0, c1))
+                times["writer"] = [eng.search(Vector(q), K, ef=100)
+                                   for q in qs[:64]]
+                t0 = time.perf_counter()
+                eng.checkpoint()
+                times["checkpoint"] = time.perf_counter() - t0
+
+        errors = []
+
+        def run(name, fn):
+            try:
+                timed(name, fn)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append((name, repr(e)))
+
+        builders = [threading.Thread(target=run, args=(name, fn))
+                    for name, fn in (("served build", serve_build),
+                                     ("local build", local_build),
+                                     ("durable build", durable_build))]
+        for t in builders:
+            t.start()
+        for t in builders:
+            t.join()
+        if errors:
+            fail(f"phase 12 builds failed: {errors}")
+
+        # the on-card f32 oracle
+        dev = torch.device("cuda")
+        db = torch.from_numpy(rows).to(dev)
+        q = torch.from_numpy(qs).to(dev)
+        ora_d2, ora_i = oracle_sq(q, db, (db * db).sum(1),
+                                  torch.ones(n, dtype=torch.bool, device=dev),
+                                  K, torch)
+        del db, q
+        lines = []
+        for ef in P12_EFS:
+            t0 = time.perf_counter()
+            st, served = http_call(port, "POST", "/search/batch", {
+                "queries": [{"vector": qq.tolist(), "k": K} for qq in qs],
+                "ef": ef})
+            http_s = time.perf_counter() - t0
+            if st != 200:
+                fail(f"phase 12 /search/batch ef={ef} status {st}")
+            t0 = time.perf_counter()
+            mine = local.search_batch([(Vector(qq), K) for qq in qs], ef=ef)
+            host_ms = (time.perf_counter() - t0) * 1e3 / nq
+            sids = [[int(h["id"]) for h in row] for row in served]
+            lids = [[int(r.id) for r in row] for row in mine]
+            if sids != lids:
+                bad = next(i for i in range(nq) if sids[i] != lids[i])
+                fail(f"phase 12 ef={ef}: the served ids differ from the "
+                     f"in-process index's at query {bad}: {sids[bad]} vs "
+                     f"{lids[bad]}")
+            rec = float(np.mean([len(set(s) & set(o[:K].tolist())) / K
+                                 for s, o in zip(sids, ora_i)]))
+            if ef == max(P12_EFS) and rec < P12_RECALL_MIN:
+                fail(f"phase 12 recall@{K} {rec:.4f} at ef={ef} is below "
+                     f"{P12_RECALL_MIN}")
+            lines.append(f"ef={ef}: recall@{K} {rec:.4f}, host "
+                         f"{host_ms:.3f} ms/query in process, "
+                         f"{http_s * 1e3 / nq:.3f} ms/query over HTTP")
+        # single /search requests with the knob (the front end's grouped
+        # submit by (k, ef, ...)) answer as the in-process index
+        for i in range(16):
+            st, hits = http_call(port, "POST", "/search", {
+                "vector": qs[i].tolist(), "k": K, "ef": P12_EFS[0]})
+            want = [r.id for r in local.search(Vector(qs[i]), K,
+                                               ef=P12_EFS[0])]
+            if st != 200 or [h["id"] for h in hits] != want:
+                fail(f"phase 12 /search ef={P12_EFS[0]} query {i}: {hits}")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+
+    # the durable engine: reopen imports the checkpointed graph
+    try:
+        if not os.path.exists(os.path.join(base, "hnsw_graph.npz")):
+            fail("phase 12: the checkpoint wrote no hnsw_graph.npz")
+        rebuilt = []
+        orig = StorageEngine._apply_snapshot
+        StorageEngine._apply_snapshot = (
+            lambda self, snap: rebuilt.append(1) or orig(self, snap))
+        try:
+            t0 = time.perf_counter()
+            with StorageEngine.open(base, cfg) as eng:
+                reopen_s = time.perf_counter() - t0
+                again = [eng.search(Vector(qq), K, ef=100) for qq in qs[:64]]
+                n_eng = len(eng)
+        finally:
+            StorageEngine._apply_snapshot = orig
+        if rebuilt:
+            fail("phase 12: the reopen rebuilt the graph instead of "
+                 "importing it")
+        if n_eng != n or again != times["writer"]:
+            fail("phase 12: the reopened engine answers differently from "
+                 "its writer")
+        graph_mb = os.path.getsize(os.path.join(base, "hnsw_graph.npz")) / 1e6
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    say(f"phase 12 HNSW N={n} x {D} intrinsic-dim-32 rows (reduced from "
+        f"the 1M-row north star: host build), m={params.m}, "
+        f"ef_construction={params.ef_construction}, seed {args.seed}, "
+        f"Q={nq} k={K} [{card}]: builds (one host thread each, "
+        f"concurrent) served over HTTP {times['served build']:.3f} s, in "
+        f"process {times['local build']:.3f} s, durable "
+        f"{times['durable build']:.3f} s; served ids equal the in-process "
+        f"index's; " + "; ".join(lines))
+    say(f"phase 12 durable HNSW: checkpoint {times['checkpoint']:.3f} s "
+        f"(hnsw_graph.npz {graph_mb:.1f} MB), reopen {reopen_s:.3f} s with "
+        f"the graph imported (no rebuild), 64 answers equal the writer's")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
@@ -1914,7 +2491,11 @@ def main() -> None:
     # phase 10's writer process (this script, run by itself on the card)
     ap.add_argument("--writer", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--storage", default="f32", help=argparse.SUPPRESS)
+    # phase 11's load-generating clients (this script, run by itself)
+    ap.add_argument("--http-client", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.http_client:
+        client_main(args)
 
     try:
         import torch
@@ -2220,6 +2801,12 @@ def main() -> None:
                             "bound_ms": r["bound"][0],
                             "bound_by": r["bound"][1],
                             "library_ms": r["library_ms"]} for r in k3])]
+
+    # -- phase 11: serving on the card, over phase 3's store while it is
+    # still loaded (run here, between phases 6 and 7) --------------------
+    p11 = serving_phase(store, rows, dead, qs, ora_d2, ora_i, card,
+                        dict(np=np, torch=torch, cuda_kernels=cuda_kernels,
+                             Vector=Vector))
     del store, small, hstore, state, sstate, forced, res, res_fast, sres
     del tidx, index
     free(torch)
@@ -2280,6 +2867,8 @@ def main() -> None:
     k9 = k9_phase(rows, qs, rng, card, mods)
     # -- phase 10: durability on the card ---------------------------------
     p10 = durability_phase(args, rows, card, mods, rate)
+    # -- phase 12: HNSW ----------------------------------------------------
+    hnsw_phase(args, card, mods)
     table += [
         kernel_row("K8 pq_decode", "pq_decode.cu", 286, k8["launches"],
                    worst["pq_decode"], k8["ms"], k8["plain_ms"], k8["bound"],
@@ -2295,6 +2884,9 @@ def main() -> None:
         key = row["name"].split()[1]
         if key in p10:
             row["recovery_launches"] = p10[key]
+        if key in p11:
+            # phase 11's windows: every served search's K1 and K2
+            row["serving_launches"] = p11[key]
     if min(r["launches"] for r in table) < 1:
         fail(f"a kernel never launched on its path: "
              f"{[(r['name'], r['launches']) for r in table]}")

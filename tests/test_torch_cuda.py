@@ -827,3 +827,129 @@ def test_search_while_prehydrate_runs(dev, when, monkeypatch):
     want = np.argsort(d2, axis=1)[:, :10]
     assert [[i for i, _ in r] for r in got] == want.tolist()
     assert ix._device_ready is None
+
+
+def test_submit_upsert_collect_across_threads_and_streams(dev):
+    """The serving front end's hazard: a search submitted on one thread
+    and stream (its kernels queued behind a sleep, so they run late), an
+    upsert of every row it should find plus another search on a second
+    thread (the copy-scatter path), then the collect on a third thread
+    whose current stream is a third one. The collect waits on the
+    submit's stream and returns the answers of the rows as they were at
+    submit."""
+    import threading
+
+    rng = np.random.default_rng(31)
+    n, d = 65536, 128
+    rows = rng.standard_normal((n, d), dtype=np.float32)
+    qs = rows[:32] + np.float32(1e-3)
+    store = VectorStore.with_flat_index(DistanceMetric.EUCLIDEAN,
+                                        device="cuda")
+    store.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                        for i in range(n)])
+    batch = [(Vector(q), 5) for q in qs]
+    want = [[r.id for r in row] for row in store.search_batch(batch)]
+    assert [row[0] for row in want] == [str(i) for i in range(32)]
+    s_submit, s_collect = torch.cuda.Stream(), torch.cuda.Stream()
+    box = {}
+
+    def submit():
+        with torch.cuda.stream(s_submit):
+            torch.cuda._sleep(int(5e8))
+            box["h"] = store.search_batch_submit(batch)
+
+    def upsert():
+        for i in range(32):
+            store.insert(str(i), Vector(-rows[i] * 50.0))
+        box["after"] = [[r.id for r in row]
+                        for row in store.search_batch(batch)]
+
+    def collect():
+        with torch.cuda.stream(s_collect):
+            box["got"] = [[r.id for r in row] for row in box["h"].collect()]
+
+    for fn in (submit, upsert, collect):
+        t = threading.Thread(target=fn)
+        t.start()
+        t.join()
+    assert box["got"] == want
+    assert all(row[0] != str(i) for i, row in enumerate(box["after"]))
+
+
+def test_native_server_over_card_store_answers_clients(dev):
+    """The native front end over a store on the card: concurrent clients
+    (threads here) get the f64 oracle's ids, at depths 1 and 2."""
+    import json
+    import threading
+    import urllib.request
+
+    from vectordb_tpu_torch.server.app import AppState
+    from vectordb_tpu_torch.server.native_http import NativeHttpServer
+    from vectordb_tpu_torch.server.routes import Api
+    rng = np.random.default_rng(32)
+    n, d = 65536, 128
+    rows = rng.standard_normal((n, d), dtype=np.float32)
+    qs = rng.standard_normal((64, d), dtype=np.float32)
+    store = VectorStore.with_flat_index(DistanceMetric.EUCLIDEAN,
+                                        device="cuda")
+    store.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                        for i in range(n)])
+    d2 = ((qs.astype(np.float64)[:, None, :] - rows[None, :, :]) ** 2).sum(-1)
+    want = np.argsort(d2, axis=1)[:, :10]
+    for depth in (1, 2):
+        srv = NativeHttpServer(Api(AppState(store)), "127.0.0.1", 0,
+                               pipeline_depth=depth)
+        srv.start_background()
+        errors = []
+
+        def client(t):
+            try:
+                for rep in range(4):
+                    qi = (t * 4 + rep) % 64
+                    req = urllib.request.Request(
+                        f"http://127.0.0.1:{srv.port}/search",
+                        data=json.dumps({"vector": qs[qi].tolist(),
+                                         "k": 10}).encode(), method="POST",
+                        headers={"Content-Type": "application/json"})
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        got = [int(h["id"]) for h in json.loads(r.read())]
+                    assert got == want[qi].tolist(), (qi, got)
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        srv.shutdown()
+        assert not errors, errors
+        assert sum(srv.drain_sizes) == 64
+
+
+@pytest.mark.parametrize("nq", [64, 512])
+def test_submit_does_not_wait_for_the_card(dev, nq):
+    """A submit behind a batch still queued on the card returns before
+    that batch has run: the query copy leaves from pinned memory without
+    a stream synchronize."""
+    import time
+
+    rng = np.random.default_rng(33)
+    n, d = 65536, 128
+    rows = rng.standard_normal((n, d), dtype=np.float32)
+    store = VectorStore.with_flat_index(DistanceMetric.EUCLIDEAN,
+                                        device="cuda")
+    store.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                        for i in range(n)])
+    batch = [(Vector(q), 10) for q in
+             rng.standard_normal((nq, d), dtype=np.float32)]
+    want = store.search_batch(batch)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e9))          # ~0.5-1 s of card time queued
+    t0 = time.perf_counter()
+    handle = store.search_batch_submit(batch)
+    submit_s = time.perf_counter() - t0
+    assert not torch.cuda.current_stream().query()   # the sleep still runs
+    assert handle.collect() == want
+    assert submit_s < 0.2, submit_s

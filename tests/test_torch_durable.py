@@ -264,9 +264,10 @@ class TestDurableSocket:
             seen["state"].store.wal._file is None          # closed
         with StorageEngine.open(tmp_path, EngineConfig(device="cpu")) as e:
             assert e.list_ids() == ["a"]
-        with pytest.raises(NotImplementedError, match="item 8"):
-            start_durable("127.0.0.1:0", tmp_path,
-                          EngineConfig(device="cpu"), backend="native")
+        # the front end and the batcher window reach serve as given
+        start_durable("127.0.0.1:0", tmp_path, EngineConfig(device="cpu"),
+                      batch_window_ms=2.0, backend="native")
+        assert seen["kw"] == {"batch_window_ms": 2.0, "backend": "native"}
 
     def test_cli_serve_durable_dir_process(self, tmp_path):
         """``serve --durable-dir`` as its own process: a write, a stop by

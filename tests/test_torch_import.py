@@ -18,7 +18,7 @@ PKG = ROOT / "vectordb_tpu_torch"
 MODULES = sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")
                  if "_build" not in p.parts) + [
                      "chip_smoke.py", "tools/coarse_bodies.py",
-                     "tools/profile_torch_slice.py"]
+                     "tools/profile_torch_slice.py", "tools/serving_sweep.py"]
 
 _PROBE = """
 import sys
@@ -28,7 +28,9 @@ import vectordb_tpu_torch.server, vectordb_tpu_torch.ops.cuda_kernels
 import vectordb_tpu_torch.index.pq, vectordb_tpu_torch.ops.pq
 import vectordb_tpu_torch.ops.flat_kernel
 import vectordb_tpu_torch.persistence
-from vectordb_tpu_torch.server.app import start_durable
+import vectordb_tpu_torch.server.native_http, vectordb_tpu_torch.server.batcher
+import vectordb_tpu_torch.index.hnsw, vectordb_tpu_torch.index.hnsw_native
+from vectordb_tpu_torch.server.app import start_durable, start_hnsw
 import tempfile
 from vectordb_tpu_torch import Vector
 from vectordb_tpu_torch.persistence import EngineConfig, StorageEngine
@@ -38,6 +40,26 @@ with tempfile.TemporaryDirectory() as d:
         eng.checkpoint()
     with StorageEngine.open(d, EngineConfig(device="cpu")) as eng:
         assert eng.search(Vector([1.0, 2.0]), 1)[0].id == "a"
+    hnsw = EngineConfig(index_type="hnsw", device="cpu")
+    with StorageEngine.open(d + "/h", hnsw) as eng:
+        eng.insert("a", Vector([1.0, 2.0]))
+        eng.checkpoint()
+    with StorageEngine.open(d + "/h", hnsw) as eng:
+        assert eng.search(Vector([1.0, 2.0]), 1)[0].id == "a"
+from vectordb_tpu_torch.server.app import AppState, serve
+from vectordb_tpu_torch import VectorStore, DistanceMetric
+import threading
+state = AppState(VectorStore.with_flat_index(DistanceMetric.EUCLIDEAN,
+                                             device="cpu"))
+ready = threading.Event()
+t = threading.Thread(target=serve, args=("127.0.0.1:0", state),
+                     kwargs={"ready_event": ready, "batch_window_ms": 1.0},
+                     daemon=True)
+t.start()
+assert ready.wait(60)
+assert type(state.server).__name__ == "NativeHttpServer"
+state.server.shutdown()
+t.join(30)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'vectordb_tpu'))
 print(repr(bad))
@@ -50,7 +72,7 @@ def test_import_leaves_jax_and_triton_out():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]", out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
 def test_import_builds_nothing():
@@ -146,3 +168,36 @@ def test_native_build_failure_raises_with_the_log(tmp_path, monkeypatch):
     assert not list((tmp_path / "_build").iterdir())
     monkeypatch.setenv("VDB_TPU_NO_NATIVE", "1")
     assert native_lib.get_native() is None
+
+
+def test_native_build_is_safe_from_six_processes_at_once(tmp_path):
+    """Six processes (the Tier-1 run's xdist workers) building the native
+    core into one empty build directory at once: each compiles into a
+    file of its own and renames it into place, so all six load a
+    complete library and one library is left."""
+    code = (
+        "import sys\n"
+        "from pathlib import Path\n"
+        "from vectordb_tpu_torch.persistence import native_lib\n"
+        "native_lib.BUILD_DIR = Path(sys.argv[1])\n"
+        "lib = native_lib.get_native()\n"
+        "assert lib.vdb_crc32(native_lib.as_u8p(b'abc'), 3) == 0x352441C2\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("VDB_TPU_NO_NATIVE", None)
+    procs = [subprocess.Popen([sys.executable, "-c", code,
+                               str(tmp_path / "_build")], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(6)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [o[1][-500:] for o in outs]
+    assert all(o[0].strip() == "ok" for o in outs)
+    assert [p.name for p in (tmp_path / "_build").iterdir()
+            if p.suffix == ".so"] == [native_lib_name()]
+    assert not [p for p in (tmp_path / "_build").iterdir()
+                if p.name.endswith(".tmp")]
+
+
+def native_lib_name():
+    from vectordb_tpu_torch.persistence import native_lib
+    return native_lib._build().name

@@ -596,8 +596,7 @@ class TestEngineBatch:
         with pytest.raises(ValueError):
             open_engine(tmp_path, index_type="annoy")
 
-    @pytest.mark.parametrize("kind, item", [("hnsw", 10), ("ivf", 11),
-                                            ("ivfpq", 12)])
+    @pytest.mark.parametrize("kind, item", [("ivf", 11), ("ivfpq", 12)])
     def test_unported_index_types_name_their_items(self, tmp_path, kind,
                                                    item):
         with pytest.raises(ValueError, match=f"item {item}"):

@@ -771,5 +771,7 @@ def test_cli_index_pq(capsys):
     assert main(["--device", "cpu", "--index", "pq", "--storage", "bf16",
                  "list"]) == 1
     assert "owns its device representation" in capsys.readouterr().err
-    for kind in ("ivf", "ivfpq", "hnsw"):
+    for kind in ("ivf", "ivfpq"):
         assert main(["--device", "cpu", "--index", kind, "list"]) == 1
+    # --index hnsw is ported (tests/test_torch_cli.py)
+    assert main(["--device", "cpu", "--index", "hnsw", "list"]) == 0

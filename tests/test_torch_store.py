@@ -305,13 +305,28 @@ def test_http_server_on_a_socket():
 
 
 def test_serving_options_not_ported_refuse():
+    """The native front end and the batcher window, once refused, serve
+    now (tests/test_torch_serving.py drives them); an unknown backend is
+    still refused."""
+    import threading
+
     from vectordb_tpu_torch.server.app import serve
-    state = AppState(T.VectorStore.with_flat_index(
-        T.DistanceMetric.EUCLIDEAN, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve("127.0.0.1:0", state, backend="native")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve("127.0.0.1:0", state, batch_window_ms=2.0)
+    from vectordb_tpu_torch.server.native_http import NativeHttpServer
+    for kw in ({"backend": "native"}, {"batch_window_ms": 2.0}):
+        state = AppState(T.VectorStore.with_flat_index(
+            T.DistanceMetric.EUCLIDEAN, device="cpu"))
+        ready = threading.Event()
+        thread = threading.Thread(target=serve, args=("127.0.0.1:0", state),
+                                  kwargs={"ready_event": ready, **kw},
+                                  daemon=True)
+        thread.start()
+        assert ready.wait(60)
+        assert isinstance(state.server, NativeHttpServer)
+        state.server.shutdown()
+        thread.join(30)
+        assert not thread.is_alive()
+    with pytest.raises(ValueError, match="backend"):
+        serve("127.0.0.1:0", state, backend="gpu")
 
 
 def test_cli_in_memory_verbs(capsys):
@@ -351,8 +366,9 @@ def test_cli_storage_insert_then_search(storage, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--index", "hnsw", "list"], ["--index", "ivf", "list"],
-    ["serve", "--http", "native"], ["serve", "--batch-window-ms", "2"]])
+    ["--index", "ivfpq", "list"], ["--index", "ivf", "list"],
+    ["--index", "ivf", "serve", "--http", "native"],
+    ["--index", "ivfpq", "serve", "--batch-window-ms", "2"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert cli.main(["--device", "cpu", *argv]) == 1
     assert "ROADMAP" in capsys.readouterr().err

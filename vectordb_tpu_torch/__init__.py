@@ -11,9 +11,11 @@ Ported so far: the exact flat-search slice — ``VectorStore`` over a
 ladder (kernels K1-K7), metadata filters, radius search, the stdlib HTTP
 server and the CLI; ``PqFlatIndex`` (PQ codes, decode kernel K8, exact
 re-rank); the first-generation two-phase scan
-(``ops.flat_kernel``, kernel K9); and the durability layer
+(``ops.flat_kernel``, kernel K9); the durability layer
 (``persistence``: WAL, snapshots and recovery in the JAX package's file
-formats, the CLI's ``--data-dir`` and ``serve --durable-dir``).
+formats, the CLI's ``--data-dir`` and ``serve --durable-dir``); serving
+through the native C++ front end or the query batcher; and ``HnswIndex``
+(the graph on the host, its checkpoint in ``hnsw_graph.npz``).
 """
 
 from .distance import (DistanceMetric, cosine_distance, dot_product,  # noqa: F401
@@ -21,7 +23,8 @@ from .distance import (DistanceMetric, cosine_distance, dot_product,  # noqa: F4
 from .errors import (DimensionMismatchError, IndexOpError,  # noqa: F401
                      InvalidVectorError, SerializationError, StorageError,
                      VdbIoError, VectorDbError, VectorNotFoundError)
-from .index import FlatIndex, Index, PqFlatIndex  # noqa: F401
+from .index import (FlatIndex, HnswIndex, HnswParams, Index,  # noqa: F401
+                    PqFlatIndex)
 from .metadata import Metadata, MetadataFilter  # noqa: F401
 from .metrics import MetricsCollector  # noqa: F401
 from .store import BatchInsertItem, SearchResult, VectorStore  # noqa: F401

@@ -12,14 +12,20 @@ src/main.rs:10-198):
   * ``--index pq`` serves a PQ-Flat store (PqFlatIndex: codes on the
     device, exact re-rank); it owns its device representation, so
     ``--storage`` other than f32 is refused, as the JAX package does
+  * ``--index hnsw`` serves an HNSW store (the graph on the host;
+    ``--hnsw-seed N``, the port's own flag, seeds it and makes its build
+    reproducible), in memory, with ``--data-dir`` and under ``serve``
+  * ``search --ef / --nprobe / --refine`` are the per-query recall knobs;
+    a knob the index lacks is an error, as in the JAX package
   * ``--data-dir DIR`` runs insert, search, list and delete against a
     durable store there (persistence.StorageEngine: WAL + snapshots, the
     JAX package's files); ``serve --durable-dir DIR`` serves one over
     HTTP. ``serve`` with ``--data-dir`` is rejected, as in the reference
+  * ``serve --http native|python|auto`` picks the front end (auto: the
+    C++ one) and ``--batch-window-ms`` puts the query batcher behind it
 
 Refused with a clear error until their slices land (ROADMAP queue 1):
-``--index`` hnsw, ivf and ivfpq, ``--http native`` and
-``--batch-window-ms`` (native HTTP + batcher).
+``--index`` ivf and ivfpq.
 """
 
 from __future__ import annotations
@@ -42,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--index",
                         choices=["flat", "hnsw", "ivf", "pq", "ivfpq"],
                         default="flat",
-                        help="Index type to use for search (flat and pq "
-                             "are ported so far)")
+                        help="Index type to use for search (flat, hnsw "
+                             "and pq are ported so far)")
     parser.add_argument("--data-dir", default=None,
                         help="Data directory for persistence (if not "
                              "specified, uses in-memory storage)")
@@ -64,6 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Device for the index's state: cuda (default; "
                              "runs the CUDA kernels), cuda:N, or cpu (plain "
                              "PyTorch versions of the kernels)")
+    parser.add_argument("--hnsw-seed", type=int, default=None,
+                        help="Seed of the HNSW graph (--index hnsw): a "
+                             "seeded graph builds on one thread, so the "
+                             "same rows give the same graph")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p_insert = sub.add_parser("insert", help="Insert a vector")
@@ -78,12 +88,21 @@ def build_parser() -> argparse.ArgumentParser:
     p_search.add_argument("-k", type=int, default=None,
                           help="Number of results to return (default 5; "
                                "mutually exclusive with --radius)")
+    p_search.add_argument("--ef", type=int, default=None,
+                          help="HNSW beam width for this query "
+                               "(requires --index hnsw)")
     p_search.add_argument("--radius", type=float, default=None,
                           help="Range query: return every vector within "
                                "this distance instead of the top k "
                                "(capped at --limit results)")
     p_search.add_argument("--limit", type=int, default=100,
                           help="Result cap for --radius queries")
+    p_search.add_argument("--nprobe", type=int, default=None,
+                          help="IVF clusters to probe for this query "
+                               "(requires --index ivf)")
+    p_search.add_argument("--refine", type=int, default=None,
+                          help="PQ candidates to re-rank exactly for this "
+                               "query (requires --index pq)")
 
     p_delete = sub.add_parser("delete", help="Delete a vector")
     p_delete.add_argument("id", help="Vector ID to delete")
@@ -98,12 +117,14 @@ def build_parser() -> argparse.ArgumentParser:
                               "directory (every write durable before its "
                               "response; POST /checkpoint compacts)")
     p_serve.add_argument("--batch-window-ms", type=float, default=0.0,
-                         help="Query batcher window (not ported yet; 0 = "
-                              "disabled)")
+                         help="Coalesce concurrent searches into one device "
+                              "call within this window (0 = disabled; the "
+                              "native backend drain-batches regardless)")
     p_serve.add_argument("--http", choices=["auto", "native", "python"],
                          default="auto",
-                         help="HTTP backend (only the stdlib threaded "
-                              "server is ported; auto selects it)")
+                         help="HTTP backend: the C++ epoll front end "
+                              "(native), the stdlib threaded server "
+                              "(python), or auto-detect")
     return parser
 
 
@@ -116,11 +137,20 @@ def _run_commands(db, args) -> int:
     elif args.command == "search":
         q = Vector.from_str(args.query)
         if args.radius is not None:
+            # same contract as the HTTP surface (routes.py): k and the
+            # recall knobs are mutually exclusive with a range query
             if args.k is not None:
                 raise IndexOpError("-k and --radius are mutually exclusive")
+            if (args.ef is not None or args.nprobe is not None
+                    or args.refine is not None):
+                raise IndexOpError(
+                    "--ef/--nprobe/--refine cannot be combined with "
+                    "--radius")
             results = db.search_radius(q, args.radius, limit=args.limit)
         else:
-            results = db.search(q, 5 if args.k is None else args.k)
+            results = db.search(q, 5 if args.k is None else args.k,
+                                ef=args.ef, nprobe=args.nprobe,
+                                refine=args.refine)
         if not results:
             print("No results found (store is empty)"
                   if args.radius is None else "No results within radius")
@@ -144,26 +174,41 @@ def _run_commands(db, args) -> int:
 
 def _refusal(args) -> Optional[str]:
     """Why this command line needs a slice that is not ported yet."""
-    if args.index not in ("flat", "pq"):
+    if args.index not in ("flat", "hnsw", "pq"):
         return (f"--index {args.index} is not ported yet (ROADMAP queue 1); "
-                "use --index flat or pq")
+                "use --index flat, hnsw or pq")
     if args.index == "pq" and args.storage != "f32":
         return (f"--index {args.index} owns its device representation "
                 "(codes); --storage does not compose with it.")
-    if args.command == "serve":
-        if args.http == "native":
-            return "--http native is not ported yet (ROADMAP queue 1 item 8)"
-        if args.batch_window_ms > 0:
-            return ("--batch-window-ms needs the query batcher (ROADMAP "
-                    "queue 1 item 8)")
     return None
+
+
+def _hnsw_params(args):
+    from .index.hnsw import HnswParams
+    return HnswParams(seed=args.hnsw_seed)
 
 
 def _engine_config(args, metric: DistanceMetric):
     from .persistence import EngineConfig
     return EngineConfig(checkpoint_interval=1000, metric=metric,
-                        index_type=args.index, search_mode=args.search_mode,
+                        index_type=args.index,
+                        hnsw_params=(_hnsw_params(args)
+                                     if args.index == "hnsw" else None),
+                        search_mode=args.search_mode,
                         storage=args.storage, device=args.device)
+
+
+def _memory_store(args, metric: DistanceMetric) -> VectorStore:
+    if args.index == "pq":
+        from .index.pq import PqFlatIndex
+        return VectorStore.with_index(PqFlatIndex(metric,
+                                                  device=args.device))
+    if args.index == "hnsw":
+        from .index.hnsw import HnswIndex
+        return VectorStore.with_index(HnswIndex(metric, _hnsw_params(args)))
+    return VectorStore.with_flat_index(metric, search_mode=args.search_mode,
+                                       storage=args.storage,
+                                       device=args.device)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -190,34 +235,29 @@ def main(argv: Optional[List[str]] = None) -> int:
                               batch_window_ms=args.batch_window_ms,
                               backend=args.http)
                 return 0
-            if args.index == "pq":
-                from .index.pq import PqFlatIndex
-                from .server.app import AppState, serve
-                serve(args.addr,
-                      AppState(VectorStore.with_index(
-                          PqFlatIndex(metric, device=args.device))),
-                      batch_window_ms=args.batch_window_ms,
-                      backend=args.http)
+            if args.index == "flat":
+                from .server.app import start_flat
+                start_flat(args.addr, metric,
+                           batch_window_ms=args.batch_window_ms,
+                           backend=args.http, search_mode=args.search_mode,
+                           storage=args.storage, device=args.device)
                 return 0
-            from .server.app import start_flat
-            start_flat(args.addr, metric, search_mode=args.search_mode,
-                       device=args.device, storage=args.storage)
+            if args.index == "hnsw":
+                from .server.app import start_hnsw
+                start_hnsw(args.addr, metric, _hnsw_params(args),
+                           batch_window_ms=args.batch_window_ms,
+                           backend=args.http)
+                return 0
+            from .server.app import AppState, serve
+            serve(args.addr, AppState(_memory_store(args, metric)),
+                  batch_window_ms=args.batch_window_ms, backend=args.http)
             return 0
         if args.data_dir:
             from .persistence import StorageEngine
             with StorageEngine.open(args.data_dir,
                                     _engine_config(args, metric)) as engine:
                 return _run_commands(engine, args)
-        if args.index == "pq":
-            from .index.pq import PqFlatIndex
-            store = VectorStore.with_index(PqFlatIndex(metric,
-                                                       device=args.device))
-        else:
-            store = VectorStore.with_flat_index(metric,
-                                                search_mode=args.search_mode,
-                                                storage=args.storage,
-                                                device=args.device)
-        return _run_commands(store, args)
+        return _run_commands(_memory_store(args, metric), args)
     except (VectorDbError, RuntimeError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1

@@ -13,6 +13,11 @@ needs no ml_dtypes.
 adds its trained state (``export_trained_state()``: codebook, rotation)
 and, optionally, the JAX index's per-slot ``_codes``, so the two scans
 read the same codes slot for slot.
+
+``hnsw_store_from_reference`` carries an ``HnswIndex`` store across: the
+graph's ``export_padded_tables()`` (numpy arrays: rows, adjacency, levels,
+entry point) are imported into a port graph of the same parameters, so
+the two traversals walk the same graph.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 
 from .distance import DistanceMetric
 from .index.flat import FlatIndex
+from .index.hnsw import HnswIndex, HnswParams
 from .index.pq import PqFlatIndex
 from .store import VectorStore
 
@@ -72,6 +78,24 @@ def pq_store_from_reference(vectors: np.ndarray, valid: np.ndarray,
     return _wrap(index, valid, id_of_slot, internal_to_string, metadata)
 
 
+def hnsw_store_from_reference(tables: dict,
+                              internal_to_string: Dict[int, str],
+                              metric: DistanceMetric, params: HnswParams,
+                              backend: str = "auto",
+                              metadata: Optional[Dict[int, Dict[str, str]]]
+                              = None) -> VectorStore:
+    """A port ``VectorStore`` over ``HnswIndex(metric, params, backend)``
+    whose graph is the JAX index's, from its ``graph.export_padded_tables()``
+    (``params`` must match the exporting graph's m, m_max0 and
+    max_layers). ``metadata`` maps internal id -> fields."""
+    index = HnswIndex(metric, params, backend=backend)
+    if np.asarray(tables["vectors"]).shape[0]:
+        index.graph.import_padded_tables(tables)
+    valid = np.asarray(tables["valid"], bool)
+    id_of_slot = np.asarray(tables["id_of_slot"], np.int64)
+    return _wrap(index, valid, id_of_slot, internal_to_string, metadata)
+
+
 def _wrap(index, valid, id_of_slot, internal_to_string, metadata
           ) -> VectorStore:
     live_ids = set(np.asarray(id_of_slot)[np.asarray(valid, bool)].tolist())
@@ -86,4 +110,5 @@ def _wrap(index, valid, id_of_slot, internal_to_string, metadata
     return store
 
 
-__all__ = ["store_from_reference", "pq_store_from_reference"]
+__all__ = ["store_from_reference", "pq_store_from_reference",
+           "hnsw_store_from_reference"]

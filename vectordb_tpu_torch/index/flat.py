@@ -203,10 +203,15 @@ class FlatIndex(Index):
     """Exact k-NN via the certified device flat scan."""
 
     def __init__(self, metric: DistanceMetric, search_mode: str = "exact",
-                 storage: str = "f32", device="cuda",
-                 host_backing: Optional[str] = None):
+                 mesh=None, row_axis: str = "shard", storage: str = "f32",
+                 host_backing: Optional[str] = None, device="cuda"):
         if search_mode not in ("exact", "fast"):
             raise ValueError(f"unknown search_mode: {search_mode!r}")
+        if mesh is not None:
+            # row_axis names the mesh axis the rows shard over; it has
+            # nothing to shard until the mesh is ported
+            raise ValueError("FlatIndex(mesh=...) is not ported yet "
+                             "(ROADMAP queue 1 item 13, multi-device)")
         if storage not in _STORAGES:
             raise ValueError(f"unknown storage: {storage!r}")
         # "exact": the certified ladder (tiers 1-3). "fast": the 1-pass

@@ -257,20 +257,27 @@ def flat_search_int8(queries, db8, scales, db_sq_norms, db_norms, valid,
 class SearchHandle:
     """An in-flight batched search launched by flat_search_batched_submit.
 
-    Kernel launches are asynchronous on the current CUDA stream;
-    ``collect()`` waits for the results (the device-to-host copy
-    synchronises), runs the fallback tiers for any uncertified queries,
-    and returns host numpy (dists, idx)."""
+    Kernel launches are asynchronous on the submitting thread's current
+    CUDA stream, which the handle records; ``collect()`` runs on that
+    stream whatever thread calls it (the serving front end collects on a
+    thread of its own), so its device-to-host copies wait for exactly the
+    work the submit launched. It runs the fallback tiers for any
+    uncertified queries and returns host numpy (dists, idx)."""
 
-    __slots__ = ("_collect", "_done")
+    __slots__ = ("_collect", "_done", "_stream")
 
     def __init__(self, collect_fn):
         self._collect = collect_fn
         self._done = None
+        self._stream = None
 
     def collect(self):
         if self._done is None:
-            self._done = self._collect()
+            if self._stream is None:
+                self._done = self._collect()
+            else:
+                with torch.cuda.stream(self._stream):
+                    self._done = self._collect()
         return self._done
 
 
@@ -293,12 +300,32 @@ def flat_search_batched_submit(queries_np: np.ndarray, device_state: dict,
     selects the certified exact ladder ("exact") or the 1-pass fast
     pipeline ("fast": exact distances, approximate ids). The tiers by
     storage are in the module docstring."""
+    db = device_state["db"]
+    handle = _submit(queries_np, device_state, metric, k, mode)
+    if db.is_cuda:
+        handle._stream = torch.cuda.current_stream(db.device)
+    return handle
+
+
+def _queries_to(queries_np: np.ndarray, device: torch.device
+                ) -> torch.Tensor:
+    """The queries on ``device``. To a card the copy leaves from pinned
+    memory without blocking the host: a pageable copy would wait for all
+    earlier work on the stream, and the serving front end's next submit
+    would then wait for the previous cycle's kernels."""
+    q = torch.from_numpy(np.require(queries_np, np.float32, ["C", "W"]))
+    if device.type != "cuda":
+        return q.to(device)
+    return q.pin_memory().to(device, non_blocking=True)
+
+
+def _submit(queries_np: np.ndarray, device_state: dict,
+            metric: DistanceMetric, k: int, mode: str) -> SearchHandle:
     from . import coarse_kernel
     db = device_state["db"]
     capacity = int(db.shape[0])
     d = queries_np.shape[1]
-    queries = torch.from_numpy(
-        np.require(queries_np, np.float32, ["C", "W"])).to(db.device)
+    queries = _queries_to(queries_np, db.device)
     k_eff = min(int(k), capacity)
     args = (queries, db, device_state["sq_norms"], device_state["norms"],
             device_state["valid"])

@@ -2,7 +2,9 @@
 
 Port of ``vectordb_tpu/persistence/engine.py`` for the index types the
 port has: "flat" (``storage=`` f32, bf16 or int8; ``search_mode`` exact or
-fast) and "pq" (PQ-Flat, its trained codebook kept in ``pq_state.npz``).
+fast), "pq" (PQ-Flat, its trained codebook kept in ``pq_state.npz``) and
+"hnsw" (``hnsw_params``; its graph tables kept in ``hnsw_graph.npz``,
+bound to the snapshot's sha256 and imported on reopen instead of rebuilt).
 Capability parity with reference src/persistence/engine.rs:15-228:
   * ``open``: mkdir, load snapshot, replay WAL on top (engine.rs:44-73)
   * WAL-first durable writes for insert/delete (engine.rs:107-160): one
@@ -24,9 +26,9 @@ runs the same kernels as on a fresh store. The files are the JAX
 package's, byte for byte: either package opens the other's directory.
 
 ``EngineConfig.device`` (default "cuda") is where the index's device state
-lives; "cuda" without a card raises. Not ported yet: ``index_type``
-"hnsw", "ivf" and "ivfpq" (ROADMAP queue 1 items 10, 11 and 12) and
-``mesh=`` (item 13).
+lives; "cuda" without a card raises (an HNSW store keeps its graph on the
+host and ignores it). Not ported yet: ``index_type`` "ivf" and "ivfpq"
+(ROADMAP queue 1 items 11 and 12) and ``mesh=`` (item 13).
 """
 
 from __future__ import annotations
@@ -44,13 +46,14 @@ from ..errors import DimensionMismatchError, VectorNotFoundError
 from ..metadata import Metadata
 from ..store import BatchInsertItem, SearchResult, VectorStore
 from ..vector import Vector
-from .serialization import WAL_CHECKPOINT, WAL_DELETE, WAL_INSERT, WalEntry
+from .serialization import (WAL_CHECKPOINT, WAL_DELETE, WAL_INSERT,
+                            DatabaseSnapshot, WalEntry)
 from .snapshot import SnapshotManager, _durable_write
 from .wal import WriteAheadLog
 
 WAL_FILE = "wal.log"
 # index types of the JAX package the port has not reached, by ROADMAP item
-_UNPORTED = {"hnsw": 10, "ivf": 11, "ivfpq": 12}
+_UNPORTED = {"ivf": 11, "ivfpq": 12}
 
 
 class _ChunkedInserter:
@@ -76,14 +79,17 @@ class _ChunkedInserter:
 
 @dataclass
 class EngineConfig:
-    """Engine tuning (reference: engine.rs:15-29). ``storage`` (flat only):
-    quantization at insert is idempotent (pow2 scales / bf16 round-trip),
-    so WAL replay and snapshot re-apply reproduce the stored values bit for
-    bit. ``mesh`` is the JAX package's field for sharded storage, which is
-    not ported yet (it raises)."""
+    """Engine tuning (reference: engine.rs:15-29), in the JAX package's
+    field order; ``device`` (the port's own) comes last. ``storage`` (flat
+    only): quantization at insert is idempotent (pow2 scales / bf16
+    round-trip), so WAL replay and snapshot re-apply reproduce the stored
+    values bit for bit. ``hnsw_params`` (index_type "hnsw"): an
+    ``HnswParams``, default ``HnswParams()``. ``mesh`` is the JAX package's
+    field for sharded storage, which is not ported yet (it raises)."""
     checkpoint_interval: int = 1000
     metric: DistanceMetric = DistanceMetric.EUCLIDEAN
-    index_type: str = "flat"   # "flat" | "pq"
+    index_type: str = "flat"   # "flat" | "hnsw" | "pq"
+    hnsw_params: Optional[object] = None
     mesh: Optional[object] = None
     search_mode: str = "exact"      # flat scan mode: "exact" | "fast"
     storage: str = "f32"            # flat: "f32" | "bf16" | "int8"
@@ -91,6 +97,7 @@ class EngineConfig:
 
 
 class StorageEngine:
+    GRAPH_FILE = "hnsw_graph.npz"
     PQ_FILE = "pq_state.npz"
     _APPLY_CHUNK = 65536
 
@@ -103,8 +110,8 @@ class StorageEngine:
         if cfg.index_type in _UNPORTED:
             raise ValueError(
                 f"index_type={cfg.index_type!r} is not ported yet (ROADMAP "
-                f"queue 1 item {_UNPORTED[cfg.index_type]}); use 'flat' or "
-                "'pq'")
+                f"queue 1 item {_UNPORTED[cfg.index_type]}); use 'flat', "
+                "'hnsw' or 'pq'")
         if cfg.index_type == "pq":
             if cfg.storage != "f32":
                 raise ValueError(
@@ -112,6 +119,9 @@ class StorageEngine:
                     "(codes); storage quantization modes do not compose")
             from ..index.pq import PqFlatIndex
             index = PqFlatIndex(cfg.metric, device=cfg.device)
+        elif cfg.index_type == "hnsw":
+            from ..index.hnsw import HnswIndex, HnswParams
+            index = HnswIndex(cfg.metric, cfg.hnsw_params or HnswParams())
         elif cfg.index_type == "flat":
             from ..index.flat import FlatIndex
             index = FlatIndex(cfg.metric, search_mode=cfg.search_mode,
@@ -148,10 +158,17 @@ class StorageEngine:
                       file=sys.stderr, flush=True)
 
         self._recover_mark = _mark
-        reader = self.snapshots.open_stream()
-        if reader is not None:
-            with reader:
-                self._apply_snapshot_stream(reader)
+        if self.config.index_type == "hnsw":
+            # the graph import binds to the whole id set: the snapshot is
+            # read whole (HNSW checkpoints at far smaller row counts)
+            snap = self.snapshots.load()
+            if snap is not None and not self._try_import_graph(snap):
+                self._apply_snapshot(snap)
+        else:
+            reader = self.snapshots.open_stream()
+            if reader is not None:
+                with reader:
+                    self._apply_snapshot_stream(reader)
         _mark("snapshot applied")
         # overlap the device build with the WAL tail: the snapshot rows
         # (the bulk of the database) are final in host storage now, so the
@@ -199,6 +216,56 @@ class StorageEngine:
 
     def _pq_path(self) -> Path:
         return self.data_dir / self.PQ_FILE
+
+    def _graph_path(self) -> Path:
+        return self.data_dir / self.GRAPH_FILE
+
+    def _try_import_graph(self, snap: DatabaseSnapshot) -> bool:
+        """Fast HNSW reopen: restore the checkpointed graph tables instead
+        of re-inserting every row (O(read) against O(rebuild)). Any
+        mismatch or corruption falls back to the rebuild."""
+        if not self._graph_path().exists():
+            return False
+        try:
+            import numpy as np
+            index = self.store.index
+            with np.load(self._graph_path()) as z:
+                tables = {key: z[key] for key in z.files}
+            params = index.params
+            if (int(tables["m"]) != params.m
+                    or int(tables["m_max0"]) != params.m_max0
+                    or int(tables["max_layers"]) != params.max_layers
+                    or str(tables["metric"]) != self.config.metric.value):
+                return False
+            # the graph must belong to EXACTLY this snapshot: a crash
+            # between the snapshot and graph writes (or a rebuild that
+            # remapped internal ids) leaves a stale graph whose id set can
+            # still collide, which only the content digest tells apart
+            if str(tables.get("snapshot_digest", "")) != \
+                    self._snapshot_digest():
+                return False
+            graph_ids = {int(i) for i in tables["id_of_slot"][
+                np.asarray(tables["valid"], dtype=bool)]}
+            if graph_ids != {sv.internal_id for sv in snap.vectors}:
+                return False
+            index.graph.import_padded_tables(tables)
+            self.store.adopt_index_state(
+                {sv.internal_id: sv.string_id for sv in snap.vectors},
+                snap.metadata, snap.next_id, snap.dimension)
+            return True
+        except Exception:
+            return False  # any inconsistency: rebuild from the snapshot
+
+    def _apply_snapshot(self, snap: DatabaseSnapshot) -> None:
+        """Rebuild from a materialized snapshot: one batched insert of
+        every row with its metadata, then the internal-id counter."""
+        items = [BatchInsertItem(
+            id=sv.string_id, vector=Vector(sv.data),
+            metadata=Metadata(snap.metadata.get(sv.internal_id) or {}))
+            for sv in snap.vectors]
+        if items:
+            self.store.insert_batch(items)
+        self.store.restore_next_internal_id(snap.next_id)
 
     def _try_import_pq(self) -> bool:
         """Restore a trained PQ codebook so reopen never retrains. The
@@ -418,6 +485,7 @@ class StorageEngine:
 
     def checkpoint(self) -> None:
         self._save_snapshot_stream()
+        self._save_graph()
         self._save_pq()
         self.wal.append(WalEntry.checkpoint())
         self.wal.truncate()
@@ -445,6 +513,40 @@ class StorageEngine:
         self.snapshots.save_stream(rows(), metadata,
                                    self.store.next_internal_id,
                                    self.store.dimension, len(self.store))
+
+    def _snapshot_digest(self) -> str:
+        """sha256 of snapshot.bin ("" when absent): binds a graph file to
+        the snapshot it was written beside."""
+        import hashlib
+        h = hashlib.sha256()
+        try:
+            with open(self.snapshots.snapshot_path, "rb") as f:
+                while True:
+                    blk = f.read(64 << 20)
+                    if not blk:
+                        return h.hexdigest()
+                    h.update(blk)
+        except OSError:
+            return ""
+
+    def _save_graph(self) -> None:
+        """Write the HNSW graph tables beside the snapshot (the JAX
+        package's ``hnsw_graph.npz``, byte for byte) so reopen imports
+        instead of rebuilding."""
+        if self.config.index_type != "hnsw":
+            return
+        import io
+
+        import numpy as np
+        index = self.store.index
+        tables = index.graph.export_padded_tables()
+        params = index.params
+        buf = io.BytesIO()
+        np.savez(buf, m=params.m, m_max0=params.m_max0,
+                 max_layers=params.max_layers,
+                 metric=self.config.metric.value,
+                 snapshot_digest=self._snapshot_digest(), **tables)
+        _durable_write(self._graph_path(), buf.getvalue())
 
     def _save_pq(self) -> None:
         """Serialize the trained PQ codebook beside the snapshot so reopen

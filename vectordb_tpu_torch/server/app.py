@@ -1,18 +1,18 @@
-"""HTTP serving: AppState + a stdlib threaded HTTP server.
+"""HTTP serving: AppState + the native C++ front end or a stdlib server.
 
 Port of ``vectordb_tpu/server/app.py`` (reference src/server/mod.rs:13-51):
 ``AppState`` holds the store and metrics behind a readers-writer lock;
-``start_flat`` builds the state and serves over the stdlib
-``ThreadingHTTPServer``; ``serve`` takes any store's state, e.g. a PQ
-store's (``VectorStore.with_index(PqFlatIndex(metric))``, as the CLI's
-``--index pq serve`` builds it; the ``refine`` knob reaches it through
-the routes); ``start_durable`` serves a WAL-backed ``StorageEngine``.
-Route logic lives in routes.Api, which the in-process tests drive
-directly.
+``serve`` binds one of three backends: "native" (the C++ epoll front end,
+``native_http.NativeHttpServer``, whose drained job batches become one
+device search each), "python" (the stdlib ``ThreadingHTTPServer``) or
+"auto" (native unless ``VDB_TPU_NO_NATIVE`` is set, as in the JAX
+package). ``batch_window_ms > 0`` puts the query batcher
+(``batcher.QueryBatcher``) behind the routes. ``start_flat``,
+``start_hnsw`` and ``start_durable`` build a store and serve it. Route
+logic lives in routes.Api, which the in-process tests drive directly.
 
-Not in this slice: the native epoll front-end (``backend="native"``,
-ROADMAP queue 1 item 8), the query batcher (``batch_window_ms > 0``,
-same item), and HNSW serving (item 10).
+The JAX package's ``serve`` also turns on XLA's persistent compile cache;
+the port has no such cache (its kernels build once per source hash).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 from urllib.parse import unquote
 
 from ..distance import DistanceMetric
+from ..index.hnsw import HnswIndex, HnswParams
 from ..metrics import MetricsCollector
 from ..store import VectorStore
 from ..utils.locks import RwLock
@@ -39,13 +40,20 @@ class VdbHTTPServer(ThreadingHTTPServer):
 
 
 class AppState:
-    """Shared server state (reference: src/server/mod.rs:13-16)."""
+    """Shared server state (reference: src/server/mod.rs:13-16).
+
+    ``store`` is anything exposing the VectorStore surface: an in-memory
+    VectorStore or a persistence.StorageEngine (durable serving).
+    ``server`` is the front end ``serve`` bound for it (None before), so
+    an embedding caller can read its port and stop it with
+    ``server.shutdown()``."""
 
     def __init__(self, store: "VectorStore",
                  metrics: Optional[MetricsCollector] = None):
         self.store = store
         self.metrics = metrics or MetricsCollector()
         self.lock = RwLock()
+        self.server = None
 
 
 def _make_handler(api: Api):
@@ -92,35 +100,58 @@ def _make_handler(api: Api):
     return Handler
 
 
-def _check_serving_options(batch_window_ms: float, backend: str) -> None:
-    if backend == "native":
-        raise NotImplementedError(
-            "the native HTTP front-end is not ported yet (ROADMAP queue 1 "
-            "item 8); use backend='python'")
-    if backend not in ("auto", "python"):
-        raise ValueError(f"unknown backend: {backend!r}")
+def _make_api(state: AppState, batch_window_ms: float) -> Api:
     if batch_window_ms and batch_window_ms > 0:
-        raise NotImplementedError(
-            "the query batcher (batch_window_ms > 0) is not ported yet "
-            "(ROADMAP queue 1 item 8)")
+        from .batcher import QueryBatcher
+        batcher = QueryBatcher(state.store, state.lock,
+                               window_ms=batch_window_ms)
+        return Api(state, batcher=batcher)
+    return Api(state)
 
 
 def serve(addr: str, state: AppState,
           ready_event: Optional[threading.Event] = None,
           batch_window_ms: float = 0.0, backend: str = "auto") -> None:
-    """Bind and serve forever (reference: src/server/mod.rs:27-29) on the
-    stdlib threaded server ("auto" resolves to it in this slice)."""
-    _check_serving_options(batch_window_ms, backend)
+    """Bind and serve until stopped (reference: src/server/mod.rs:27-29).
+
+    ``backend``: "native" = the C++ epoll front end (httpcore.cpp) with
+    drain-batched searches; "python" = the stdlib threaded server; "auto"
+    (default) = native when the library is available. ``state.server``
+    is the bound server once ``ready_event`` is set."""
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"unknown backend: {backend!r}")
     host, port = _split_addr(addr)
-    server = VdbHTTPServer((host, port), _make_handler(Api(state)))
-    print(f"vectordb-tpu-torch server listening on "
-          f"{host}:{server.server_address[1]}", flush=True)
-    if ready_event is not None:
-        ready_event.set()
+    api = _make_api(state, batch_window_ms)
+    if backend == "auto":
+        from .native_http import native_http_available
+        backend = "native" if native_http_available() else "python"
     try:
-        server.serve_forever()
+        if backend == "native":
+            from .native_http import NativeHttpServer
+            server = NativeHttpServer(api, host, port)
+            state.server = server
+            print(f"vectordb-tpu-torch server (native) listening on "
+                  f"{host}:{server.port}", flush=True)
+            if ready_event is not None:
+                ready_event.set()
+            try:
+                server.serve_forever()
+            finally:
+                server.shutdown()
+            return
+        server = VdbHTTPServer((host, port), _make_handler(api))
+        state.server = server
+        print(f"vectordb-tpu-torch server listening on "
+              f"{host}:{server.server_address[1]}", flush=True)
+        if ready_event is not None:
+            ready_event.set()
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
     finally:
-        server.server_close()
+        if api.batcher is not None:
+            api.batcher.close()
 
 
 def start_server_background(addr: str, state: AppState
@@ -143,16 +174,25 @@ def _split_addr(addr: str) -> Tuple[str, int]:
 
 def start_flat(addr: str, metric: DistanceMetric,
                batch_window_ms: float = 0.0, backend: str = "auto",
-               search_mode: str = "exact", device="cuda",
-               storage: str = "f32") -> None:
+               search_mode: str = "exact", storage: str = "f32",
+               device="cuda") -> None:
     """Serve an in-memory flat-index store (reference:
     src/server/mod.rs:19-31) with its device state on ``device``."""
-    _check_serving_options(batch_window_ms, backend)
     serve(addr,
           AppState(VectorStore.with_flat_index(metric,
                                                search_mode=search_mode,
                                                storage=storage,
                                                device=device)),
+          batch_window_ms=batch_window_ms, backend=backend)
+
+
+def start_hnsw(addr: str, metric: DistanceMetric,
+               params: Optional[HnswParams] = None,
+               batch_window_ms: float = 0.0, backend: str = "auto") -> None:
+    """Serve an in-memory HNSW store (reference: src/server/mod.rs:34-51);
+    its graph lives on the host."""
+    index = HnswIndex(metric, params or HnswParams())
+    serve(addr, AppState(VectorStore.with_index(index)),
           batch_window_ms=batch_window_ms, backend=backend)
 
 
@@ -165,7 +205,6 @@ def start_durable(addr: str, data_dir, config=None,
     the write lock across the engine call, so appends serialize); reads go
     to the recovered store; POST /checkpoint forces a snapshot and a WAL
     truncate. ``config.device`` (default "cuda") places the index."""
-    _check_serving_options(batch_window_ms, backend)
     from ..persistence import StorageEngine
     with StorageEngine.open(data_dir, config) as engine:
         serve(addr, AppState(engine), batch_window_ms=batch_window_ms,
@@ -173,4 +212,4 @@ def start_durable(addr: str, data_dir, config=None,
 
 
 __all__ = ["AppState", "serve", "start_durable", "start_flat",
-           "start_server_background"]
+           "start_hnsw", "start_server_background"]

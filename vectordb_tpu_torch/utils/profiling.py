@@ -4,7 +4,7 @@ The reference's observability is wall-clock timing feeding MetricsCollector
 (src/server/routes.rs:242-271). On the GPU the interesting half lives on
 the device, so this module adds torch.profiler integration:
 
-  * ``trace(path)`` — capture a CPU + CUDA trace around any block and
+  * ``trace(logdir)`` — capture a CPU + CUDA trace around any block and
     write it as a Chrome trace
   * ``annotate(name)`` — a named ``record_function`` range so store/index
     phases show up inside the device trace
@@ -22,15 +22,16 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(path: str):
-    """Capture a torch.profiler trace of the enclosed block into ``path``
-    (Chrome trace JSON)."""
+def trace(logdir: str):
+    """Capture a torch.profiler trace of the enclosed block into
+    ``logdir``, a Chrome trace JSON file (the JAX package's name for the
+    parameter, whose ``jax.profiler`` writes a directory)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(path)
+    prof.export_chrome_trace(logdir)
 
 
 def annotate(name: str):
