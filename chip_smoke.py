@@ -126,12 +126,47 @@ nothing is caught and passed over):
      equal to the in-process index's; then the engine's checkpoint
      (hnsw_graph.npz), close and reopen: the graph imported, not
      rebuilt, and the answers equal the writer's.
+ 13. the HNSW device programs: 2^20 x 768 intrinsic-dim-32 rows (phase
+     12's protocol, a generator of its own) into
+     ``VectorStore.with_index(HnswIndex(..., bulk_build="auto",
+     device="cuda"))`` by one insert_batch, which must take the device
+     build (index/hnsw_build_device.py); its seconds split as
+     ``VDB_TPU_BUILD_TIMING`` splits them, and the K1 ("wgmma") and K2
+     ("tile_major") launches of its window; then ``search_batch_device``
+     (kernel H1) for Q=1024, k=10 at ef 50, 100 and 200: the batch by CUDA
+     events and by the host clock, recall@10 against an on-card f32
+     oracle, held to the host traversal's recall on the same graph (no
+     more than 0.02 below it); H1 timed alone beside its plain version
+     and its bound (the bytes of the rows this run's hops gathered, as
+     the plain version counts them), and held to it on 64 queries (the
+     same slots but for k-th ties, distances at rtol 1e-5); a search
+     with a slot mask passing half the slots (eligible-only, recall@10
+     against the masked oracle no more than 0.05 below the unmasked
+     recall at ef 200); and H1 over phase
+     12's host-built 16384-row graph (recall@10 >= 0.90 at ef 200);
+ 14. IVF-Flat: 2^20 x 768 intrinsic-dim-32 rows (a generator of its own)
+     into an f32 ``IvfFlatIndex(device="cuda")``, auto nlist (8192: the
+     hierarchical assignment), trained (k-means, assignment, balance +
+     repack and the device build timed apart); ``calibrate_nprobe(0.95)``
+     (its exact truth: K4 "wgmma" + K2); Q=4096, k=10 at nprobe 1, 4, 8,
+     16, 32: the store's batch and the index-level batch timed apart,
+     recall@10 against an on-card f32 oracle, every returned distance
+     equal to the f32 distance of its id (rtol / atol 2e-5), every K2
+     launch "tile_major"; nprobe 1 and 8 over the native front end; bf16
+     and int8 stores at 2^18 rows (reduced: the quantized refine routes,
+     not scale) with their exact truth (K1 / K7 + K2); a durable
+     ``index_type="ivf"`` engine at 2^17 rows (reduced) checkpointed and
+     reopened: ``ivf_state.npz`` imported with no train, the writer's ids,
+     distances within f32 rounding of |x|^2 (ROADMAP queue 3).
 Launch counters are zeroed just before each path's run and read right
 after it: the store searches of phases 3 and 4 (K1, K2, K3); each
 storage store's searches (K4/K7 and K2 by source); each forced fallback
 (K5); the legacy fast runs (K6, K5); the PQ store's searches (K8); the
 two-phase searches (K9); each phase-10 reopen with its first searches (K1
-or K7, and K2; K8); each phase-11 load run and route window (K1, K2). Every kernel of a path must have launched in its
+or K7, and K2; K8); each phase-11 load run and route window (K1, K2);
+phase 13's device build (K1, K2, K3) and its three device batches (H1);
+phase 14's calibration (K4, K2), probed searches (K2) and quantized
+stores' searches and truths (K1 / K7, K2). Every kernel of a path must have launched in its
 window; the direct comparison calls are outside them. Every K1, K4 and K7
 launch in the windows of phase 3 and of phase 7's bf16, int8 and f32
 stores, every K3 launch of phases 3-4 (the 2^20-row store's tier 2, the
@@ -216,6 +251,21 @@ def make_rows(rng, n, d, np):
         out[r0:r0 + step] = rng.standard_normal((min(step, n - r0), d),
                                                 dtype=np.float32)
     return out
+
+
+def intrinsic_rows(rng, n, nq, np):
+    """The intrinsic-dim-32 protocol of benchmarks/pq_bench.py:103-108
+    (phase 8's and 12's rows), from the caller's generator: (rows, queries)
+    f32, chunked so no (n, 32) temporary outlives its chunk."""
+    basis = (rng.standard_normal((32, D), dtype=np.float32)
+             / np.float32(np.sqrt(32)))
+    rows = np.empty((n, D), np.float32)
+    for r0 in range(0, n, 1 << 16):
+        r1 = min(r0 + (1 << 16), n)
+        rows[r0:r1] = rng.standard_normal((r1 - r0, 32),
+                                          dtype=np.float32) @ basis
+    qs = rng.standard_normal((nq, 32), dtype=np.float32) @ basis
+    return rows, qs
 
 
 def oracle_sq(queries, db, sq, valid, k, torch):
@@ -1066,15 +1116,7 @@ def pq_phase(args, rng, card, mods):
     E = mods["DistanceMetric"].EUCLIDEAN
     dev = torch.device("cuda")
     n, nq = args.rows, args.queries
-    # the intrinsic-dim-32 protocol of benchmarks/pq_bench.py:103-108
-    basis = (rng.standard_normal((32, D), dtype=np.float32)
-             / np.float32(np.sqrt(32)))
-    rows = np.empty((n, D), np.float32)
-    step = 1 << 16
-    for r0 in range(0, n, step):
-        rows[r0:r0 + step] = rng.standard_normal(
-            (min(step, n - r0), 32), dtype=np.float32) @ basis
-    qs = rng.standard_normal((nq, 32), dtype=np.float32) @ basis
+    rows, qs = intrinsic_rows(rng, n, nq, np)
     dead = rng.choice(n, 1024, replace=False)
     store = VectorStore.with_index(PqFlatIndex(E, device="cuda"))
     index = store.index
@@ -1705,11 +1747,7 @@ def pq_reopen(base, args, card, mods):
     d = os.path.join(base, "pq")
     rng = np.random.default_rng([args.seed, 11])
     n, nq = P10_SMALL, P10_SMALL_QUERIES
-    # benchmarks/pq_bench.py's intrinsic-dim-32 rows, as phase 8's
-    basis = (rng.standard_normal((32, D), dtype=np.float32)
-             / np.float32(np.sqrt(32)))
-    rows = rng.standard_normal((n, 32), dtype=np.float32) @ basis
-    qs = rng.standard_normal((nq, 32), dtype=np.float32) @ basis
+    rows, qs = intrinsic_rows(rng, n, nq, np)
     batch = [(Vector(q), K) for q in qs]
     eng = StorageEngine.open(d, p10_config("pq"))
     t0 = time.perf_counter()
@@ -2307,13 +2345,9 @@ def hnsw_phase(args, card, mods):
     BatchInsertItem = mods["BatchInsertItem"]
     E = mods["DistanceMetric"].EUCLIDEAN
     n, nq = P12_ROWS, P12_QUERIES
-    # the intrinsic-dim-32 protocol of benchmarks/pq_bench.py:103-108, as
     # phase 8's rows, from a generator of its own
-    rng = np.random.default_rng([args.seed, 12])
-    basis = (rng.standard_normal((32, D), dtype=np.float32)
-             / np.float32(np.sqrt(32)))
-    rows = rng.standard_normal((n, 32), dtype=np.float32) @ basis
-    qs = rng.standard_normal((nq, 32), dtype=np.float32) @ basis
+    rows, qs = intrinsic_rows(np.random.default_rng([args.seed, 12]), n, nq,
+                              np)
     chunks = [(c0, min(c0 + P12_CHUNK, n)) for c0 in range(0, n, P12_CHUNK)]
 
     def items(c0, c1):
@@ -2481,6 +2515,486 @@ def hnsw_phase(args, card, mods):
     say(f"phase 12 durable HNSW: checkpoint {times['checkpoint']:.3f} s "
         f"(hnsw_graph.npz {graph_mb:.1f} MB), reopen {reopen_s:.3f} s with "
         f"the graph imported (no rebuild), 64 answers equal the writer's")
+    return {"store": local, "index": local.index, "qs": qs, "ora_i": ora_i}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the HNSW device programs; phase 14: IVF-Flat
+# ---------------------------------------------------------------------------
+
+P13_ROWS = 1 << 20
+P13_QUERIES = 1024
+P13_EFS = (50, 100, 200)
+P13_CHECK_QUERIES = 64     # H1 held to its plain version on these
+P13_HOST_GAP = 0.02        # device recall may trail the host traversal's by
+P13_MASKED_GAP = 0.05      # masked recall@10 may trail the unmasked by
+P14_ROWS = 1 << 20
+P14_QUERIES = 4096
+P14_NPROBES = (1, 4, 8, 16, 32)
+P14_SMALL = 1 << 18        # the bf16 and int8 stores' rows (reduced)
+P14_DURABLE = 1 << 17      # the durable engine's rows (reduced)
+
+
+def recall_at(got_ids, ora_ids, np):
+    return float(np.mean([len(set(g) & set(o[:K].tolist())) / K
+                          for g, o in zip(got_ids, ora_ids)]))
+
+
+def events_ms(fn, torch):
+    """(ms by CUDA events, ms by the host clock, result) of one call that
+    ends in a device-to-host copy."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    return start.elapsed_time(end), host, out
+
+
+def hnsw_device_phase(args, card, mods, p12):
+    """Phase 13 (module docstring). Returns the H1 row's numbers and the
+    build's launch counts."""
+    import contextlib
+    import io
+
+    from vectordb_tpu_torch import HnswIndex, HnswParams
+    from vectordb_tpu_torch.index import hnsw_build_device as hbd
+    from vectordb_tpu_torch.ops import hnsw_device as hd
+    np, torch = mods["np"], mods["torch"]
+    cuda_kernels = mods["cuda_kernels"]
+    VectorStore, Vector = mods["VectorStore"], mods["Vector"]
+    BatchInsertItem = mods["BatchInsertItem"]
+    E = mods["DistanceMetric"].EUCLIDEAN
+    n, nq = P13_ROWS, P13_QUERIES
+    rows, qs = intrinsic_rows(np.random.default_rng([args.seed, 13]), n, nq,
+                              np)
+    params = HnswParams(seed=args.seed)
+    index = HnswIndex(E, params, bulk_build="auto", device="cuda")
+    store = VectorStore.with_index(index)
+    items = [BatchInsertItem(str(i), Vector(rows[i])) for i in range(n)]
+    took = []
+    real = hbd.build_device_tables
+
+    def spy(*a, **kw):
+        took.append(kw.get("device"))
+        return real(*a, **kw)
+
+    # the build's window: only the store's insert between reset and read
+    hbd.build_device_tables = spy
+    os.environ["VDB_TPU_BUILD_TIMING"] = "1"
+    log = io.StringIO()
+    cuda_kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            store.insert_batch(items)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        hbd.build_device_tables = real
+        del os.environ["VDB_TPU_BUILD_TIMING"]
+    build_counts = dict(cuda_kernels.launches)
+    del items
+    if took != ["cuda"]:
+        fail(f"phase 13: bulk_build='auto' did not take the device build "
+             f"on the card ({took})")
+    k1b = check_wgmma("phase 13 build", "coarse_minima_1p_sup",
+                      cuda_kernels)
+    k2b = check_tile_major("phase 13 build", cuda_kernels)
+    if build_counts["coarse_minima_1p_sup"] < 1 or \
+            build_counts["refine_dots"] < 1:
+        fail(f"phase 13: the build launched no K1 or K2: {build_counts}")
+    split = [ln.strip().replace("[build-timing] ", "")
+             for ln in log.getvalue().splitlines() if "build-timing" in ln]
+    if len(index) != n:
+        fail(f"phase 13: the index holds {len(index)} rows, not {n}")
+
+    dev = torch.device("cuda")
+    db = torch.from_numpy(rows).to(dev)
+    q = torch.from_numpy(qs).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    ora_d2, ora_i = oracle_sq(q, db, (db * db).sum(1), valid, K, torch)
+    # the device tables: built at the first search, timed apart
+    t0 = time.perf_counter()
+    searcher = index.device_searcher()
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    t = searcher.tables
+    targs = (t["vectors"], t["norms"], t["neighbors"], t["valid"])
+    start = min(t["max_level"], params.max_layers - 1)
+    id_map = store.internal_to_string_ids()
+    index.search_batch_device(qs[:8], K, ef=P13_EFS[0])     # warm-up
+    # the path's window: the three batches, nothing else
+    cuda_kernels.reset_launches()
+    path = {ef: events_ms(lambda: index.search_batch_device(qs, K, ef=ef),
+                          torch) for ef in P13_EFS}
+    h1_launches = cuda_kernels.launches["hnsw_search"]
+    if h1_launches < len(P13_EFS):
+        fail(f"phase 13: search_batch_device launched H1 {h1_launches} "
+             "times")
+    lines, h1, recs = [], {}, {}
+    for ef in P13_EFS:
+        ev, host, res = path[ef]
+        got = [[int(id_map[i]) for i, _ in r] for r in res]
+        rec = recs[ef] = recall_at(got, ora_i, np)
+        t0 = time.perf_counter()
+        hres = [index.search_with_ef(Vector(qq), K, ef) for qq in qs]
+        host_ms = (time.perf_counter() - t0) * 1e3 / nq
+        hrec = recall_at([[int(id_map[i]) for i, _ in r] for r in hres],
+                         ora_i, np)
+        if rec < hrec - P13_HOST_GAP:
+            fail(f"phase 13 ef={ef}: device recall@{K} {rec:.4f} trails the "
+                 f"host traversal's {hrec:.4f} by more than {P13_HOST_GAP}")
+        # H1 alone at this ef, and its plain version on the same queries
+        # (these launches are outside the path's window)
+        ms, (kd, ks) = cuda_time(lambda: cuda_kernels.hnsw_search(
+            *targs, q, t["entry"], start, "euclidean", K, ef), torch)
+        stats = {}
+        ms_p, _, (pd, ps) = events_ms(lambda: hd._hnsw_search_plain(
+            *targs, q, t["entry"], start, "euclidean", K, ef, stats=stats),
+            torch)
+        h1[ef] = {"ms": ms, "plain_ms": ms_p, "rows": stats["rows"],
+                  "hops": stats["hops"], "kd": kd, "ks": ks, "pd": pd,
+                  "ps": ps}
+        # the bytes the run's hops need: each gathered row once, the
+        # adjacency rows of the expansions, the queries, the outputs
+        nbytes = (stats["rows"] * D * 4 + stats["hops"] * 32 * 4
+                  + nq * D * 4 + nq * K * 8)
+        h1[ef]["bound"] = bound(2.0 * stats["rows"] * D, nbytes, PEAK_F32)
+        lines.append(
+            f"ef={ef}: batch {ev:.3f} ms by CUDA events, {host:.3f} ms by "
+            f"the host clock; H1 {ms:.3f} ms (plain {ms_p:.3f}, bound "
+            f"{h1[ef]['bound'][0]:.3f} by {h1[ef]['bound'][1]}: "
+            f"{stats['rows']} rows gathered, {stats['hops']} hops); "
+            f"recall@{K} {rec:.4f} (host traversal {hrec:.4f}, "
+            f"{host_ms:.3f} ms/query)")
+
+    # H1 against its plain version on the first 64 queries, at each ef:
+    # the same slots but for k-th/(k+1)-th ties, distances at rtol 1e-5
+    worst = 0.0
+    ties = 0
+    for ef, r in h1.items():
+        c = P13_CHECK_QUERIES
+        ks, ps = r["ks"][:c].cpu().numpy(), r["ps"][:c].cpu().numpy()
+        kd, pd = r["kd"][:c].cpu().numpy(), r["pd"][:c].cpu().numpy()
+        for qi in range(c):
+            if np.array_equal(ks[qi], ps[qi]):
+                continue
+            if (np.array_equal(ks[qi, :K - 1], ps[qi, :K - 1])
+                    and abs(kd[qi, K - 1] - pd[qi, K - 1])
+                    <= 1e-5 * abs(pd[qi, K - 1])):
+                ties += 1
+                continue
+            fail(f"phase 13 ef={ef}: H1 slots of query {qi} "
+                 f"{ks[qi].tolist()} differ from the plain version's "
+                 f"{ps[qi].tolist()}")
+        same = ks == ps
+        rel = np.abs(kd - pd)[same] / np.maximum(np.abs(pd)[same], 1e-30)
+        worst = max(worst, float(rel.max()))
+    if worst > 1e-5:
+        fail(f"phase 13: H1 distances off the plain version's by {worst:.3e}"
+             " relative")
+
+    # a filtered search: half the slots pass
+    mrng = np.random.default_rng([args.seed, 131])
+    mask = mrng.random(t["valid"].shape[0]) < 0.5
+    mres = index.search_batch_device(qs, K, ef=max(P13_EFS), slot_mask=mask)
+    for r in mres:
+        if len(r) != K or not all(mask[index.slot_of(i)] for i, _ in r):
+            fail("phase 13: the masked search returned an ineligible slot "
+                 "or fewer than k")
+    row_slots = np.array([index.slot_of(int(store._id_to_internal[str(i)]))
+                          for i in range(n)])
+    elig = torch.from_numpy(mask[row_slots]).to(dev)
+    _, mora = oracle_sq(q, db, (db * db).sum(1), elig, K, torch)
+    mrec = recall_at([[int(id_map[i]) for i, _ in r] for r in mres], mora,
+                     np)
+    if mrec < recs[max(P13_EFS)] - P13_MASKED_GAP:
+        fail(f"phase 13: masked recall@{K} {mrec:.4f} trails the unmasked "
+             f"{recs[max(P13_EFS)]:.4f} by more than {P13_MASKED_GAP}")
+
+    # the device traversal over phase 12's host-built 16384-row graph
+    small = p12["index"]
+    sres = small.search_batch_device(p12["qs"], K, ef=max(P12_EFS))
+    smap = p12["store"].internal_to_string_ids()
+    srec = recall_at([[int(smap[i]) for i, _ in r] for r in sres],
+                     p12["ora_i"], np)
+    if srec < P12_RECALL_MIN:
+        fail(f"phase 13: the device traversal over phase 12's graph has "
+             f"recall@{K} {srec:.4f} at ef={max(P12_EFS)}, below "
+             f"{P12_RECALL_MIN}")
+    del db, q, valid, elig, searcher, t, targs
+    say(f"phase 13 HNSW device N={n} x {D} intrinsic-dim-32 rows, m="
+        f"{params.m}, seed {args.seed}, Q={nq} k={K} [{card}]: "
+        f"bulk_build='auto' took the device build in {build_s:.3f} s "
+        f"({'; '.join(split)}); its window launched K1 "
+        f"{build_counts['coarse_minima_1p_sup']} ({k1b}), K2 "
+        f"{build_counts['refine_dots']} ({k2b}), K3 "
+        f"{build_counts['coarse_minima']}; device tables "
+        f"{tables_s:.3f} s; " + "; ".join(lines))
+    say(f"phase 13 checks: H1 equals its plain version on "
+        f"{P13_CHECK_QUERIES} queries at each ef ({ties} k-th ties, "
+        f"distances within {worst:.3e} relative); masked search (half the "
+        f"slots) eligible-only, recall@{K} {mrec:.4f} at ef="
+        f"{max(P13_EFS)}; phase 12's {P12_ROWS}-row host graph on the card "
+        f"recall@{K} {srec:.4f} at ef={max(P12_EFS)}")
+    for r in h1.values():
+        for key in ("kd", "ks", "pd", "ps"):
+            del r[key]
+    return {"launches": h1_launches, "err": worst, "h1": h1,
+            "build": {k: build_counts[k] for k in
+                      ("coarse_minima_1p_sup", "refine_dots",
+                       "coarse_minima")}}
+
+
+def ivf_returned_exact(name, res, queries, rows_dev, torch, np):
+    """Every distance an IVF search returned equals the on-card f32
+    distance of its id (rtol / atol 2e-5); returns the largest error."""
+    ids = torch.tensor([[int(r.id) for r in row] for row in res],
+                       device=rows_dev.device)
+    got = torch.tensor([[r.distance for r in row] for row in res],
+                       device=rows_dev.device)
+    x = rows_dev[ids]                                   # (Q, k, d)
+    q = queries[:, None, :]
+    d2 = ((q * q).sum(-1) + (x * x).sum(-1)
+          - 2.0 * torch.bmm(x, queries[:, :, None])[..., 0])
+    want = torch.sqrt(torch.clamp(d2, min=0.0))
+    err = (got - want).abs()
+    if bool((err > 2e-5 * want.abs() + 2e-5).any()):
+        fail(f"{name}: a returned distance is off the f32 distance of its "
+             f"id by {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def ivf_store(kind, n, rows, mods, **kw):
+    from vectordb_tpu_torch import IvfFlatIndex
+    VectorStore, Vector = mods["VectorStore"], mods["Vector"]
+    BatchInsertItem = mods["BatchInsertItem"]
+    E = mods["DistanceMetric"].EUCLIDEAN
+    index = IvfFlatIndex(E, storage=kind, auto_train_min=1 << 40,
+                         device="cuda", **kw)
+    store = VectorStore.with_index(index)
+    for r0 in range(0, n, 1 << 16):
+        store.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                            for i in range(r0, min(r0 + (1 << 16), n))])
+    return store, index
+
+
+def ivf_train(index, torch):
+    """(train seconds, its split, device build seconds)."""
+    t0 = time.perf_counter()
+    index.train()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with index._lock:
+        index._sync_device()
+    torch.cuda.synchronize()
+    return train_s, dict(index.train_marks), time.perf_counter() - t0
+
+
+def ivf_phase(args, card, mods):
+    """Phase 14 (module docstring). Returns the launch counts of its
+    windows by kernel key."""
+    import shutil
+    import tempfile
+
+    from vectordb_tpu_torch import FlatIndex, IvfFlatIndex
+    from vectordb_tpu_torch.persistence import EngineConfig, StorageEngine
+    np, torch = mods["np"], mods["torch"]
+    cuda_kernels = mods["cuda_kernels"]
+    Vector, BatchInsertItem = mods["Vector"], mods["BatchInsertItem"]
+    E = mods["DistanceMetric"].EUCLIDEAN
+    n, nq = P14_ROWS, P14_QUERIES
+    rows, qs = intrinsic_rows(np.random.default_rng([args.seed, 14]), n, nq,
+                              np)
+    t0 = time.perf_counter()
+    store, index = ivf_store("f32", n, rows, mods)
+    load_s = time.perf_counter() - t0
+    train_s, marks, build_s = ivf_train(index, torch)
+    if index._nlist != min(1 << 15, n // 128):
+        fail(f"phase 14: auto nlist is {index._nlist}, not n / 128")
+    windows = {}
+
+    # calibration: the exact truth is the flat path over the trained
+    # layout (K4 + K2 over f32 rows, K5 as tier 2)
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    cal = index.calibrate_nprobe(0.95)
+    cal_s = time.perf_counter() - t0
+    windows["calibrate"] = dict(cuda_kernels.launches)
+    k4 = check_wgmma("phase 14 calibrate", "coarse_minima_f32_1p_sup",
+                     cuda_kernels)
+    check_tile_major("phase 14 calibrate", cuda_kernels)
+    if windows["calibrate"]["coarse_minima_f32_1p_sup"] < 1:
+        fail("phase 14: the exact truth launched no K4")
+
+    dev = torch.device("cuda")
+    db = torch.from_numpy(rows).to(dev)
+    q = torch.from_numpy(qs).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    _, ora_i = oracle_sq(q, db, (db * db).sum(1), valid, K, torch)
+    batch = [(Vector(qq), K) for qq in qs]
+    cuda_kernels.reset_launches()
+    lines, worst = [], 0.0
+    for npb in P14_NPROBES:
+        t0 = time.perf_counter()
+        res = store.search_batch(batch, nprobe=npb)
+        store_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        index._probed_slots(qs, K, npb, None, None)
+        index_ms = (time.perf_counter() - t0) * 1e3
+        got = [[int(r.id) for r in row] for row in res]
+        rec = recall_at(got, ora_i, np)
+        worst = max(worst, ivf_returned_exact(f"phase 14 nprobe={npb}", res,
+                                              q, db, torch, np))
+        lines.append(f"nprobe={npb}: store batch {store_ms:.3f} ms, index "
+                     f"batch {index_ms:.3f} ms, recall@{K} {rec:.4f}")
+    windows["search"] = dict(cuda_kernels.launches)
+    k2 = check_tile_major("phase 14 probed searches", cuda_kernels)
+    if windows["search"]["refine_dots"] < len(P14_NPROBES):
+        fail(f"phase 14: the probed searches launched K2 "
+             f"{windows['search']['refine_dots']} times")
+    hier = index._nlist >= IvfFlatIndex._HIER_AUTO_NLIST
+    say(f"phase 14 IVF-Flat N={n} x {D} intrinsic-dim-32 rows, f32, nlist "
+        f"{index._nlist} ({'hierarchical' if hier else 'flat'} assignment), "
+        f"t_c {index._t_c}, spill "
+        f"tiles {index._s_t}, Q={nq} k={K} [{card}]: load {load_s:.3f} s; "
+        f"train {train_s:.3f} s (k-means {marks['kmeans']:.3f}, assignment "
+        f"{marks['assign']:.3f}, balance + repack {marks['repack']:.3f}), "
+        f"device build {build_s:.3f} s; calibrate_nprobe(0.95) -> "
+        f"{cal['nprobe']} (recall {cal['recall']:.4f}, curve "
+        f"{ {k: round(v, 4) for k, v in cal['curve'].items()} }) in "
+        f"{cal_s:.3f} s, its exact truth K4 by body {k4}; " + "; ".join(lines)
+        + f"; every returned distance within {worst:.3e} of the f32 distance"
+        f" of its id; K2 by body {k2}")
+
+    # nprobe over the native front end
+    state, thread = serve_thread(store, backend="native")
+    try:
+        port = state.server.port
+        for npb in (1, 8):
+            want = [r.id for r in store.search(Vector(qs[3]), K,
+                                               nprobe=npb)]
+            st, hits = http_call(port, "POST", "/search", {
+                "vector": qs[3].tolist(), "k": K, "nprobe": npb})
+            st2, bhits = http_call(port, "POST", "/search/batch", {
+                "queries": [{"vector": qs[3].tolist(), "k": K}],
+                "nprobe": npb})
+            if (st, st2) != (200, 200) or [h["id"] for h in hits] != want \
+                    or [h["id"] for h in bhits[0]] != want:
+                fail(f"phase 14 http nprobe={npb}: {st} {st2} differ from "
+                     "the in-process answers")
+    finally:
+        stop_server(state, thread)
+    del store, index, db, q, valid, batch
+    free(torch)
+
+    # bf16 and int8 storage at 2^18 rows (a reduction: the quantized
+    # refine routes, not scale)
+    small_lines = []
+    for kind, k2key, coarse in (("bf16", "refine_dots_bf16",
+                                 "coarse_minima_1p_sup"),
+                                ("int8", "refine_dots_int8",
+                                 "coarse_minima_int8_1p_sup")):
+        s_store, s_idx = ivf_store(kind, P14_SMALL, rows, mods)
+        s_train, s_marks, s_build = ivf_train(s_idx, torch)
+        sq = qs[:1024]
+        cuda_kernels.reset_launches()
+        res = s_store.search_batch([(Vector(qq), K) for qq in sq], nprobe=8)
+        truth = FlatIndex.search_batch(s_idx, sq, K)
+        win = dict(cuda_kernels.launches)
+        windows[kind] = win
+        check_tile_major(f"phase 14 {kind}", cuda_kernels)
+        body = check_wgmma(f"phase 14 {kind} exact truth", coarse,
+                           cuda_kernels)
+        if win[k2key] < 2 or win[coarse] < 1:
+            fail(f"phase 14 {kind}: launches {win}")
+        stored = torch.from_numpy(
+            s_idx._live_rows_snapshot()).to(dev)     # slot order
+        live_ids = [int(s_idx._id_of_slot[s]) for s in
+                    np.flatnonzero(s_idx._valid[:s_idx._capacity])]
+        by_id = torch.empty_like(stored)
+        by_id[torch.tensor(live_ids, device=dev)] = stored
+        err = ivf_returned_exact(f"phase 14 {kind}", res,
+                                 torch.from_numpy(sq).to(dev), by_id, torch,
+                                 np)
+        rec = recall_at([[int(r.id) for r in row] for row in res],
+                        np.array([[i for i, _ in r] for r in truth]), np)
+        small_lines.append(
+            f"{kind}: train {s_train:.3f} s, device build {s_build:.3f} s, "
+            f"recall@{K} {rec:.4f} at nprobe 8 against its exact truth, "
+            f"distances within {err:.3e}; K2 {win[k2key]} tile_major, "
+            f"exact truth {'K7' if kind == 'int8' else 'K1'} "
+            f"{win[coarse]} ({body})")
+        del s_store, s_idx, stored, by_id, res, truth
+        free(torch)
+
+    # a durable IVF engine at 2^17 rows: reopen imports ivf_state.npz
+    base = tempfile.mkdtemp(prefix="vdb_p14_")
+    cfg = EngineConfig(checkpoint_interval=1 << 30, index_type="ivf",
+                       device="cuda")
+    dq = [Vector(qq) for qq in qs[:256]]
+    try:
+        t0 = time.perf_counter()
+        with StorageEngine.open(base, cfg) as eng:
+            for r0 in range(0, P14_DURABLE, 1 << 15):
+                eng.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                                  for i in range(r0, r0 + (1 << 15))])
+            eng.store.index.train()
+            before = [[(r.id, r.distance) for r in eng.search(v, K,
+                                                              nprobe=8)]
+                      for v in dq]
+            eng.checkpoint()
+        write_s = time.perf_counter() - t0
+        trains = []
+        orig = IvfFlatIndex.train
+        IvfFlatIndex.train = lambda self: trains.append(1) or orig(self)
+        try:
+            t0 = time.perf_counter()
+            with StorageEngine.open(base, cfg) as eng:
+                reopen_s = time.perf_counter() - t0
+                after = [[(r.id, r.distance) for r in eng.search(
+                    v, K, nprobe=8)] for v in dq]
+                trained = eng.store.index.is_trained
+        finally:
+            IvfFlatIndex.train = orig
+        if trains or not trained:
+            fail(f"phase 14 durable: the reopen trained {len(trains)} times"
+                 f" (trained {trained})")
+        # the same ids; a row's squared norm comes back from np.dot where
+        # the batch load summed it by einsum (the JAX package's import,
+        # ROADMAP queue 3), so distances may move within f32 rounding of
+        # |x|^2
+        if [[i for i, _ in r] for r in after] != \
+                [[i for i, _ in r] for r in before]:
+            fail("phase 14 durable: the reopened engine answers other ids "
+                 "than its writer")
+        sq_max = float(np.max(np.einsum("ij,ij->i", rows[:P14_DURABLE],
+                                        rows[:P14_DURABLE])))
+        moved = np.array([abs(a[1] ** 2 - b[1] ** 2)
+                          for ra, rb in zip(after, before)
+                          for a, b in zip(ra, rb)])
+        if moved.max() > 8 * D * 2.0 ** -24 * sq_max:
+            fail(f"phase 14 durable: a reopened distance moved by "
+                 f"{moved.max():.3e} in d^2")
+        state_kb = os.path.getsize(os.path.join(base, "ivf_state.npz")) / 1e3
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    say(f"phase 14 quantized stores N={P14_SMALL} (reduced: the refine "
+        f"routes, not scale), Q=1024 [{card}]: " + "; ".join(small_lines))
+    say(f"phase 14 durable IVF engine N={P14_DURABLE}: insert + train + "
+        f"checkpoint {write_s:.3f} s (ivf_state.npz {state_kb:.1f} KB), "
+        f"reopen {reopen_s:.3f} s with the layout imported (no train), "
+        f"{len(dq)} answers with the writer's ids, "
+        f"{int((moved > 0).sum())} of {moved.size} distances moved (at "
+        f"most {moved.max():.3e} in d^2: np.dot norms on import against "
+        f"the batch load's einsum); nprobe 1 and 8 over the native front "
+        f"end answer as the store")
+    return windows
 
 
 def main() -> None:
@@ -2868,7 +3382,15 @@ def main() -> None:
     # -- phase 10: durability on the card ---------------------------------
     p10 = durability_phase(args, rows, card, mods, rate)
     # -- phase 12: HNSW ----------------------------------------------------
-    hnsw_phase(args, card, mods)
+    p12 = hnsw_phase(args, card, mods)
+    free(torch)
+    # -- phase 13: the HNSW device programs (H1) -------------------------
+    p13 = hnsw_device_phase(args, card, mods, p12)
+    del p12
+    free(torch)
+    # -- phase 14: IVF-Flat ------------------------------------------------
+    p14 = ivf_phase(args, card, mods)
+    free(torch)
     table += [
         kernel_row("K8 pq_decode", "pq_decode.cu", 286, k8["launches"],
                    worst["pq_decode"], k8["ms"], k8["plain_ms"], k8["bound"],
@@ -2878,6 +3400,16 @@ def main() -> None:
                    max(worst["scan_min"], k9["err"]), k9["ms"],
                    k9["plain_ms"], k9["bound"], k9["library_ms"],
                    src="vectordb_tpu/ops/flat_kernel.py")]
+    h1 = p13["h1"]
+    main_ef = P13_EFS[1]
+    table.append(kernel_row(
+        "H1 hnsw_search", "hnsw_search.cu", 75, p13["launches"], p13["err"],
+        h1[main_ef]["ms"], h1[main_ef]["plain_ms"], h1[main_ef]["bound"],
+        None, src="vectordb_tpu/ops/hnsw_device.py",
+        shapes=[{"N": P13_ROWS, "Q": P13_QUERIES, "ef": ef, "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                 "bound_by": r["bound"][1], "rows_gathered": r["rows"],
+                 "hops": r["hops"]} for ef, r in h1.items()]))
     # phase 10's windows (the durable stores' reopens and searches), by
     # the launch key each row's name carries
     for row in table:
@@ -2887,6 +3419,13 @@ def main() -> None:
         if key in p11:
             # phase 11's windows: every served search's K1 and K2
             row["serving_launches"] = p11[key]
+        if p13["build"].get(key):
+            # phase 13's window: the HNSW device build's searches
+            row["hnsw_build_launches"] = p13["build"][key]
+        ivf = sum(w.get(key, 0) for w in p14.values())
+        if ivf and key != "hnsw_search":
+            # phase 14's windows: IVF's exact truth and probed searches
+            row["ivf_launches"] = ivf
     if min(r["launches"] for r in table) < 1:
         fail(f"a kernel never launched on its path: "
              f"{[(r['name'], r['launches']) for r in table]}")

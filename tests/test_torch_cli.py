@@ -135,7 +135,8 @@ def test_hnsw_seed_flag_reaches_the_params(capsys, monkeypatch):
                      "--addr", "127.0.0.1:0", "--http", "native",
                      "--batch-window-ms", "1.5"]) == 0
     assert seen == [("127.0.0.1:0", HnswParams(seed=5),
-                     {"batch_window_ms": 1.5, "backend": "native"})]
+                     {"batch_window_ms": 1.5, "backend": "native",
+                      "device": "cuda"})]
 
 
 @pytest.mark.parametrize("index", ["flat", "pq"])
@@ -201,17 +202,20 @@ def test_persistent_lifecycle_with_filters(tmp_path):
 
 
 def test_store_with_device_hnsw_batch(rng):
-    """Store over HNSW: the host traversal answers each stored row with
-    itself; the device traversal waits for item 10b and says so."""
+    """Store over HNSW: the host traversal and the batched device
+    traversal (plain H1 on the CPU) answer each stored row with itself
+    (tests/test_integration.py)."""
     data = rng.random((300, 16)).astype(np.float32)
-    idx = HnswIndex(EUC, HnswParams(seed=8))
+    idx = HnswIndex(EUC, HnswParams(seed=8), device="cpu")
     store = VectorStore.with_index(idx)
     for i in range(300):
         store.insert(f"v{i}", Vector(data[i]))
     for qi in range(4):
         assert store.search(Vector(data[qi]), 3, ef=60)[0].id == f"v{qi}"
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        idx.search_batch_device(data[:4], 3, ef=60)
+    res = idx.search_batch_device(data[:4], 3, ef=60)
+    id_map = store.internal_to_string_ids()
+    assert [id_map[r[0][0]] for r in res] == [f"v{qi}" for qi in range(4)]
+    assert all(len(r) == 3 and r[0][1] == 0.0 for r in res)
 
 
 def test_cli_server_roundtrip_in_process():

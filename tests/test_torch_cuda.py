@@ -953,3 +953,164 @@ def test_submit_does_not_wait_for_the_card(dev, nq):
     assert not torch.cuda.current_stream().query()   # the sleep still runs
     assert handle.collect() == want
     assert submit_s < 0.2, submit_s
+
+
+# -- H1: the batched HNSW traversal (csrc/hnsw_search.cu) --------------------
+
+def _hnsw_tables(n, d, metric, seed, dup=False):
+    """A seeded host graph's padded tables (one build thread), optionally
+    with a duplicate edge in the first live rows' layer-0 lists."""
+    from vectordb_tpu_torch.index.hnsw_graph import HnswParams
+    from vectordb_tpu_torch.index.hnsw_native import NativeHnswGraph
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    graph = NativeHnswGraph(metric, HnswParams(seed=seed,
+                                               ef_construction=64))
+    graph.insert_batch([(i, data[i]) for i in range(n)])
+    for i in range(0, n, 29):
+        graph.remove(i)
+    t = graph.export_padded_tables()
+    if dup:
+        nb = t["neighbors"]
+        rows = np.nonzero((nb[:, 0, 0] >= 0) & (nb[:, 0, 1] >= 0))[0][:n // 2]
+        nb[rows, 0, 1] = nb[rows, 0, 0]
+    queries = rng.standard_normal((37, d)).astype(np.float32)
+    return t, queries, rng
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n, d, ef, masked, dup", [
+    (1000, 768, 16, False, False),      # ef < 32
+    (1000, 768, 64, True, True),        # ef > 32, mask, duplicate edges
+    (999, 50, 40, True, False),         # N % 32 != 0, d % 4 != 0
+    (2001, 32, 100, False, True)])
+def test_h1_matches_plain(dev, mode, n, d, ef, masked, dup):
+    from vectordb_tpu_torch.ops import hnsw_device as hd
+    metric = {"euclidean": DistanceMetric.EUCLIDEAN,
+              "dot": DistanceMetric.DOT_PRODUCT,
+              "cosine": DistanceMetric.COSINE}[mode]
+    t, queries, rng = _hnsw_tables(n, d, metric, 5, dup)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    args = (put(t["vectors"]), put(t["norms"]),
+            put(t["neighbors"].astype(np.int32)), put(t["valid"]),
+            put(queries))
+    start = min(int(t["max_level"]), t["neighbors"].shape[1] - 1)
+    cap = t["vectors"].shape[0]
+    mask = put(rng.random(cap) < 0.5) if masked else None
+    before = cuda_kernels.launches["hnsw_search"]
+    kd, ks = cuda_kernels.hnsw_search(*args, int(t["entry"]), start, mode,
+                                      10, ef, mask)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches["hnsw_search"] == before + 1
+    pd, ps = hd._hnsw_search_plain(*args, int(t["entry"]), start, mode, 10,
+                                   ef, mask)
+    assert torch.equal(ks.cpu(), ps.cpu())
+    found = ps.cpu() >= 0
+    assert int(found.sum()) > 0
+    torch.testing.assert_close(kd.cpu()[found], pd.cpu()[found], rtol=1e-5,
+                               atol=0.0)
+    assert bool(torch.isinf(kd.cpu()[~found]).all())
+    if masked:
+        assert bool(mask.cpu()[ks.cpu()[found].long()].all())
+
+
+def test_h1_splits_large_batches(dev, monkeypatch):
+    """More visited bitmasks than the scratch bound go in several
+    launches, with the same answers."""
+    t, queries, _ = _hnsw_tables(600, 64, DistanceMetric.EUCLIDEAN, 7)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    args = (put(t["vectors"]), put(t["norms"]),
+            put(t["neighbors"].astype(np.int32)), put(t["valid"]),
+            put(queries))
+    start = min(int(t["max_level"]), t["neighbors"].shape[1] - 1)
+    whole = cuda_kernels.hnsw_search(*args, int(t["entry"]), start,
+                                     "euclidean", 5, 32)
+    words = (t["vectors"].shape[0] + 31) // 32
+    monkeypatch.setattr(cuda_kernels, "_HNSW_VISITED_BYTES", words * 4 * 10)
+    before = cuda_kernels.launches["hnsw_search"]
+    parts = cuda_kernels.hnsw_search(*args, int(t["entry"]), start,
+                                     "euclidean", 5, 32)
+    assert cuda_kernels.launches["hnsw_search"] == before + 4
+    assert torch.equal(whole[1], parts[1])
+    assert torch.equal(whole[0], parts[0])
+
+
+# -- IVF-Flat's probed refine and the HNSW device build on the card ----------
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_ivf_probed_refine_runs_k2_tile_major(dev, storage):
+    """A trained IVF store on the card answers as the same layout on the
+    CPU, and every K2 launch of its probed searches takes tile_major."""
+    from vectordb_tpu_torch import IvfFlatIndex
+    rng = np.random.default_rng(4)
+    centers = rng.standard_normal((24, 64)).astype(np.float32)
+    data = (centers[rng.integers(0, 24, 4000)]
+            + 0.3 * rng.standard_normal((4000, 64)).astype(np.float32))
+    card = IvfFlatIndex(DistanceMetric.EUCLIDEAN, nlist=32, nprobe=4,
+                        storage=storage, seed=1, device="cuda")
+    card.add_batch(list(enumerate(data)))
+    card.train()
+    state = card.export_trained_state()
+    rows = {i: card.get_vector(i).as_array() for i in range(4000)}
+    host = IvfFlatIndex(DistanceMetric.EUCLIDEAN, nlist=32, nprobe=4,
+                        storage=storage, device="cpu")
+    host.import_trained_state(state, rows, 64)
+    queries = rng.standard_normal((300, 64)).astype(np.float32)
+    key = {"f32": "refine_dots", "bf16": "refine_dots_bf16",
+           "int8": "refine_dots_int8"}[storage]
+    cuda_kernels.reset_launches()
+    got = card.search_batch(queries, 10, nprobe=6)
+    assert cuda_kernels.launches[key] >= 1
+    assert cuda_kernels.routes[key] == {
+        "tile_major": cuda_kernels.launches[key], "query_major": 0}
+    want = host.search_batch(queries, 10, nprobe=6)
+    # the same ids but where two candidates tie within the refine's f32
+    # rounding (K2 sums in fmaf order, the plain version elementwise):
+    # such a pair may come out in either order, or trade the k-th place
+    gd = np.array([[d for _, d in r] for r in got])
+    wd = np.array([[d for _, d in r] for r in want])
+    np.testing.assert_allclose(gd, wd, rtol=2e-5, atol=2e-5)
+    tol = 2e-5 * np.abs(wd) + 2e-5
+    for qi, (g, w) in enumerate(zip(got, want)):
+        for j, ((gi, _), (wi, _)) in enumerate(zip(g, w)):
+            if gi != wi:
+                tied = [jj for jj, (ii, _) in enumerate(w) if ii == gi]
+                assert (tied and abs(wd[qi, tied[0]] - wd[qi, j])
+                        <= tol[qi, j]) or j == len(w) - 1, (qi, j, g, w)
+
+
+def test_hnsw_device_build_runs_k1_wgmma(dev, monkeypatch):
+    """The device build's certified searches take K1 on "wgmma" and K2 on
+    "tile_major", and the graph answers as well as the CPU build's."""
+    from vectordb_tpu_torch.index.hnsw_build_device import \
+        build_device_tables
+    from vectordb_tpu_torch.index.hnsw_graph import HnswParams
+    from vectordb_tpu_torch.index.hnsw_native import NativeHnswGraph
+    from vectordb_tpu_torch.ops import topk
+    monkeypatch.setattr(topk, "_EXACT1P_MIN_N", 512)
+    rng = np.random.default_rng(6)
+    n, d = 3000, 128
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    params = HnswParams(seed=6)
+    cuda_kernels.reset_launches()
+    card = build_device_tables(np.arange(n), data,
+                               DistanceMetric.EUCLIDEAN, params, block=512,
+                               device="cuda")
+    k1 = cuda_kernels.launches["coarse_minima_1p_sup"]
+    assert k1 >= 1
+    assert cuda_kernels.routes["coarse_minima_1p_sup"]["mma_sync"] == 0
+    assert cuda_kernels.routes["refine_dots"]["query_major"] == 0
+    host = build_device_tables(np.arange(n), data, DistanceMetric.EUCLIDEAN,
+                               params, block=512, device="cpu")
+    np.testing.assert_array_equal(card["levels"], host["levels"])
+    same = float(np.mean(card["neighbors"] == host["neighbors"]))
+    assert same >= 0.999, same
+    queries = rng.standard_normal((50, d)).astype(np.float32)
+    truth = np.argsort(((queries[:, None, :] - data[None]) ** 2).sum(-1),
+                       axis=1)[:, :10]
+    g = NativeHnswGraph(DistanceMetric.EUCLIDEAN, params)
+    g.import_padded_tables(card)
+    rec = np.mean([len({i for i, _ in g.search_knn(q, 10, ef=100)}
+                       & set(t.tolist())) / 10
+                   for q, t in zip(queries, truth)])
+    assert rec >= 0.9

@@ -180,16 +180,18 @@ def test_remove_entry_point_parity(backend, rng):
 
 def test_device_tables_export_parity(backend, rng):
     """Both backends export the JAX package's tables for the same seed and
-    rows (the device traversal's input); the traversal itself waits for
-    ROADMAP queue 1 item 10b and says so."""
+    rows (the device traversal's input), and the device traversal over
+    them answers as the JAX package's (plain H1 on the CPU)."""
     data = rng.random((200, 16)).astype(np.float32)
     jidx, tidx = build_pair(backend, EUC, data, 7)
     assert_same_tables(jidx.graph.export_padded_tables(),
                        tidx.graph.export_padded_tables())
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tidx.search_batch_device(data[:5], 3, 60)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tidx.device_searcher()
+    tidx._device = "cpu"
+    jres = jidx.search_batch_device(data[:5], 3, 60)
+    tres = tidx.search_batch_device(data[:5], 3, 60)
+    for j, t in zip(jres, tres):
+        assert_same_answers(j, t)
+    assert tidx.device_searcher() is tidx.device_searcher()
 
 
 def test_store_upsert_filter_flow_parity(backend, rng):
@@ -214,17 +216,29 @@ def test_dimension_enforced_parity(backend):
         idx.search(Vector([1.0, 2.0, 3.0]), 1)
 
 
-# -- the device paths of item 10b --------------------------------------------
+# -- the device paths: bulk build and batched traversal ----------------------
 
-def test_device_bulk_build_raises_naming_item_10b():
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        HnswIndex(EUC, HnswParams(seed=1), bulk_build="device")
+def test_device_bulk_build_modes():
+    """"device" builds on the index's device at any size (the CPU runs the
+    plain versions); "auto" takes the host build below the threshold or
+    off a card; an unknown mode raises."""
     with pytest.raises(ValueError):
         HnswIndex(EUC, bulk_build="tpu")
-    # "auto" and "host" take the host build at any size
-    idx = HnswIndex(EUC, HnswParams(seed=1), bulk_build="auto")
-    idx.build_batch([(i, Vector([float(i), 1.0])) for i in range(100)])
-    assert len(idx) == 100
+    data = np.random.default_rng(3).random((300, 8)).astype(np.float32)
+    items = [(i, Vector(data[i])) for i in range(300)]
+    forced = HnswIndex(EUC, HnswParams(seed=1), bulk_build="device",
+                       device="cpu")
+    forced.build_batch(items)
+    assert len(forced) == 300
+    assert forced.search(Vector(data[42]), 1)[0][0] == 42
+    auto = HnswIndex(EUC, HnswParams(seed=1), bulk_build="auto",
+                     device="cpu")
+    assert not auto._device_buildable(items)
+    auto.build_batch(items)
+    assert len(auto) == 300
+    big = [(i, None) for i in range(HnswIndex._AUTO_DEVICE_BUILD_MIN)]
+    assert not auto.__class__(EUC, device="cpu")._device_buildable(big)
+    assert HnswIndex(EUC, device="cuda")._device_buildable(big)
 
 
 # -- determinism and parity with the JAX package -----------------------------

@@ -30,6 +30,9 @@ import vectordb_tpu_torch.ops.flat_kernel
 import vectordb_tpu_torch.persistence
 import vectordb_tpu_torch.server.native_http, vectordb_tpu_torch.server.batcher
 import vectordb_tpu_torch.index.hnsw, vectordb_tpu_torch.index.hnsw_native
+import vectordb_tpu_torch.index.hnsw_build_device
+import vectordb_tpu_torch.ops.hnsw_device
+import vectordb_tpu_torch.ops.ivf, vectordb_tpu_torch.index.ivf
 from vectordb_tpu_torch.server.app import start_durable, start_hnsw
 import tempfile
 from vectordb_tpu_torch import Vector
@@ -46,6 +49,17 @@ with tempfile.TemporaryDirectory() as d:
         eng.checkpoint()
     with StorageEngine.open(d + "/h", hnsw) as eng:
         assert eng.search(Vector([1.0, 2.0]), 1)[0].id == "a"
+        assert eng.store.index.search_batch_device(
+            [[1.0, 2.0]], 1)[0][0][1] == 0.0
+    ivf = EngineConfig(index_type="ivf", device="cpu")
+    with StorageEngine.open(d + "/i", ivf) as eng:
+        for i in range(40):
+            eng.insert(str(i), Vector([float(i), 1.0]))
+        eng.store.index.train()
+        eng.checkpoint()
+    with StorageEngine.open(d + "/i", ivf) as eng:
+        assert eng.store.index.is_trained
+        assert eng.search(Vector([3.0, 1.0]), 1, nprobe=2)[0].id == "3"
 from vectordb_tpu_torch.server.app import AppState, serve
 from vectordb_tpu_torch import VectorStore, DistanceMetric
 import threading

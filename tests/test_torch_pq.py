@@ -771,7 +771,8 @@ def test_cli_index_pq(capsys):
     assert main(["--device", "cpu", "--index", "pq", "--storage", "bf16",
                  "list"]) == 1
     assert "owns its device representation" in capsys.readouterr().err
-    for kind in ("ivf", "ivfpq"):
-        assert main(["--device", "cpu", "--index", kind, "list"]) == 1
-    # --index hnsw is ported (tests/test_torch_cli.py)
-    assert main(["--device", "cpu", "--index", "hnsw", "list"]) == 0
+    assert main(["--device", "cpu", "--index", "ivfpq", "list"]) == 1
+    # --index hnsw and ivf are ported (tests/test_torch_cli.py,
+    # tests/test_torch_ivf.py)
+    for kind in ("hnsw", "ivf"):
+        assert main(["--device", "cpu", "--index", kind, "list"]) == 0

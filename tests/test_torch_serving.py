@@ -291,14 +291,8 @@ def test_fast_path_equivalence_and_fallback(server):
     exotic = [1, -2.5, 3e-2, -4E1, 0.125, 0, 7e2, -0.0]
     _req(server, "POST", "/vectors", {"id": "exo", "vector": exotic})
     s5, r5 = _req(server, "POST", "/search", {"vector": exotic, "k": 1})
-    # the JAX package answers 0.0 here; the port's f32 expansion
-    # |x|^2 + |q|^2 - 2 x.q sums the stored norm (np.dot), the query norm
-    # and the plain K2 dot (torch.bmm) in three orders, which at
-    # |x|^2 = 491607 leaves 2 ulps: 0.25 (ROADMAP queue 3). The bound is
-    # the refine's f32 error, 8 d 2^-24 |x|^2 under the square root.
-    sq = float(np.dot(np.float32(exotic), np.float32(exotic)))
     assert s5 == 200 and r5[0]["id"] == "exo"
-    assert r5[0]["distance"] <= (8 * len(exotic) * 2.0 ** -24 * sq) ** 0.5
+    assert r5[0]["distance"] == 0.0
     assert _req(server, "POST", "/search",
                 {"vector": ["x", "y"], "k": 1})[0] == 400
     assert _req(server, "POST", "/search",
@@ -1029,10 +1023,12 @@ def _sig_pairs():
     from vectordb_tpu.index.flat import FlatIndex as JFlat
     from vectordb_tpu.index.hnsw import HnswIndex as JHnsw
     from vectordb_tpu.index.hnsw_graph import HnswParams as JParams
+    from vectordb_tpu.index.ivf import IvfFlatIndex as JIvf
     from vectordb_tpu.persistence import EngineConfig as JEngineConfig
     from vectordb_tpu.server.batcher import QueryBatcher as JBatcher
     from vectordb_tpu.utils import profiling as jprof
 
+    from vectordb_tpu_torch.index.ivf import IvfFlatIndex
     from vectordb_tpu_torch.persistence import EngineConfig
     from vectordb_tpu_torch.utils import profiling
     return {
@@ -1040,10 +1036,13 @@ def _sig_pairs():
         "FlatIndex.__init__": (JFlat.__init__, FlatIndex.__init__,
                                ["device"]),
         "start_flat": (japp.start_flat, app.start_flat, ["device"]),
-        "start_hnsw": (japp.start_hnsw, app.start_hnsw, []),
+        "start_hnsw": (japp.start_hnsw, app.start_hnsw, ["device"]),
         "start_durable": (japp.start_durable, app.start_durable, []),
         "serve": (japp.serve, app.serve, []),
-        "HnswIndex.__init__": (JHnsw.__init__, HnswIndex.__init__, []),
+        "HnswIndex.__init__": (JHnsw.__init__, HnswIndex.__init__,
+                               ["device"]),
+        "IvfFlatIndex.__init__": (JIvf.__init__, IvfFlatIndex.__init__,
+                                  ["device"]),
         "HnswParams": (JParams, HnswParams, []),
         "QueryBatcher.__init__": (JBatcher.__init__, QueryBatcher.__init__,
                                   []),

@@ -366,12 +366,20 @@ def test_cli_storage_insert_then_search(storage, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--index", "ivfpq", "list"], ["--index", "ivf", "list"],
-    ["--index", "ivf", "serve", "--http", "native"],
+    ["--index", "ivfpq", "list"],
+    ["--index", "ivfpq", "serve", "--http", "native"],
     ["--index", "ivfpq", "serve", "--batch-window-ms", "2"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert cli.main(["--device", "cpu", *argv]) == 1
-    assert "ROADMAP" in capsys.readouterr().err
+    assert "ROADMAP queue 1 item 12" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--index", "ivf", "list"],
+    ["--index", "ivf", "--storage", "int8", "search", "1,2", "-k", "1"]])
+def test_cli_index_ivf_runs(argv, capsys):
+    assert cli.main(["--device", "cpu", *argv]) == 0
+    assert "ROADMAP" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("verb", ["list", "serve"])

@@ -14,8 +14,12 @@ re-rank); the first-generation two-phase scan
 (``ops.flat_kernel``, kernel K9); the durability layer
 (``persistence``: WAL, snapshots and recovery in the JAX package's file
 formats, the CLI's ``--data-dir`` and ``serve --durable-dir``); serving
-through the native C++ front end or the query batcher; and ``HnswIndex``
-(the graph on the host, its checkpoint in ``hnsw_graph.npz``).
+through the native C++ front end or the query batcher; ``HnswIndex``
+(the graph on the host, its checkpoint in ``hnsw_graph.npz``; the bulk
+build of a large fresh batch on the flat index's kernels and the batched
+traversal, kernel H1, on the card); and ``IvfFlatIndex`` (k-means
+clusters, probed search refined exactly by kernel K2, its trained layout
+in ``ivf_state.npz``).
 """
 
 from .distance import (DistanceMetric, cosine_distance, dot_product,  # noqa: F401
@@ -24,7 +28,7 @@ from .errors import (DimensionMismatchError, IndexOpError,  # noqa: F401
                      InvalidVectorError, SerializationError, StorageError,
                      VdbIoError, VectorDbError, VectorNotFoundError)
 from .index import (FlatIndex, HnswIndex, HnswParams, Index,  # noqa: F401
-                    PqFlatIndex)
+                    IvfFlatIndex, PqFlatIndex)
 from .metadata import Metadata, MetadataFilter  # noqa: F401
 from .metrics import MetricsCollector  # noqa: F401
 from .store import BatchInsertItem, SearchResult, VectorStore  # noqa: F401

@@ -12,9 +12,13 @@ src/main.rs:10-198):
   * ``--index pq`` serves a PQ-Flat store (PqFlatIndex: codes on the
     device, exact re-rank); it owns its device representation, so
     ``--storage`` other than f32 is refused, as the JAX package does
-  * ``--index hnsw`` serves an HNSW store (the graph on the host;
-    ``--hnsw-seed N``, the port's own flag, seeds it and makes its build
-    reproducible), in memory, with ``--data-dir`` and under ``serve``
+  * ``--index hnsw`` serves an HNSW store (the graph on the host, its
+    device build and batched traversal on ``--device``; ``--hnsw-seed
+    N``, the port's own flag, seeds it and makes its build reproducible),
+    in memory, with ``--data-dir`` and under ``serve``
+  * ``--index ivf`` serves an IVF-Flat store (``--storage`` f32, bf16 or
+    int8), in memory, with ``--data-dir`` (its trained layout in
+    ``ivf_state.npz``) and under ``serve`` and ``serve --durable-dir``
   * ``search --ef / --nprobe / --refine`` are the per-query recall knobs;
     a knob the index lacks is an error, as in the JAX package
   * ``--data-dir DIR`` runs insert, search, list and delete against a
@@ -24,8 +28,8 @@ src/main.rs:10-198):
   * ``serve --http native|python|auto`` picks the front end (auto: the
     C++ one) and ``--batch-window-ms`` puts the query batcher behind it
 
-Refused with a clear error until their slices land (ROADMAP queue 1):
-``--index`` ivf and ivfpq.
+Refused with a clear error until its slice lands (ROADMAP queue 1 item
+12): ``--index ivfpq``.
 """
 
 from __future__ import annotations
@@ -48,8 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--index",
                         choices=["flat", "hnsw", "ivf", "pq", "ivfpq"],
                         default="flat",
-                        help="Index type to use for search (flat, hnsw "
-                             "and pq are ported so far)")
+                        help="Index type to use for search (flat, hnsw, "
+                             "ivf and pq are ported so far)")
     parser.add_argument("--data-dir", default=None,
                         help="Data directory for persistence (if not "
                              "specified, uses in-memory storage)")
@@ -63,9 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "approximate ids)")
     parser.add_argument("--storage", choices=["f32", "bf16", "int8"],
                         default="f32",
-                        help="Flat-index vector storage: f32 (default) or "
-                             "bf16/int8 (quantized at insert; search is "
-                             "exact over the stored values)")
+                        help="Flat/IVF vector storage: f32 (default) or "
+                             "bf16/int8 (quantized at insert; distances "
+                             "are exact over the stored values)")
     parser.add_argument("--device", default="cuda",
                         help="Device for the index's state: cuda (default; "
                              "runs the CUDA kernels), cuda:N, or cpu (plain "
@@ -174,9 +178,9 @@ def _run_commands(db, args) -> int:
 
 def _refusal(args) -> Optional[str]:
     """Why this command line needs a slice that is not ported yet."""
-    if args.index not in ("flat", "hnsw", "pq"):
-        return (f"--index {args.index} is not ported yet (ROADMAP queue 1); "
-                "use --index flat, hnsw or pq")
+    if args.index == "ivfpq":
+        return ("--index ivfpq is not ported yet (ROADMAP queue 1 item "
+                "12); use --index flat, hnsw, ivf or pq")
     if args.index == "pq" and args.storage != "f32":
         return (f"--index {args.index} owns its device representation "
                 "(codes); --storage does not compose with it.")
@@ -205,7 +209,13 @@ def _memory_store(args, metric: DistanceMetric) -> VectorStore:
                                                   device=args.device))
     if args.index == "hnsw":
         from .index.hnsw import HnswIndex
-        return VectorStore.with_index(HnswIndex(metric, _hnsw_params(args)))
+        return VectorStore.with_index(HnswIndex(metric, _hnsw_params(args),
+                                                device=args.device))
+    if args.index == "ivf":
+        from .index.ivf import IvfFlatIndex
+        return VectorStore.with_index(IvfFlatIndex(metric,
+                                                   storage=args.storage,
+                                                   device=args.device))
     return VectorStore.with_flat_index(metric, search_mode=args.search_mode,
                                        storage=args.storage,
                                        device=args.device)
@@ -246,7 +256,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 from .server.app import start_hnsw
                 start_hnsw(args.addr, metric, _hnsw_params(args),
                            batch_window_ms=args.batch_window_ms,
-                           backend=args.http)
+                           backend=args.http, device=args.device)
                 return 0
             from .server.app import AppState, serve
             serve(args.addr, AppState(_memory_store(args, metric)),

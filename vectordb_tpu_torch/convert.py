@@ -18,6 +18,12 @@ read the same codes slot for slot.
 graph's ``export_padded_tables()`` (numpy arrays: rows, adjacency, levels,
 entry point) are imported into a port graph of the same parameters, so
 the two traversals walk the same graph.
+
+``ivf_store_from_reference`` carries a trained ``IvfFlatIndex`` store
+across: its ``export_trained_state()`` (centroids, the slot -> internal
+id layout, nlist, t_c, s_t) and its stored rows by internal id go through
+``import_trained_state``, so the two indexes probe the same clusters over
+the same slots.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 from .distance import DistanceMetric
 from .index.flat import FlatIndex
 from .index.hnsw import HnswIndex, HnswParams
+from .index.ivf import IvfFlatIndex
 from .index.pq import PqFlatIndex
 from .store import VectorStore
 
@@ -96,6 +103,27 @@ def hnsw_store_from_reference(tables: dict,
     return _wrap(index, valid, id_of_slot, internal_to_string, metadata)
 
 
+def ivf_store_from_reference(trained_state: dict,
+                             rows_by_id: Dict[int, np.ndarray],
+                             internal_to_string: Dict[int, str],
+                             metric: DistanceMetric, device="cuda",
+                             metadata: Optional[Dict[int, Dict[str, str]]]
+                             = None, **ivf_kwargs) -> VectorStore:
+    """A port ``VectorStore`` over ``IvfFlatIndex(metric, device=device,
+    **ivf_kwargs)`` holding the JAX index's trained layout: its
+    ``export_trained_state()`` and ``rows_by_id`` (internal id -> f32
+    stored row, e.g. from its ``get_vector``). ``ivf_kwargs`` should
+    repeat the exporting index's storage and nprobe."""
+    index = IvfFlatIndex(metric, device=device, **ivf_kwargs)
+    rows = {int(i): np.asarray(r, np.float32).reshape(-1)
+            for i, r in rows_by_id.items()}
+    dim = len(next(iter(rows.values())))
+    index.import_trained_state(trained_state, rows, dim)
+    id_of_slot = np.asarray(trained_state["id_of_slot"], np.int64)
+    return _wrap(index, id_of_slot >= 0, id_of_slot, internal_to_string,
+                 metadata)
+
+
 def _wrap(index, valid, id_of_slot, internal_to_string, metadata
           ) -> VectorStore:
     live_ids = set(np.asarray(id_of_slot)[np.asarray(valid, bool)].tolist())
@@ -111,4 +139,4 @@ def _wrap(index, valid, id_of_slot, internal_to_string, metadata
 
 
 __all__ = ["store_from_reference", "pq_store_from_reference",
-           "hnsw_store_from_reference"]
+           "hnsw_store_from_reference", "ivf_store_from_reference"]

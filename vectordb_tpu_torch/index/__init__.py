@@ -3,11 +3,14 @@
 Parity with the reference index layer (src/index.rs, src/flat_index.rs,
 src/hnsw/): an abstract ``Index`` contract plus ``FlatIndex`` (exact,
 certified device flat scan), ``HnswIndex`` (approximate, graph traversal
-on the host) and ``PqFlatIndex`` (PQ codes on the device, exact re-rank).
-IVF-Flat and IVF-PQ join in later slices (ROADMAP queue 1).
+on the host, device bulk build and batched device traversal),
+``IvfFlatIndex`` (inverted file: probed clusters, exact refine) and
+``PqFlatIndex`` (PQ codes on the device, exact re-rank). IVF-PQ joins in
+a later slice (ROADMAP queue 1 item 12).
 """
 
 from .base import Index  # noqa: F401
 from .flat import FlatIndex  # noqa: F401
 from .hnsw import HnswIndex, HnswParams  # noqa: F401
+from .ivf import IvfFlatIndex  # noqa: F401
 from .pq import PqFlatIndex  # noqa: F401

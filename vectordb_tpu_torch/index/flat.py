@@ -296,12 +296,14 @@ class FlatIndex(Index):
         return arr
 
     def _host_rows(self, vals: np.ndarray) -> np.ndarray:
-        """Stored f32 values -> the host container's rows."""
-        return _bf16_bits(vals) if self.storage == "bf16" else vals
+        """Stored f32 values -> the host container's rows (bf16 bit
+        patterns where ``_host_dtype`` is np.uint16; a subclass may keep
+        f32 host rows for any storage, as IvfFlatIndex does)."""
+        return _bf16_bits(vals) if self._host_dtype == np.uint16 else vals
 
     def _stored(self, rows: np.ndarray) -> np.ndarray:
         """Host container rows -> the f32 values they hold."""
-        return _bf16_widen(rows) if self.storage == "bf16" else rows
+        return _bf16_widen(rows) if self._host_dtype == np.uint16 else rows
 
     # -- storage management -------------------------------------------------
 
@@ -778,8 +780,12 @@ class FlatIndex(Index):
     def _zero(self) -> torch.Tensor:
         return torch.zeros((), dtype=torch.float32, device=self._device_t)
 
-    def _bf16_to_device(self, bits: np.ndarray) -> torch.Tensor:
-        return self._to_device(bits.view(np.int16)).view(torch.bfloat16)
+    def _bf16_to_device(self, rows: np.ndarray) -> torch.Tensor:
+        """bf16 host rows (their bit patterns, or f32 rows holding bf16
+        values) -> a bf16 device tensor of the same values."""
+        if rows.dtype == np.uint16:
+            return self._to_device(rows.view(np.int16)).view(torch.bfloat16)
+        return self._to_device(rows).to(torch.bfloat16)
 
     def prehydrate(self) -> None:
         """Build the device state OUTSIDE the index lock and install it if

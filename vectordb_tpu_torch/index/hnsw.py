@@ -3,13 +3,15 @@
 Port of ``vectordb_tpu/index/hnsw.py``. Capability parity with reference
 src/hnsw/mod.rs:14-81: ``add``/``remove``/``search`` (with the params'
 ef_search), ``get_vector``, ``build_batch`` bulk loading (mod.rs:37) and
-``search_with_ef`` runtime tuning (mod.rs:45-53). The graph and its search
-stay on the host, as in the JAX package's ``HnswIndex``.
-
-Not ported yet (ROADMAP queue 1 item 10b, the HNSW device programs): the
-device bulk build (``bulk_build="device"`` raises; "auto" takes the host
-build, as the JAX package's "auto" does off a TPU) and the batched device
-traversal (``device_searcher``, ``search_batch_device``).
+``search_with_ef`` runtime tuning (mod.rs:45-53). The graph and its
+per-query search stay on the host, as in the JAX package's ``HnswIndex``;
+``device`` (the port's own parameter, default "cuda") is where the two
+device programs run: the bulk build of a large fresh batch
+(``bulk_build``, index/hnsw_build_device.py, over the flat index's
+kernels) and the batched traversal (``device_searcher``,
+``search_batch_device``: kernel H1, ops/hnsw_device.py). A CPU device runs
+their plain versions. The device is resolved at first use, so an index
+that never runs a device program needs no card.
 """
 
 from __future__ import annotations
@@ -17,14 +19,12 @@ from __future__ import annotations
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..distance import DistanceMetric
 from ..vector import Vector, as_f32_array
 from .base import Index
 from .hnsw_graph import HnswGraph, HnswParams
-
-_ITEM_10B = ("{} is not ported yet (ROADMAP queue 1 item 10b, the HNSW "
-             "device programs); the graph and its search run on the host")
 
 
 class HnswIndex(Index):
@@ -38,17 +38,20 @@ class HnswIndex(Index):
 
     def __init__(self, metric: DistanceMetric,
                  params: Optional[HnswParams] = None,
-                 backend: str = "auto", bulk_build: str = "auto"):
+                 backend: str = "auto", bulk_build: str = "auto",
+                 device="cuda"):
         if backend not in ("auto", "native", "python"):
             raise ValueError(f"unknown backend: {backend!r}")
         if bulk_build not in ("auto", "device", "host"):
             raise ValueError(f"unknown bulk_build: {bulk_build!r}")
-        if bulk_build == "device":
-            raise NotImplementedError(_ITEM_10B.format(
-                "the device bulk build (bulk_build='device')"))
-        # "host" and "auto" build on the host (Algorithm-1 inserts or the
-        # native batch path); "auto" takes the device build for large
-        # fresh batches once it is ported
+        # bulk_build selects how build_batch constructs a fresh graph:
+        # "device" = exact batched candidate generation on ``device``
+        # (hnsw_build_device.py), "host" = sequential Algorithm-1 inserts,
+        # "auto" = device when the batch is large, the graph is empty and
+        # ``device`` is a card (the JAX package's "a TPU backend is
+        # present"). A build or launch failure on the card raises.
+        self._bulk_build = bulk_build
+        self._device = device
         graph = None
         if backend in ("auto", "native"):
             from .hnsw_native import NativeHnswGraph, native_available
@@ -97,17 +100,54 @@ class HnswIndex(Index):
     def add_batch(self, items: Sequence[Tuple[int, Vector]]) -> None:
         self.build_batch(items)
 
+    # auto device-build threshold: below this the sequential C++ build
+    # is faster than the device path's set-up
+    _AUTO_DEVICE_BUILD_MIN = 65536
+
     def build_batch(self, items: Sequence[Tuple[int, Vector]]) -> None:
-        """Bulk load. With the native core this runs the batch path (the
-        reference's docstring promises rayon parallelism but is
-        sequential, src/hnsw/mod.rs:34-37; here an unseeded graph builds
-        on several threads)."""
+        """Bulk load. Large fresh batches on a card route through the
+        device bulk builder (hnsw_build_device.py: exact batched candidate
+        generation on the flat index's kernels). Otherwise, with the
+        native core this runs the batch path (the reference's docstring
+        promises rayon parallelism but is sequential,
+        src/hnsw/mod.rs:34-37; here an unseeded graph builds on several
+        threads)."""
+        if self._bulk_build != "host" and self._device_buildable(items):
+            from .hnsw_build_device import build_device_tables
+            ids = np.fromiter((int(i) for i, _ in items), dtype=np.int64,
+                              count=len(items))
+            data = np.stack([as_f32_array(v) for _, v in items])
+            tables = build_device_tables(ids, data, self.metric,
+                                         self.params, device=self._device)
+            self._graph.import_padded_tables(tables)
+            return
         batch_fn = getattr(self._graph, "insert_batch", None)
         if batch_fn is not None and len(items) >= 64:
             batch_fn([(iid, as_f32_array(v)) for iid, v in items])
             return
         for internal_id, vector in items:
             self._graph.insert(internal_id, as_f32_array(vector))
+
+    def _device_buildable(self, items) -> bool:
+        """Can/should build_batch use the device bulk builder?"""
+        if len(self._graph) != 0:
+            if self._bulk_build == "device":
+                raise RuntimeError(
+                    "bulk_build='device' requires an empty graph")
+            return False
+        ids = {int(i) for i, _ in items}
+        if len(ids) != len(items):
+            if self._bulk_build == "device":
+                raise ValueError("duplicate ids in device bulk build")
+            return False
+        if self._bulk_build == "device":
+            # the explicit request holds at any size and on any device
+            # (MIN_DEVICE_BUILD is a heuristic of the auto path)
+            return True
+        from .hnsw_build_device import MIN_DEVICE_BUILD
+        if len(items) < max(MIN_DEVICE_BUILD, self._AUTO_DEVICE_BUILD_MIN):
+            return False
+        return torch.device(self._device).type == "cuda"
 
     def remove(self, internal_id: int) -> None:
         self._graph.remove(internal_id)
@@ -167,16 +207,29 @@ class HnswIndex(Index):
             return res
         return None
 
-    # -- device traversal (ROADMAP queue 1 item 10b) --------------------------
+    # -- device traversal (batched beam search, kernel H1) --------------------
 
     def device_searcher(self):
-        raise NotImplementedError(_ITEM_10B.format(
-            "the batched device traversal (device_searcher)"))
+        """Frozen device tables + the batched traversal for the current
+        graph version (rebuilt lazily after mutations)."""
+        from ..ops.hnsw_device import DeviceHnswSearcher
+        cached = getattr(self, "_device_searcher", None)
+        if cached is None or cached[0] != self._graph.version:
+            cached = (self._graph.version,
+                      DeviceHnswSearcher(self._graph, self.metric,
+                                         device=self._device))
+            self._device_searcher = cached
+        return cached[1]
 
     def search_batch_device(self, queries: np.ndarray, k: int,
                             ef: Optional[int] = None, slot_mask=None):
-        raise NotImplementedError(_ITEM_10B.format(
-            "the batched device traversal (search_batch_device)"))
+        """Batched search on the device tables (one launch for Q queries)
+        instead of the host traversal per query. ``slot_mask``: exact
+        filtered search (a result track of eligible slots in the beam, no
+        over-fetch)."""
+        ef = self.params.ef_search if ef is None else int(ef)
+        return self.device_searcher().search_batch(queries, k, ef,
+                                                   slot_mask=slot_mask)
 
     # -- lookups -------------------------------------------------------------
 

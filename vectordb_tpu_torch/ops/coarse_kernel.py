@@ -237,9 +237,11 @@ def _coarse_minima_1p_plain(qThi, qrow, db_hi, col, inv_col, mode: str):
 
 def _refine_dots_plain(tile_idx, queries, db, m: int, scales=None):
     """Plain K2: (Qp, m*SUB) f32 dots of each query with the rows of its
-    m selected tiles (gathered, widened exactly to f32, then one batched
-    f32 product); with int8 codes, the dots times the rows' pow2
-    ``scales`` (N,)."""
+    m selected tiles (gathered, widened exactly to f32, multiplied
+    elementwise and summed over d: the reduction ``_query_terms`` uses
+    for |q|^2, so a row searched with itself cancels to 0 in
+    |q|^2 + |x|^2 - 2 x.q); with int8 codes, the dots times the rows'
+    pow2 ``scales`` (N,)."""
     qp, d = queries.shape
     db3 = db.reshape(-1, SUB, d)
     step = max(1, _PLAIN_ELEMS // max(m * SUB * d, 1))
@@ -247,7 +249,7 @@ def _refine_dots_plain(tile_idx, queries, db, m: int, scales=None):
     for q0 in range(0, qp, step):
         t_i = tile_idx[q0:q0 + step]
         rows = db3[t_i].reshape(-1, m * SUB, d).float()
-        dots = torch.bmm(rows, queries[q0:q0 + step, :, None])[..., 0]
+        dots = (rows * queries[q0:q0 + step, None, :]).sum(dim=2)
         if scales is not None:
             dots = dots * scales.reshape(-1, SUB)[t_i].reshape(-1, m * SUB)
         parts.append(dots)

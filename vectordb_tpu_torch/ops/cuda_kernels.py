@@ -31,6 +31,9 @@ of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
     K8  pq_decode                  pq_decode.cu      uint8 codes -> bf16 rows
                                    (two bodies, see below)
     K9  scan_min                   scan_min.cu       f32 per-tile minima
+    H1  hnsw_search                hnsw_search.cu    batched HNSW traversal
+        (one block a query; the counterpart of an XLA program, not of a
+        Pallas kernel)
 
 The coarse kernels have two bodies, chosen by shape alone in
 ``_coarse_route``: "wgmma" (``coarse_wgmma.cu``: TMA ring, wgmma,
@@ -100,14 +103,17 @@ _REFINE_SRC = {torch.float32: (0, "refine_dots"),
                torch.int8: (2, "refine_dots_int8")}
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = ("coarse_minima.cu", "coarse_wgmma.cu", "refine_dots.cu",
-            "pq_decode.cu", "scan_min.cu")
+            "pq_decode.cu", "scan_min.cu", "hnsw_search.cu")
+# H1: device bytes of visited bitmasks one launch may hold (N/8 bytes a
+# query); larger batches go in several launches
+_HNSW_VISITED_BYTES = 256 << 20
 _ARCH = "arch=compute_90a,code=sm_90a"
 
 launches = {"coarse_minima_1p_sup": 0, "coarse_minima": 0,
             "coarse_minima_f32_1p_sup": 0, "coarse_minima_f32": 0,
             "coarse_minima_1p": 0, "coarse_minima_int8_1p_sup": 0,
             "refine_dots": 0, "refine_dots_bf16": 0, "refine_dots_int8": 0,
-            "pq_decode": 0, "scan_min": 0}
+            "pq_decode": 0, "scan_min": 0, "hnsw_search": 0}
 # coarse, K2 and K8 launches by body (see _coarse_route, _refine_route,
 # _decode_route), reset with ``launches``
 routes = {key: ({"wgmma": 0, "mma_sync": 0} if key.startswith("coarse")
@@ -191,6 +197,11 @@ def _lib() -> ctypes.CDLL:
     lib.vdb_pq_decode_tiles.restype = i
     lib.vdb_scan_min.argtypes = [p, p, p, p, p, p, l, i, i, i, i, p]
     lib.vdb_scan_min.restype = i
+    lib.vdb_hnsw_search.argtypes = [p, p, p, p, p, p, p, p, p, l, i, i, i,
+                                    i, i, i, i, i, i, p]
+    lib.vdb_hnsw_search.restype = i
+    lib.vdb_hnsw_search_smem.argtypes = [i, i, i, i]
+    lib.vdb_hnsw_search_smem.restype = l
     build_info.update(path=str(so), seconds=seconds, log=log)
     return lib
 
@@ -642,9 +653,69 @@ def scan_min(queries, qaux, db, raux, invalidf, mode: str, tile_rows: int):
     return out
 
 
+def hnsw_search(vectors, norms, neighbors, valid, queries, entry: int,
+                start_layer: int, mode: str, k: int, ef: int,
+                slot_mask=None):
+    """H1: batched HNSW search over the padded tables, one thread block a
+    query (hnsw_search.cu). ``vectors`` (N, d) f32, ``norms`` (N,) f32,
+    ``neighbors`` (N, L, M) int32 (-1 padded), ``valid`` (N,) bool,
+    ``queries`` (Q, d) f32, ``slot_mask`` (N,) bool or None; ``ef`` >=
+    ``k``. Returns (dists (Q, k) f32 finalised, slots (Q, k) int32), +inf
+    and -1 where missing. The visited bitmasks (N/8 bytes a query) are
+    scratch of this call; more than ``_HNSW_VISITED_BYTES`` of them go in
+    several launches."""
+    dev = vectors.device
+    if dev.type != "cuda":
+        raise ValueError(f"hnsw_search kernel needs CUDA tensors, got {dev}")
+    n, d = vectors.shape
+    nq = queries.shape[0]
+    if neighbors.dim() != 3 or neighbors.shape[0] != n:
+        raise ValueError("neighbors must be (N, L, M)")
+    _, layers, m = neighbors.shape
+    if not 1 <= k <= ef:
+        raise ValueError(f"need 1 <= k <= ef, got k={k}, ef={ef}")
+    if not 0 <= entry < n or start_layer >= layers:
+        raise ValueError(f"entry {entry} / start layer {start_layer} out "
+                         "of range")
+    f32 = torch.float32
+    _check("vectors", vectors, f32, (n, d), dev)
+    _check("norms", norms, f32, (n,), dev)
+    _check("neighbors", neighbors, torch.int32, (n, layers, m), dev)
+    _check("valid", valid, torch.bool, (n,), dev)
+    _check("queries", queries, f32, (nq, d), dev)
+    if slot_mask is not None:
+        _check("slot_mask", slot_mask, torch.bool, (n,), dev)
+    lib = _lib()
+    smem = lib.vdb_hnsw_search_smem(d, ef, m, int(slot_mask is not None))
+    if smem > _MAX_SMEM or m > 256:
+        raise ValueError(f"d={d}, ef={ef}, M={m}: {smem} bytes of shared "
+                         "memory a block, more than the card holds")
+    out_d = torch.empty((nq, k), dtype=f32, device=dev)
+    out_slot = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    if nq == 0:
+        return out_d, out_slot
+    words = (n + 31) // 32
+    chunk = max(1, _HNSW_VISITED_BYTES // (words * 4))
+    visited = torch.empty((min(chunk, nq), words), dtype=torch.int32,
+                          device=dev)
+    mask_ptr = slot_mask.data_ptr() if slot_mask is not None else None
+    for q0 in range(0, nq, chunk):
+        q1 = min(q0 + chunk, nq)
+        rc = lib.vdb_hnsw_search(
+            vectors.data_ptr(), norms.data_ptr(), neighbors.data_ptr(),
+            valid.data_ptr(), queries[q0:q1].data_ptr(), mask_ptr,
+            visited.data_ptr(), out_d[q0:q1].data_ptr(),
+            out_slot[q0:q1].data_ptr(), n, q1 - q0, d, layers, m, entry,
+            start_layer, k, ef, _MODES[mode], _stream(dev))
+        _raise_on(rc, "hnsw_search")
+        launches["hnsw_search"] += 1
+    return out_d, out_slot
+
+
 __all__ = ["coarse_minima_1p_sup", "coarse_minima", "coarse_minima_f32_1p_sup",
            "coarse_minima_f32", "coarse_minima_1p",
            "coarse_minima_int8_1p_sup", "refine_dots", "pq_decode",
-           "pq_decode_grid_stride", "scan_min", "launches", "routes",
+           "pq_decode_grid_stride", "scan_min", "hnsw_search", "launches",
+           "routes",
            "coarse_body", "refine_body", "decode_body", "reset_launches",
            "load", "build_info"]

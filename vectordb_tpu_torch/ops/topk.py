@@ -152,13 +152,14 @@ def _collect_plain(dists, idx):
     return tuple(_to_host(dists, idx))
 
 
-def _collect_certified(dists, idx, certified, queries_np, fb_state,
+def _collect_certified(dists, idx, certified, queries_in, fb_state,
                        metric, k):
     """Fetch a certified search's outputs; re-run uncertified rows through
     the next tier (whatever ``fb_state`` still routes to: the bf16x3
     pipeline when only elo_max was stripped, the plain scan when the
     mirrors were), in chunks of _FALLBACK_CHUNK queries. The fallback
-    reads ``fb_state``, the snapshot taken at submit."""
+    reads ``fb_state``, the snapshot taken at submit, and the queries as
+    they were submitted (numpy, or a tensor on the state's device)."""
     d_, i_, cert = _to_host(dists, idx, certified)
     if bool(np.all(cert)):
         return d_, i_
@@ -167,9 +168,12 @@ def _collect_certified(dists, idx, certified, queries_np, fb_state,
     bad = np.nonzero(~cert)[0]
     for start in range(0, bad.shape[0], _FALLBACK_CHUNK):
         rows = bad[start:start + _FALLBACK_CHUNK]
-        sub_d, sub_i = flat_search_batched(
-            np.ascontiguousarray(np.asarray(queries_np)[rows]),
-            fb_state, metric, k, mode="exact")
+        if isinstance(queries_in, torch.Tensor):
+            sub_q = queries_in[torch.from_numpy(rows).to(queries_in.device)]
+        else:
+            sub_q = np.ascontiguousarray(np.asarray(queries_in)[rows])
+        sub_d, sub_i = flat_search_batched(sub_q, fb_state, metric, k,
+                                           mode="exact")
         d_[rows] = sub_d[:, : d_.shape[1]]
         i_[rows] = sub_i[:, : i_.shape[1]]
     return d_, i_
@@ -294,6 +298,9 @@ def flat_search_batched_submit(queries_np: np.ndarray, device_state: dict,
                                mode: str = "exact") -> SearchHandle:
     """Asynchronous entry point used by FlatIndex: launches the device
     work and returns a SearchHandle without waiting for results.
+    ``queries_np`` is a (Q, d) f32 numpy array, or a tensor already on
+    the state's device (the HNSW device build passes slices of the
+    resident rows: no host round trip).
 
     collect() returns host numpy (dists, idx) with (Q, k') shape; entries
     with dist == +inf are "missing" (fewer than k live rows). ``mode``
@@ -307,12 +314,15 @@ def flat_search_batched_submit(queries_np: np.ndarray, device_state: dict,
     return handle
 
 
-def _queries_to(queries_np: np.ndarray, device: torch.device
-                ) -> torch.Tensor:
-    """The queries on ``device``. To a card the copy leaves from pinned
-    memory without blocking the host: a pageable copy would wait for all
-    earlier work on the stream, and the serving front end's next submit
-    would then wait for the previous cycle's kernels."""
+def _queries_to(queries_np, device: torch.device) -> torch.Tensor:
+    """The queries on ``device``. A tensor there already is taken as it
+    is (made f32 and contiguous). From numpy to a card the copy leaves
+    from pinned memory without blocking the host: a pageable copy would
+    wait for all earlier work on the stream, and the serving front end's
+    next submit would then wait for the previous cycle's kernels."""
+    if isinstance(queries_np, torch.Tensor):
+        return queries_np.to(device=device, dtype=torch.float32
+                             ).contiguous()
     q = torch.from_numpy(np.require(queries_np, np.float32, ["C", "W"]))
     if device.type != "cuda":
         return q.to(device)

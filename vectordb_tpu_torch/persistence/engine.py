@@ -2,9 +2,12 @@
 
 Port of ``vectordb_tpu/persistence/engine.py`` for the index types the
 port has: "flat" (``storage=`` f32, bf16 or int8; ``search_mode`` exact or
-fast), "pq" (PQ-Flat, its trained codebook kept in ``pq_state.npz``) and
+fast), "pq" (PQ-Flat, its trained codebook kept in ``pq_state.npz``),
 "hnsw" (``hnsw_params``; its graph tables kept in ``hnsw_graph.npz``,
-bound to the snapshot's sha256 and imported on reopen instead of rebuilt).
+bound to the snapshot's sha256 and imported on reopen instead of rebuilt)
+and "ivf" (IVF-Flat, ``storage=`` f32, bf16 or int8; its trained layout,
+centroids and slot assignment, kept in ``ivf_state.npz``, bound to the
+snapshot the same way and imported on reopen instead of retrained).
 Capability parity with reference src/persistence/engine.rs:15-228:
   * ``open``: mkdir, load snapshot, replay WAL on top (engine.rs:44-73)
   * WAL-first durable writes for insert/delete (engine.rs:107-160): one
@@ -27,8 +30,9 @@ package's, byte for byte: either package opens the other's directory.
 
 ``EngineConfig.device`` (default "cuda") is where the index's device state
 lives; "cuda" without a card raises (an HNSW store keeps its graph on the
-host and ignores it). Not ported yet: ``index_type`` "ivf" and "ivfpq"
-(ROADMAP queue 1 items 11 and 12) and ``mesh=`` (item 13).
+host and runs its device build and batched traversal there). Not ported
+yet: ``index_type`` "ivfpq" (ROADMAP queue 1 item 12) and ``mesh=`` (item
+13).
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from .wal import WriteAheadLog
 
 WAL_FILE = "wal.log"
 # index types of the JAX package the port has not reached, by ROADMAP item
-_UNPORTED = {"ivf": 11, "ivfpq": 12}
+_UNPORTED = {"ivfpq": 12}
 
 
 class _ChunkedInserter:
@@ -88,16 +92,17 @@ class EngineConfig:
     field for sharded storage, which is not ported yet (it raises)."""
     checkpoint_interval: int = 1000
     metric: DistanceMetric = DistanceMetric.EUCLIDEAN
-    index_type: str = "flat"   # "flat" | "hnsw" | "pq"
+    index_type: str = "flat"   # "flat" | "hnsw" | "ivf" | "pq"
     hnsw_params: Optional[object] = None
     mesh: Optional[object] = None
     search_mode: str = "exact"      # flat scan mode: "exact" | "fast"
-    storage: str = "f32"            # flat: "f32" | "bf16" | "int8"
+    storage: str = "f32"            # flat/ivf: "f32" | "bf16" | "int8"
     device: str = "cuda"            # where the index's device state lives
 
 
 class StorageEngine:
     GRAPH_FILE = "hnsw_graph.npz"
+    IVF_FILE = "ivf_state.npz"
     PQ_FILE = "pq_state.npz"
     _APPLY_CHUNK = 65536
 
@@ -111,7 +116,7 @@ class StorageEngine:
             raise ValueError(
                 f"index_type={cfg.index_type!r} is not ported yet (ROADMAP "
                 f"queue 1 item {_UNPORTED[cfg.index_type]}); use 'flat', "
-                "'hnsw' or 'pq'")
+                "'hnsw', 'ivf' or 'pq'")
         if cfg.index_type == "pq":
             if cfg.storage != "f32":
                 raise ValueError(
@@ -121,7 +126,12 @@ class StorageEngine:
             index = PqFlatIndex(cfg.metric, device=cfg.device)
         elif cfg.index_type == "hnsw":
             from ..index.hnsw import HnswIndex, HnswParams
-            index = HnswIndex(cfg.metric, cfg.hnsw_params or HnswParams())
+            index = HnswIndex(cfg.metric, cfg.hnsw_params or HnswParams(),
+                              device=cfg.device)
+        elif cfg.index_type == "ivf":
+            from ..index.ivf import IvfFlatIndex
+            index = IvfFlatIndex(cfg.metric, storage=cfg.storage,
+                                 device=cfg.device)
         elif cfg.index_type == "flat":
             from ..index.flat import FlatIndex
             index = FlatIndex(cfg.metric, search_mode=cfg.search_mode,
@@ -158,12 +168,17 @@ class StorageEngine:
                       file=sys.stderr, flush=True)
 
         self._recover_mark = _mark
-        if self.config.index_type == "hnsw":
-            # the graph import binds to the whole id set: the snapshot is
-            # read whole (HNSW checkpoints at far smaller row counts)
+        if self.config.index_type in ("hnsw", "ivf"):
+            # the graph or layout import binds to the whole id set: the
+            # snapshot is read whole (these families checkpoint at far
+            # smaller row counts)
             snap = self.snapshots.load()
-            if snap is not None and not self._try_import_graph(snap):
-                self._apply_snapshot(snap)
+            if snap is not None:
+                imported = (self._try_import_graph(snap)
+                            if self.config.index_type == "hnsw"
+                            else self._try_import_ivf(snap))
+                if not imported:
+                    self._apply_snapshot(snap)
         else:
             reader = self.snapshots.open_stream()
             if reader is not None:
@@ -219,6 +234,41 @@ class StorageEngine:
 
     def _graph_path(self) -> Path:
         return self.data_dir / self.GRAPH_FILE
+
+    def _ivf_path(self) -> Path:
+        return self.data_dir / self.IVF_FILE
+
+    def _try_import_ivf(self, snap: DatabaseSnapshot) -> bool:
+        """Restore a trained IVF layout (centroids + slot assignment)
+        instead of retraining on the first search: recovery reproduces
+        the pre-crash search behaviour exactly (reference parity:
+        engine.rs:44-73 replays to identical state). The state must
+        belong to exactly this snapshot (its sha256) and name exactly its
+        ids; any mismatch or corruption rebuilds from the snapshot."""
+        if self.config.index_type != "ivf" or not self._ivf_path().exists():
+            return False
+        try:
+            import numpy as np
+            with np.load(self._ivf_path()) as z:
+                tables = {key: z[key] for key in z.files}
+            if str(tables.get("metric", "")) != self.config.metric.value:
+                return False
+            if str(tables.get("snapshot_digest", "")) != \
+                    self._snapshot_digest():
+                return False
+            id_of_slot = np.asarray(tables["id_of_slot"], np.int64)
+            state_ids = {int(i) for i in id_of_slot[id_of_slot >= 0]}
+            if state_ids != {sv.internal_id for sv in snap.vectors}:
+                return False
+            rows_by_id = {sv.internal_id: sv.data for sv in snap.vectors}
+            self.store.index.import_trained_state(
+                tables, rows_by_id, int(snap.dimension))
+            self.store.adopt_index_state(
+                {sv.internal_id: sv.string_id for sv in snap.vectors},
+                snap.metadata, snap.next_id, snap.dimension)
+            return True
+        except Exception:
+            return False  # any inconsistency: rebuild from the snapshot
 
     def _try_import_graph(self, snap: DatabaseSnapshot) -> bool:
         """Fast HNSW reopen: restore the checkpointed graph tables instead
@@ -486,6 +536,7 @@ class StorageEngine:
     def checkpoint(self) -> None:
         self._save_snapshot_stream()
         self._save_graph()
+        self._save_ivf()
         self._save_pq()
         self.wal.append(WalEntry.checkpoint())
         self.wal.truncate()
@@ -547,6 +598,26 @@ class StorageEngine:
                  metric=self.config.metric.value,
                  snapshot_digest=self._snapshot_digest(), **tables)
         _durable_write(self._graph_path(), buf.getvalue())
+
+    def _save_ivf(self) -> None:
+        """Write the trained IVF layout (centroids + slot assignment; the
+        JAX package's ``ivf_state.npz``, byte for byte) beside the
+        snapshot so reopen imports it instead of retraining. Untrained:
+        remove any stale file, so recovery cannot bind an old layout to a
+        newer snapshot."""
+        if self.config.index_type != "ivf":
+            return
+        state = self.store.index.export_trained_state()
+        if state is None:
+            self._ivf_path().unlink(missing_ok=True)
+            return
+        import io
+
+        import numpy as np
+        buf = io.BytesIO()
+        np.savez(buf, metric=self.config.metric.value,
+                 snapshot_digest=self._snapshot_digest(), **state)
+        _durable_write(self._ivf_path(), buf.getvalue())
 
     def _save_pq(self) -> None:
         """Serialize the trained PQ codebook beside the snapshot so reopen

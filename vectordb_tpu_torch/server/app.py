@@ -188,10 +188,11 @@ def start_flat(addr: str, metric: DistanceMetric,
 
 def start_hnsw(addr: str, metric: DistanceMetric,
                params: Optional[HnswParams] = None,
-               batch_window_ms: float = 0.0, backend: str = "auto") -> None:
+               batch_window_ms: float = 0.0, backend: str = "auto",
+               device="cuda") -> None:
     """Serve an in-memory HNSW store (reference: src/server/mod.rs:34-51);
-    its graph lives on the host."""
-    index = HnswIndex(metric, params or HnswParams())
+    its graph lives on the host, its device build on ``device``."""
+    index = HnswIndex(metric, params or HnswParams(), device=device)
     serve(addr, AppState(VectorStore.with_index(index)),
           batch_window_ms=batch_window_ms, backend=backend)
 
