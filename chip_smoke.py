@@ -157,7 +157,28 @@ nothing is caught and passed over):
      not scale) with their exact truth (K1 / K7 + K2); a durable
      ``index_type="ivf"`` engine at 2^17 rows (reduced) checkpointed and
      reopened: ``ivf_state.npz`` imported with no train, the writer's ids,
-     distances within f32 rounding of |x|^2 (ROADMAP queue 3).
+     distances within f32 rounding of |x|^2 (ROADMAP queue 3);
+ 15. IVF-PQ: 2^20 x 768 rows of benchmarks/pq_bench.py's
+     clustered_intrinsic protocol (2048 N(0,1) centers, deviations 0.25 z
+     @ basis in a shared 32-dim subspace; a generator of its own), 1024
+     deleted, into ``IvfPqIndex(EUCLIDEAN, device="cuda")`` with its
+     defaults (auto nlist 8192, m=96, ksub=256, OPQ, rerank "auto"),
+     trained (k-means, assignment, repack, spill centroids, OPQ, codebook
+     timed apart) and encoded; Q=4096, k=10 at refine 16, 32, 64 and 128:
+     recall@10 against an on-card f32 oracle (>= 0.95 at refine 128),
+     every returned distance the f32 distance of its id, K8's launches by
+     body against the route of the chunk and of the spill block; at
+     Q=256 the scan's pool with K8 equal to the pool with the plain
+     decode (and K8 bit for bit at both shapes), the pool's scores within
+     PQ_SCORE_LIMIT of their f64 recomputation from c + r_hat (controls:
+     a bf16-output c.r_hat and a dropped q_lo must break it), the
+     "mirror" and "host" venues agreeing, refine 2048 taking the exact
+     fallback (K4 + K2) exactly; refine 16 and 128 over the native front
+     end (nprobe refused, 400); the scan and device re-rank of a batch at
+     each refine and the scan's steps at one chunk by CUDA events; a
+     durable ``index_type="ivfpq"`` engine at 2^17 rows (reduced: the
+     reopen) checkpointed and reopened with ``ivfpq_state.npz`` imported
+     (no train), its answers bit-equal to the writer's.
 Launch counters are zeroed just before each path's run and read right
 after it: the store searches of phases 3 and 4 (K1, K2, K3); each
 storage store's searches (K4/K7 and K2 by source); each forced fallback
@@ -166,7 +187,8 @@ two-phase searches (K9); each phase-10 reopen with its first searches (K1
 or K7, and K2; K8); each phase-11 load run and route window (K1, K2);
 phase 13's device build (K1, K2, K3) and its three device batches (H1);
 phase 14's calibration (K4, K2), probed searches (K2) and quantized
-stores' searches and truths (K1 / K7, K2). Every kernel of a path must have launched in its
+stores' searches and truths (K1 / K7, K2); phase 15's store searches (K8)
+and its exact fallback (K4, K2). Every kernel of a path must have launched in its
 window; the direct comparison calls are outside them. Every K1, K4 and K7
 launch in the windows of phase 3 and of phase 7's bf16, int8 and f32
 stores, every K3 launch of phases 3-4 (the 2^20-row store's tier 2, the
@@ -194,6 +216,7 @@ import os
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1078,8 +1101,11 @@ def http_call(port, method, path, body=None):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=data, method=method,
         headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=120) as r:
-        return r.status, json.loads(r.read())
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:          # 4xx / 5xx: their body
+        return e.code, json.loads(e.read() or b"null")
 
 
 def venue_ties(res_a, res_b, rtol, np):
@@ -2997,6 +3023,402 @@ def ivf_phase(args, card, mods):
     return windows
 
 
+P15_ROWS = 1 << 20
+P15_QUERIES = 4096
+P15_REFINES = (16, 32, 64, 128)
+P15_RECALL_MIN = 0.95      # recall@10 at refine 128
+P15_CHECK_QUERIES = 256    # the pool, score and venue checks
+P15_DURABLE = 1 << 17      # the durable engine's rows (reduced)
+P15_CENTERS = 2048         # benchmarks/pq_bench.py CENTERS, NOISE
+P15_NOISE = 0.25
+
+
+def clustered_intrinsic_rows(rng, n, nq, np):
+    """benchmarks/pq_bench.py's clustered_intrinsic protocol (:87-100):
+    2048 N(0,1) centers in D dimensions, each row a center plus 0.25 z @
+    basis with z in a shared 32-dim subspace; queries of the same model.
+    From the caller's generator, chunked: (rows, queries) f32."""
+    centers = rng.standard_normal((P15_CENTERS, D), dtype=np.float32)
+    basis = (rng.standard_normal((32, D), dtype=np.float32)
+             / np.float32(np.sqrt(32)))
+
+    def draw(m):
+        which = rng.integers(0, P15_CENTERS, m)
+        return centers[which] + np.float32(P15_NOISE) * (
+            rng.standard_normal((m, 32), dtype=np.float32) @ basis)
+
+    rows = np.empty((n, D), np.float32)
+    for r0 in range(0, n, 1 << 16):
+        rows[r0:r0 + (1 << 16)] = draw(min(1 << 16, n - r0))
+    return rows, draw(nq)
+
+
+def ivfpq_phase(args, card, mods):
+    """Phase 15 (module docstring). Returns the launches of its windows:
+    the store searches' K8 (by body), the durable engine's K8 by body,
+    the exact fallback's kernels."""
+    import shutil
+    import tempfile
+
+    from vectordb_tpu_torch import IvfPqIndex
+    from vectordb_tpu_torch.ops import pq as pq_ops
+    from vectordb_tpu_torch.persistence import EngineConfig, StorageEngine
+    np, torch = mods["np"], mods["torch"]
+    cuda_kernels = mods["cuda_kernels"]
+    VectorStore, Vector = mods["VectorStore"], mods["Vector"]
+    BatchInsertItem = mods["BatchInsertItem"]
+    E = mods["DistanceMetric"].EUCLIDEAN
+    dev = torch.device("cuda")
+    n, nq = P15_ROWS, P15_QUERIES
+    rng = np.random.default_rng([args.seed, 15])
+    rows, qs = clustered_intrinsic_rows(rng, n, nq, np)
+    dead = rng.choice(n, 1024, replace=False)
+    store = VectorStore.with_index(IvfPqIndex(E, device="cuda"))
+    index = store.index
+    t0 = time.perf_counter()
+    load_store(store, rows, [], BatchInsertItem, Vector)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    marks = dict(index.train_marks)
+    if index._nlist != min(1 << 15, n // 128):
+        fail(f"phase 15: auto nlist is {index._nlist}, not n / 128")
+    for i in dead:                  # deletes leave dead slots in clusters
+        store.delete(str(int(i)))
+    t0 = time.perf_counter()
+    with index._lock:
+        index._pq_sync()            # the full encode of every live row
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    nlist, span, cpc = index._nlist, index._span, index._scan_cpc()
+    chunk, big_m = cpc * span, index._spill_base
+    s_rows = index._capacity - big_m
+    spill_live = int(index._valid[big_m:].sum())
+    nfull = big_m // chunk
+    tail = nlist - nfull * cpc
+    per_scan = nfull + (1 if tail else 0) + (1 if s_rows else 0)
+    batch = [(Vector(q), K) for q in qs]
+
+    # the path's run: only this store's searches between reset and read
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    store.search_batch(batch)                  # first search, refine 64
+    first_s = time.perf_counter() - t0
+    results, store_s = {}, {}
+    for refine in P15_REFINES:
+        t0 = time.perf_counter()
+        results[refine] = store.search_batch(batch, refine=refine)
+        store_s[refine] = time.perf_counter() - t0
+    counts = dict(cuda_kernels.launches)
+    k8_routes = dict(cuda_kernels.routes["pq_decode"])
+    scans = counts["pq_decode"] // per_scan
+    if (counts["pq_decode"] % per_scan
+            or scans < 1 + len(P15_REFINES)):
+        fail(f"phase 15: K8 launched {counts['pq_decode']} times, not "
+             f"{per_scan} a scan over {1 + len(P15_REFINES)} searches: "
+             f"{counts}")
+    with index._lock:
+        state = dict(index._scan_state())
+        rr_rows = index._sync_device()["db"]
+    want_body = {"chunk": cuda_kernels.decode_body(
+        state["codes"][:chunk], state["codebook"])}
+    if s_rows:
+        want_body["spill"] = cuda_kernels.decode_body(
+            state["codes"][big_m:], state["codebook"])
+    expect = {"tile_ring": 0, "grid_stride": 0}
+    for part, body in want_body.items():
+        expect[body] += scans * (
+            (nfull + (1 if tail else 0)) if part == "chunk" else 1)
+    if any(k8_routes.get(b, 0) != c for b, c in expect.items()):
+        fail(f"phase 15: K8 launches by body {k8_routes}, expected "
+             f"{expect} (chunk and spill bodies {want_body})")
+
+    # (1) every returned distance is the f32 distance of its id; (2)
+    # recall@10 against an on-card f32 oracle over the rows as inserted
+    queries = torch.from_numpy(qs).to(dev)
+    db_t = torch.from_numpy(rows).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[torch.from_numpy(dead).to(dev)] = False
+    _, ora_i = oracle_sq(queries, db_t, (db_t * db_t).sum(1), valid, K,
+                         torch)
+    recall, derr = {}, 0.0
+    for refine, res in results.items():
+        ids, dists = store_ids(res, np)
+        if ids.shape != (nq, K) or np.isin(ids, dead).any():
+            fail(f"phase 15 refine {refine}: {ids.shape} results, or a "
+                 f"deleted row returned")
+        sel = torch.from_numpy(ids).to(dev)
+        true = torch.sqrt(((db_t[sel] - queries[:, None, :]) ** 2).sum(-1))
+        err = np.abs(dists - true.cpu().numpy())
+        if not np.all(err <= 2e-5 * true.cpu().numpy() + 1e-6):
+            fail(f"phase 15 refine {refine}: a returned distance is off its"
+                 f" id's f32 distance by {err.max():.3e}")
+        derr = max(derr, float(err.max()))
+        recall[refine] = recall_at(ids.tolist(), ora_i, np)
+    if recall[128] < P15_RECALL_MIN:
+        fail(f"phase 15: recall@{K} at refine 128 is {recall[128]:.4f} < "
+             f"{P15_RECALL_MIN}")
+
+    # (3) the scan's pool with K8 is the pool with the plain decode
+    rot = index._rot_dev_arr()
+    qc = queries[:P15_CHECK_QUERIES]
+
+    def scan(qb, r=64):
+        return index._scan_call(state, qb, r)
+
+    sv_k, sl_k = scan(qc)
+    real = pq_ops.pq_decode_rows
+    pq_ops.pq_decode_rows = pq_ops._decode_rows_plain
+    try:
+        sv_p, sl_p = scan(qc)
+    finally:
+        pq_ops.pq_decode_rows = real
+    if not (torch.equal(sl_k, sl_p) and torch.equal(sv_k, sv_p)):
+        fail("phase 15: the scan's pool with K8 differs from the plain "
+             "decode's")
+    # K8 at the chunk and the spill block, bit for bit (after the
+    # window's read: these launches compare the kernel with its plain
+    # version)
+    for name, cc in (("chunk", state["codes"][:chunk]),
+                     ("spill", state["codes"][big_m:])):
+        if cc.shape[0] and not torch.equal(
+                cuda_kernels.pq_decode(cc, state["codebook"]).view(
+                    torch.int16),
+                pq_ops._decode_rows_plain(cc, state["codebook"]).view(
+                    torch.int16)):
+            fail(f"phase 15: K8 differs from the plain decode on the {name}")
+
+    # (4) the pool's scores against their f64 recomputation from the
+    # residual reconstruction x_hat = c[cid] + r_hat; the limit must break
+    # for a bf16-output c.r_hat and for a dropped q_lo term
+    slots = sl_k.reshape(-1)
+    cid = torch.where(slots < big_m, slots // span,
+                      state["cid_sp"].long()[
+                          torch.clamp(slots - big_m, min=0)].clamp(
+                              0, nlist - 1))
+    res_h = pq_ops._decode_rows_plain(state["codes"][slots],
+                                      state["codebook"]).double()
+    cen = state["cents"][cid].double()
+    x64 = (cen + res_h).reshape(P15_CHECK_QUERIES, 64, D)
+    qr = pq_ops._maybe_rotate(qc, rot)
+    q64 = qr.double()
+    xsq64 = (x64 * x64).sum(-1)
+    ref = xsq64 - 2.0 * torch.bmm(x64, q64[:, :, None])[..., 0]
+    lim = PQ_SCORE_LIMIT * (xsq64 + 2.0 * torch.sqrt(xsq64)
+                            * torch.sqrt((q64 * q64).sum(1))[:, None])
+    live = torch.isfinite(sv_k)
+
+    def off(scores):
+        return float(((scores.double() - ref).abs() / lim)[live].max())
+
+    cr64 = (cen * res_h).sum(-1).reshape(P15_CHECK_QUERIES, 64)
+    cr_bf = cr64.to(torch.bfloat16).double()
+    q_hi, _ = pq_ops._split_query(qr)
+    d_nolo = torch.bmm(x64, q_hi.double()[:, :, None])[..., 0]
+    score_off = {"scan": off(sv_k),
+                 "bf16 c.r": off(ref + 2.0 * (cr_bf - cr64)),
+                 "no q_lo": off(xsq64 - 2.0 * d_nolo)}
+    if score_off["scan"] > 1.0:
+        fail(f"phase 15: the scan's scores are off their f64 recomputation:"
+             f" {score_off} (in units of the limit)")
+    if min(score_off["bf16 c.r"], score_off["no q_lo"]) <= 1.0:
+        fail(f"phase 15: a score control passed the limit: {score_off}")
+    del res_h, cen, x64, ref, lim, cr64, cr_bf, d_nolo
+
+    # (5) the "mirror" and "host" re-rank venues agree
+    if index._rerank_venue() != "mirror":
+        fail(f"phase 15: IVF-PQ on the card re-ranks on "
+             f"{index._rerank_venue()!r}")
+    res_m = index.search_batch(qs[:P15_CHECK_QUERIES], K)
+    index.rerank_mode = "host"
+    res_h = index.search_batch(qs[:P15_CHECK_QUERIES], K)
+    index.rerank_mode = "auto"
+    vties = venue_ties(res_m, res_h, 1e-6, np)
+
+    # the exact fallback over the layout (a refine past the scan's pool):
+    # K4 + K2 over the f32 device rows, exact against the oracle
+    cuda_kernels.reset_launches()
+    fb = store.search_batch(batch[:P15_CHECK_QUERIES], refine=2048)
+    fb_counts = dict(cuda_kernels.launches)
+    fb_k4 = check_wgmma("phase 15 fallback", "coarse_minima_f32_1p_sup",
+                        cuda_kernels)
+    check_tile_major("phase 15 fallback", cuda_kernels)
+    if fb_counts["pq_decode"] or fb_counts["coarse_minima_f32_1p_sup"] < 1 \
+            or fb_counts["refine_dots"] < 1:
+        fail(f"phase 15: the fallback's launches {fb_counts}")
+    # ids: the k nearest by the difference-form distance (the oracle's
+    # top k+1 re-sorted by it); distances: the flat path's norm expansion
+    # |q|^2 + |x|^2 - 2 q.x, within f32 rounding of |q|^2 + |x|^2 (these
+    # rows cluster: d^2 is ~6% of the norms, so an rtol on d cannot hold)
+    q_fb = queries[:P15_CHECK_QUERIES, None, :]
+
+    def true_d(ids):
+        x = db_t[torch.from_numpy(ids).to(dev)]
+        return (torch.sqrt(((x - q_fb) ** 2).sum(-1)).cpu().numpy(),
+                ((q_fb * q_fb).sum(-1) + (x * x).sum(-1)).cpu().numpy())
+
+    ora_d, _ = true_d(ora_i[:P15_CHECK_QUERIES])
+    order = np.argsort(ora_d, axis=1, kind="stable")
+    fb_ids, fb_d = store_ids(fb, np)
+    got_d, norms = true_d(fb_ids)
+    fties, _ = check_exact_d(
+        "phase 15 fallback", fb_ids, got_d,
+        np.take_along_axis(ora_d, order, 1),
+        np.take_along_axis(ora_i[:P15_CHECK_QUERIES], order, 1), K, np)
+    fb_err = float((np.abs(fb_d.astype(np.float64) ** 2 - got_d ** 2)
+                    / norms).max() / 2.0 ** -24)
+    if fb_err > 4 * np.sqrt(D):
+        fail(f"phase 15 fallback: a distance^2 is off by {fb_err:.1f} "
+             f"f32 ulps of |q|^2 + |x|^2")
+
+    # (7) refine over the native front end
+    srv, thread = serve_thread(store, backend="native")
+    try:
+        port = srv.server.port
+        for refine in (16, 128):
+            want = [r.id for r in store.search(Vector(qs[3]), K,
+                                               refine=refine)]
+            st, hits = http_call(port, "POST", "/search", {
+                "vector": qs[3].tolist(), "k": K, "refine": refine})
+            st2, bhits = http_call(port, "POST", "/search/batch", {
+                "queries": [{"vector": qs[3].tolist(), "k": K}],
+                "refine": refine})
+            st3, _ = http_call(port, "POST", "/search", {
+                "vector": qs[3].tolist(), "k": K, "nprobe": 4})
+            if (st, st2, st3) != (200, 200, 400) \
+                    or [h["id"] for h in hits] != want \
+                    or [h["id"] for h in bhits[0]] != want:
+                fail(f"phase 15 http refine={refine}: {st} {st2} {st3} "
+                     f"differ from the in-process answers")
+    finally:
+        stop_server(srv, thread)
+
+    # the scan and the re-rank of one batch at each refine, by CUDA events
+    splits = {}
+    for refine in P15_REFINES:
+        gc.collect()
+        ms_scan, _, (sv, sl) = events_ms(
+            lambda r=refine: index._scan_call(state, queries, r), torch)
+        ms_rr, _, _ = events_ms(lambda: pq_ops.pq_rerank_topk(
+            queries, rr_rows, sl, sv, state["valid"], E, K), torch)
+        splits[refine] = (ms_scan, ms_rr)
+        del sv, sl
+    # the scan's steps at one chunk (r = 128), and the hoisted q.c GEMMs
+    cc = state["codes"][:chunk]
+    cb_bf, cnorm = state["codebook"], state["cnorm"]
+    q_hi, q_lo = pq_ops._split_query(pq_ops._maybe_rotate(queries, rot))
+    cents_bf = state["cents"].to(torch.bfloat16)
+    steps = {}
+    steps["K8"], dec = cuda_time(lambda: pq_ops.pq_decode_rows(cc, cb_bf),
+                                 torch, iters=20)
+    steps["norm gather"], _ = cuda_time(lambda: pq_ops._decode_block(
+        cc, cb_bf, cnorm)[1], torch)
+    cen_c = cents_bf[:cpc].float()
+    steps["c.r row-wise"], _ = cuda_time(lambda: torch.bmm(
+        dec.view(cpc, span, D).float(), cen_c[:, :, None]), torch)
+    steps["score GEMMs"], dots = cuda_time(
+        lambda: pq_ops._score_dots(q_hi, q_lo, dec), torch)
+    qcc = torch.zeros((nq, cpc), device=dev)
+    steps["q.c add"], _ = cuda_time(lambda: (
+        dots.view(nq, cpc, span) + qcc[:, :, None]).view(nq, chunk), torch)
+    steps["top-128"], _ = cuda_time(lambda: torch.topk(
+        dots, 128, dim=1, largest=False), torch)
+    ms_qc, _ = cuda_time(lambda: pq_ops._score_dots(q_hi, q_lo, cents_bf),
+                         torch)
+    del dec, dots, qcc
+
+    # (6) a durable IVF-PQ engine at P15_DURABLE rows: the reopen imports
+    # ivfpq_state.npz (no train) and answers bit for bit as its writer
+    base = tempfile.mkdtemp(prefix="vdb_p15_")
+    cfg = EngineConfig(checkpoint_interval=1 << 30, index_type="ivfpq",
+                       device="cuda")
+    dq = [Vector(q) for q in qs[:256]]
+    cuda_kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        with StorageEngine.open(base, cfg) as eng:
+            for r0 in range(0, P15_DURABLE, 1 << 15):
+                eng.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                                  for i in range(r0, r0 + (1 << 15))])
+            eng.store.index.train()
+            before_d = [[(r.id, r.distance) for r in eng.search(
+                v, K, refine=64)] for v in dq]
+            eng.checkpoint()
+        write_s = time.perf_counter() - t0
+        trains = []
+        orig = IvfPqIndex.train
+        IvfPqIndex.train = lambda self: trains.append(1) or orig(self)
+        try:
+            t0 = time.perf_counter()
+            with StorageEngine.open(base, cfg) as eng:
+                reopen_s = time.perf_counter() - t0
+                after_d = [[(r.id, r.distance) for r in eng.search(
+                    v, K, refine=64)] for v in dq]
+                trained = eng.store.index.is_trained
+        finally:
+            IvfPqIndex.train = orig
+        state_kb = os.path.getsize(os.path.join(base,
+                                                "ivfpq_state.npz")) / 1e3
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    durable_k8 = dict(cuda_kernels.routes["pq_decode"])
+    if trains or not trained:
+        fail(f"phase 15 durable: the reopen trained {len(trains)} times "
+             f"(trained {trained})")
+    if after_d != before_d:
+        fail("phase 15 durable: the reopened engine answers differently "
+             "than its writer")
+
+    spill_share = spill_live / max(len(store), 1)
+    say(f"phase 15 IVF-PQ N={n} ({len(dead)} deleted) x {D} "
+        f"clustered_intrinsic rows (2048 centers, 0.25 z @ basis, 32-dim), "
+        f"nlist {nlist}, m={index._m}, ksub={index.ksub}, OPQ, span {span}, "
+        f"cpc {cpc} (chunk {chunk} rows, {nfull} full + {1 if tail else 0} "
+        f"tail chunks), spill {spill_live} live of {s_rows} slots "
+        f"({spill_share:.4f} of the rows), Q={nq} k={K} [{card}]: load "
+        f"{load_s:.3f} s; train {train_s:.3f} s (k-means "
+        f"{marks['kmeans']:.3f}, assignment {marks['assign']:.3f}, balance"
+        f" + repack {marks['repack']:.3f}, spill centroids "
+        f"{marks['spill_cids']:.3f}, OPQ {marks['opq']:.3f}, codebook "
+        f"{marks['codebook']:.3f}); encode {encode_s:.3f} s; first search "
+        f"(refine 64) {first_s * 1e3:.3f} ms; store batch by refine "
+        f"{ {r: round(t * 1e3, 3) for r, t in store_s.items()} } ms; "
+        f"recall@{K} {({r: round(v, 4) for r, v in recall.items()})}; "
+        f"returned distances = their ids' f32 distances (max err "
+        f"{derr:.3e}); Q={P15_CHECK_QUERIES} pool with K8 = plain decode's;"
+        f" pool scores vs f64, in units of the limit {PQ_SCORE_LIMIT:.3g} "
+        f"S: { {k: round(v, 4) for k, v in score_off.items()} }; mirror vs "
+        f"host venues agree ({vties} tied positions); refine 2048 takes "
+        f"the exact fallback (K4 {fb_k4}, K2 {fb_counts['refine_dots']}), "
+        f"exact ids ({fties} ties), d^2 within {fb_err:.1f} ulps of "
+        f"|q|^2 + |x|^2; refine 16 and 128 over the native front end"
+        f" answer as the store, nprobe -> 400")
+    say(f"phase 15 launch counts (the IVF-PQ store's searches): "
+        f"{ {k: v for k, v in counts.items() if v} }; K8 by body "
+        f"{k8_routes} ({per_scan} a scan: chunks "
+        f"{want_body['chunk']}, spill {want_body.get('spill')})")
+    say(f"phase 15 times [{card}]: one batch by CUDA events, scan + device "
+        f"re-rank ms, by refine "
+        f"{ {r: (round(a, 3), round(b, 3)) for r, (a, b) in splits.items()} };"
+        f" per chunk ({chunk} rows, Q={nq}): "
+        f"{ {k: round(v, 4) for k, v in steps.items()} } ms; the hoisted q.c"
+        f" GEMMs (Q x {nlist}) {ms_qc:.3f} ms")
+    say(f"phase 15 durable IVF-PQ engine N={P15_DURABLE} (reduced: the "
+        f"reopen, not scale): insert + train + checkpoint {write_s:.3f} s "
+        f"(ivfpq_state.npz {state_kb:.1f} KB), reopen {reopen_s:.3f} s with "
+        f"the state imported (no train), {len(dq)} answers bit-equal to the "
+        f"writer's; K8 by body {durable_k8}")
+    out = {"launches": counts["pq_decode"], "routes": k8_routes,
+           "durable": durable_k8,
+           "fallback": {k: v for k, v in fb_counts.items() if v}}
+    del store, index, state, rr_rows, db_t, queries, results, res_m, res_h
+    del sv_k, sl_k, sv_p, sl_p, fb
+    free(torch)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
@@ -3391,11 +3813,15 @@ def main() -> None:
     # -- phase 14: IVF-Flat ------------------------------------------------
     p14 = ivf_phase(args, card, mods)
     free(torch)
+    # -- phase 15: IVF-PQ ------------------------------------------------
+    p15 = ivfpq_phase(args, card, mods)
     table += [
         kernel_row("K8 pq_decode", "pq_decode.cu", 286, k8["launches"],
                    worst["pq_decode"], k8["ms"], k8["plain_ms"], k8["bound"],
                    k8["library_ms"], src="vectordb_tpu/ops/pq.py",
-                   body="tile_ring", kernel_ms=k8["kernel_ms"]),
+                   body="tile_ring", kernel_ms=k8["kernel_ms"],
+                   ivfpq_launches=p15["launches"],
+                   ivfpq_routes=p15["routes"]),
         kernel_row("K9 scan_min", "scan_min.cu", 43, k9["launches"],
                    max(worst["scan_min"], k9["err"]), k9["ms"],
                    k9["plain_ms"], k9["bound"], k9["library_ms"],
@@ -3426,6 +3852,9 @@ def main() -> None:
         if ivf and key != "hnsw_search":
             # phase 14's windows: IVF's exact truth and probed searches
             row["ivf_launches"] = ivf
+        if p15["fallback"].get(key):
+            # phase 15's fallback window: IVF-PQ's exact path (K4, K2)
+            row["ivfpq_fallback_launches"] = p15["fallback"][key]
     if min(r["launches"] for r in table) < 1:
         fail(f"a kernel never launched on its path: "
              f"{[(r['name'], r['launches']) for r in table]}")

@@ -754,6 +754,88 @@ def test_pq_store_on_card_matches_store_on_cpu(dev, metric):
                                    rtol=2e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("rotate", [False, True])
+@pytest.mark.parametrize("metric", list(DistanceMetric))
+def test_ivfpq_scan_on_card_matches_cpu(dev, metric, rotate):
+    """ivfpq_scan_topr on the card (K8, bf16 GEMMs with f32 output) and on
+    the CPU (the plain decode, operands widened to f32): scores within
+    2e-6 of max|score|, each slot scored alike on both, the same slots but
+    where neighbouring scores tie within that (the devices sum in their
+    own orders); a tail chunk and a spill region."""
+    from vectordb_tpu_torch.ops import pq
+    rng = np.random.default_rng(16)
+    m, dsub, ksub, nlist, cpc, span, s_rows = 96, 8, 256, 10, 3, 64, 96
+    d = m * dsub
+    cb = torch.from_numpy(rng.standard_normal(
+        (m, ksub, dsub), dtype=np.float32) * 0.3).to(torch.bfloat16)
+    n = nlist * span + s_rows
+    codes = torch.from_numpy(rng.integers(0, ksub, (n, m), dtype=np.uint8))
+    valid = torch.from_numpy(rng.random(n) >= 0.1)
+    cents = torch.from_numpy(rng.standard_normal(
+        (nlist, d), dtype=np.float32)).to(torch.bfloat16).float()
+    csq = (cents * cents).sum(1)
+    cid_sp = torch.from_numpy(rng.integers(0, nlist, s_rows).astype(np.int32))
+    qs = torch.from_numpy(rng.standard_normal((64, d), dtype=np.float32))
+    rot = (torch.linalg.qr(torch.from_numpy(rng.standard_normal(
+        (d, d), dtype=np.float32)))[0].contiguous() if rotate else None)
+    cnorm = (cb.float() ** 2).sum(-1)
+    out = []
+    for device in ("cuda", "cpu"):
+        args = [t.to(device) for t in (qs, codes, cb, cnorm, valid, cents,
+                                       csq, cid_sp)]
+        before = cuda_kernels.launches["pq_decode"]
+        sv, sl = pq.ivfpq_scan_topr(*args, metric, r=64, cpc=cpc, span=span,
+                                    nlist=nlist, rot=None if rot is None
+                                    else rot.to(device))
+        if device == "cuda":
+            # three full chunks, the tail, the spill block
+            assert cuda_kernels.launches["pq_decode"] == before + 5
+        out.append((sv.cpu(), sl.cpu()))
+    scale = float(out[1][0][torch.isfinite(out[1][0])].abs().max())
+    tol = 2e-6 * scale
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=2e-6, atol=tol)
+    for (sv_c, sl_c), (sv_p, sl_p) in zip(zip(*out[0]), zip(*out[1])):
+        card_of = dict(zip(sl_c.tolist(), sv_c.tolist()))
+        cpu_of = dict(zip(sl_p.tolist(), sv_p.tolist()))
+        for slot in card_of.keys() & cpu_of.keys():
+            assert abs(card_of[slot] - cpu_of[slot]) <= 2 * tol
+        for slot in card_of.keys() ^ cpu_of.keys():
+            # a slot only one device kept ties the last kept score
+            score = card_of.get(slot, cpu_of.get(slot))
+            assert abs(score - float(sv_p[-1])) <= 2 * tol
+
+
+@pytest.mark.parametrize("metric", list(DistanceMetric))
+def test_ivfpq_store_on_card_matches_store_on_cpu(dev, metric):
+    """One trained IVF-PQ state (trained on the card) on both devices: the
+    same ids, distances at rtol 2e-5 (the card re-ranks on its "mirror"
+    venue, the CPU on the host)."""
+    from vectordb_tpu_torch import IvfPqIndex
+    rng = np.random.default_rng(17)
+    centers = rng.standard_normal((32, 64), dtype=np.float32)
+    rows = centers[rng.integers(0, 32, 4000)] + 0.3 * rng.standard_normal(
+        (4000, 64), dtype=np.float32) + (
+        2.0 if metric is DistanceMetric.COSINE else 0.0)
+    qs = rows[:16] + 0.05
+    card = IvfPqIndex(metric, nlist=32, m=16, ksub=64, refine=64,
+                      device="cuda")
+    card.add_batch([(i, rows[i]) for i in range(4000)])
+    card.train()
+    before = cuda_kernels.launches["pq_decode"]
+    want = card.search_batch(qs, 10)
+    assert cuda_kernels.launches["pq_decode"] > before
+    assert card._rerank_venue() == "mirror"
+    cpu = IvfPqIndex(metric, nlist=32, m=16, ksub=64, refine=64,
+                     device="cpu")
+    cpu.import_trained_state(card.export_trained_state(),
+                             {i: rows[i] for i in range(4000)}, 64)
+    got = cpu.search_batch(qs, 10)
+    for w, g in zip(want, got):
+        assert [i for i, _ in g] == [i for i, _ in w]
+        np.testing.assert_allclose([x for _, x in g], [x for _, x in w],
+                                   rtol=2e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("metric", ["euclidean", "dot_product", "cosine"])
 def test_two_phase_on_card_matches_cpu(dev, metric):
     from vectordb_tpu_torch.ops import flat_kernel as fk

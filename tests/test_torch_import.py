@@ -33,6 +33,7 @@ import vectordb_tpu_torch.index.hnsw, vectordb_tpu_torch.index.hnsw_native
 import vectordb_tpu_torch.index.hnsw_build_device
 import vectordb_tpu_torch.ops.hnsw_device
 import vectordb_tpu_torch.ops.ivf, vectordb_tpu_torch.index.ivf
+import vectordb_tpu_torch.index.ivfpq
 from vectordb_tpu_torch.server.app import start_durable, start_hnsw
 import tempfile
 from vectordb_tpu_torch import Vector
@@ -60,6 +61,16 @@ with tempfile.TemporaryDirectory() as d:
     with StorageEngine.open(d + "/i", ivf) as eng:
         assert eng.store.index.is_trained
         assert eng.search(Vector([3.0, 1.0]), 1, nprobe=2)[0].id == "3"
+    ivfpq = EngineConfig(index_type="ivfpq", device="cpu")
+    with StorageEngine.open(d + "/p", ivfpq) as eng:
+        for i in range(300):
+            eng.insert(str(i), Vector([float(i), 1.0, float(i % 7), 2.0]))
+        eng.store.index.train()
+        eng.checkpoint()
+    with StorageEngine.open(d + "/p", ivfpq) as eng:
+        assert eng.store.index.is_trained
+        assert eng.search(Vector([3.0, 1.0, 3.0, 2.0]), 1,
+                          refine=64)[0].id == "3"
 from vectordb_tpu_torch.server.app import AppState, serve
 from vectordb_tpu_torch import VectorStore, DistanceMetric
 import threading

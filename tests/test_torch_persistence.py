@@ -599,8 +599,15 @@ class TestEngineBatch:
     @pytest.mark.parametrize("kind, item", [("ivfpq", 12)])
     def test_unported_index_types_name_their_items(self, tmp_path, kind,
                                                    item):
-        with pytest.raises(ValueError, match=f"item {item}"):
-            open_engine(tmp_path, index_type=kind)
+        """IVF-PQ (queue 1 item 12), refused here until its slice, opens
+        now; its storage refusal stays (the JAX package's)."""
+        from vectordb_tpu_torch import IvfPqIndex
+        with open_engine(tmp_path, index_type=kind) as eng:
+            assert isinstance(eng.store.index, IvfPqIndex)
+            eng.insert("a", Vector([1.0, 2.0]))
+            assert eng.search(Vector([1.0, 2.0]), 1)[0].id == "a"
+        with pytest.raises(ValueError, match="owns its device"):
+            open_engine(tmp_path / "q", index_type=kind, storage="bf16")
 
     def test_mesh_names_its_item(self, tmp_path):
         with pytest.raises(ValueError, match="item 13"):

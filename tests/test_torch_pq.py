@@ -771,8 +771,10 @@ def test_cli_index_pq(capsys):
     assert main(["--device", "cpu", "--index", "pq", "--storage", "bf16",
                  "list"]) == 1
     assert "owns its device representation" in capsys.readouterr().err
-    assert main(["--device", "cpu", "--index", "ivfpq", "list"]) == 1
-    # --index hnsw and ivf are ported (tests/test_torch_cli.py,
-    # tests/test_torch_ivf.py)
-    for kind in ("hnsw", "ivf"):
+    assert main(["--device", "cpu", "--index", "ivfpq", "--storage", "int8",
+                 "list"]) == 1
+    assert "owns its device representation" in capsys.readouterr().err
+    # --index hnsw, ivf and ivfpq are ported (tests/test_torch_cli.py,
+    # tests/test_torch_ivf.py, tests/test_torch_ivfpq.py)
+    for kind in ("hnsw", "ivf", "ivfpq"):
         assert main(["--device", "cpu", "--index", kind, "list"]) == 0

@@ -369,9 +369,20 @@ def test_cli_storage_insert_then_search(storage, monkeypatch, capsys):
     ["--index", "ivfpq", "list"],
     ["--index", "ivfpq", "serve", "--http", "native"],
     ["--index", "ivfpq", "serve", "--batch-window-ms", "2"]])
-def test_cli_refuses_what_is_not_ported(argv, capsys):
-    assert cli.main(["--device", "cpu", *argv]) == 1
-    assert "ROADMAP queue 1 item 12" in capsys.readouterr().err
+def test_cli_refuses_what_is_not_ported(argv, capsys, monkeypatch):
+    """``--index ivfpq``, refused here until its slice, now builds an
+    IVF-PQ store for every verb; nothing of it names a ROADMAP item."""
+    from vectordb_tpu_torch import IvfPqIndex
+    from vectordb_tpu_torch.server import app
+    seen = []
+    monkeypatch.setattr(app, "serve", lambda addr, state, **kw:
+                        seen.append((state.store.index, kw)))
+    assert cli.main(["--device", "cpu", *argv]) == 0
+    assert "item 12" not in capsys.readouterr().err
+    if argv[1] == "serve":
+        index, kw = seen[0]
+        assert isinstance(index, IvfPqIndex)
+        assert kw["backend"] == (argv[3] if argv[2] == "--http" else "auto")
 
 
 @pytest.mark.parametrize("argv", [

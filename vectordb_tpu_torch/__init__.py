@@ -17,9 +17,11 @@ formats, the CLI's ``--data-dir`` and ``serve --durable-dir``); serving
 through the native C++ front end or the query batcher; ``HnswIndex``
 (the graph on the host, its checkpoint in ``hnsw_graph.npz``; the bulk
 build of a large fresh batch on the flat index's kernels and the batched
-traversal, kernel H1, on the card); and ``IvfFlatIndex`` (k-means
+traversal, kernel H1, on the card); ``IvfFlatIndex`` (k-means
 clusters, probed search refined exactly by kernel K2, its trained layout
-in ``ivf_state.npz``).
+in ``ivf_state.npz``); and ``IvfPqIndex`` (residual PQ codes over the IVF
+layout, decoded by K8, exact re-rank, its trained state in
+``ivfpq_state.npz``).
 """
 
 from .distance import (DistanceMetric, cosine_distance, dot_product,  # noqa: F401
@@ -28,7 +30,7 @@ from .errors import (DimensionMismatchError, IndexOpError,  # noqa: F401
                      InvalidVectorError, SerializationError, StorageError,
                      VdbIoError, VectorDbError, VectorNotFoundError)
 from .index import (FlatIndex, HnswIndex, HnswParams, Index,  # noqa: F401
-                    IvfFlatIndex, PqFlatIndex)
+                    IvfFlatIndex, IvfPqIndex, PqFlatIndex)
 from .metadata import Metadata, MetadataFilter  # noqa: F401
 from .metrics import MetricsCollector  # noqa: F401
 from .store import BatchInsertItem, SearchResult, VectorStore  # noqa: F401

@@ -1,7 +1,6 @@
 """Command-line interface.
 
-Port of ``vectordb_tpu/cli.py`` for the flat index (reference
-src/main.rs:10-198):
+Port of ``vectordb_tpu/cli.py`` (reference src/main.rs:10-198):
   * subcommands: insert ID --vector CSV | search QUERY -k 5 | delete ID |
     list | serve --addr 0.0.0.0:3000 (in-memory store)
   * ``--device`` picks where the index's device state lives (default
@@ -10,8 +9,11 @@ src/main.rs:10-198):
 
   * ``--storage f32|bf16|int8`` picks the flat index's row storage
   * ``--index pq`` serves a PQ-Flat store (PqFlatIndex: codes on the
-    device, exact re-rank); it owns its device representation, so
-    ``--storage`` other than f32 is refused, as the JAX package does
+    device, exact re-rank) and ``--index ivfpq`` an IVF-PQ store
+    (IvfPqIndex: residual codes over the IVF layout, its trained state in
+    ``ivfpq_state.npz`` under ``--data-dir``); each owns its device
+    representation, so ``--storage`` other than f32 is refused, as the
+    JAX package does
   * ``--index hnsw`` serves an HNSW store (the graph on the host, its
     device build and batched traversal on ``--device``; ``--hnsw-seed
     N``, the port's own flag, seeds it and makes its build reproducible),
@@ -27,9 +29,6 @@ src/main.rs:10-198):
     HTTP. ``serve`` with ``--data-dir`` is rejected, as in the reference
   * ``serve --http native|python|auto`` picks the front end (auto: the
     C++ one) and ``--batch-window-ms`` puts the query batcher behind it
-
-Refused with a clear error until its slice lands (ROADMAP queue 1 item
-12): ``--index ivfpq``.
 """
 
 from __future__ import annotations
@@ -52,8 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--index",
                         choices=["flat", "hnsw", "ivf", "pq", "ivfpq"],
                         default="flat",
-                        help="Index type to use for search (flat, hnsw, "
-                             "ivf and pq are ported so far)")
+                        help="Index type to use for search")
     parser.add_argument("--data-dir", default=None,
                         help="Data directory for persistence (if not "
                              "specified, uses in-memory storage)")
@@ -106,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
                                "(requires --index ivf)")
     p_search.add_argument("--refine", type=int, default=None,
                           help="PQ candidates to re-rank exactly for this "
-                               "query (requires --index pq)")
+                               "query (requires --index pq or ivfpq)")
 
     p_delete = sub.add_parser("delete", help="Delete a vector")
     p_delete.add_argument("id", help="Vector ID to delete")
@@ -177,11 +175,8 @@ def _run_commands(db, args) -> int:
 
 
 def _refusal(args) -> Optional[str]:
-    """Why this command line needs a slice that is not ported yet."""
-    if args.index == "ivfpq":
-        return ("--index ivfpq is not ported yet (ROADMAP queue 1 item "
-                "12); use --index flat, hnsw, ivf or pq")
-    if args.index == "pq" and args.storage != "f32":
+    """Why this command line is refused before it runs."""
+    if args.index in ("pq", "ivfpq") and args.storage != "f32":
         return (f"--index {args.index} owns its device representation "
                 "(codes); --storage does not compose with it.")
     return None
@@ -207,6 +202,10 @@ def _memory_store(args, metric: DistanceMetric) -> VectorStore:
         from .index.pq import PqFlatIndex
         return VectorStore.with_index(PqFlatIndex(metric,
                                                   device=args.device))
+    if args.index == "ivfpq":
+        from .index.ivfpq import IvfPqIndex
+        return VectorStore.with_index(IvfPqIndex(metric,
+                                                 device=args.device))
     if args.index == "hnsw":
         from .index.hnsw import HnswIndex
         return VectorStore.with_index(HnswIndex(metric, _hnsw_params(args),

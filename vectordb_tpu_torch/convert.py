@@ -24,6 +24,11 @@ across: its ``export_trained_state()`` (centroids, the slot -> internal
 id layout, nlist, t_c, s_t) and its stored rows by internal id go through
 ``import_trained_state``, so the two indexes probe the same clusters over
 the same slots.
+
+``ivfpq_store_from_reference`` does the same for a trained ``IvfPqIndex``
+store: the layout tables plus the residual codebook, ``ksub``, the spill
+rows' centroid ids and the OPQ rotation, so the two scans read the same
+residual codes over the same slots.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from .distance import DistanceMetric
 from .index.flat import FlatIndex
 from .index.hnsw import HnswIndex, HnswParams
 from .index.ivf import IvfFlatIndex
+from .index.ivfpq import IvfPqIndex
 from .index.pq import PqFlatIndex
 from .store import VectorStore
 
@@ -115,6 +121,29 @@ def ivf_store_from_reference(trained_state: dict,
     stored row, e.g. from its ``get_vector``). ``ivf_kwargs`` should
     repeat the exporting index's storage and nprobe."""
     index = IvfFlatIndex(metric, device=device, **ivf_kwargs)
+    return _import_layout(index, trained_state, rows_by_id,
+                          internal_to_string, metadata)
+
+
+def ivfpq_store_from_reference(trained_state: dict,
+                               rows_by_id: Dict[int, np.ndarray],
+                               internal_to_string: Dict[int, str],
+                               metric: DistanceMetric, device="cuda",
+                               metadata: Optional[Dict[int, Dict[str, str]]]
+                               = None, **ivfpq_kwargs) -> VectorStore:
+    """A port ``VectorStore`` over ``IvfPqIndex(metric, device=device,
+    **ivfpq_kwargs)`` holding the JAX index's trained state, its
+    ``export_trained_state()`` (centroids, slot layout, codebook, ksub,
+    spill_cid, rotation), over ``rows_by_id`` (internal id -> f32 stored
+    row). The port encodes the rows with that codebook at the first
+    search. ``ivfpq_kwargs`` should repeat the exporting index's refine."""
+    index = IvfPqIndex(metric, device=device, **ivfpq_kwargs)
+    return _import_layout(index, trained_state, rows_by_id,
+                          internal_to_string, metadata)
+
+
+def _import_layout(index, trained_state, rows_by_id, internal_to_string,
+                   metadata) -> VectorStore:
     rows = {int(i): np.asarray(r, np.float32).reshape(-1)
             for i, r in rows_by_id.items()}
     dim = len(next(iter(rows.values())))
@@ -139,4 +168,5 @@ def _wrap(index, valid, id_of_slot, internal_to_string, metadata
 
 
 __all__ = ["store_from_reference", "pq_store_from_reference",
-           "hnsw_store_from_reference", "ivf_store_from_reference"]
+           "hnsw_store_from_reference", "ivf_store_from_reference",
+           "ivfpq_store_from_reference"]

@@ -216,6 +216,23 @@ class _PqCodesCore:
         """Codes for the given slots (PqFlatIndex: the raw stored rows)."""
         return self._encode_rows(self._vectors[slots])
 
+    def _install_codebook(self, codebook: np.ndarray,
+                          rot: Optional[np.ndarray]) -> None:
+        """Adopt a trained state (lock held): every live row re-encodes at
+        the next search sync."""
+        self._m = codebook.shape[0]
+        self._codebook = codebook
+        self._codebook_dev = None
+        self._cnorm_dev = None
+        self._rot = rot
+        self._rot_dev = None
+        self._codes = np.zeros((self._capacity, self._m), np.uint8)
+        self._trained = True
+        self._pq_dirty.clear()
+        self._pq_full_reencode = True
+        self._codes_dev = None
+        self._pq_valid_dirty = True
+
     def _reencode_all(self) -> None:
         live = np.nonzero(self._valid)[0]
         for a in range(0, live.size, _ENC_SLAB):
@@ -922,23 +939,6 @@ class PqFlatIndex(_PqCodesCore, FlatIndex):
                 rot = fit_opq_rotation(sample, m)
             codebook = self._fit_codebook(sample, m, rot)
             self._install_codebook(codebook, rot)
-
-    def _install_codebook(self, codebook: np.ndarray,
-                          rot: Optional[np.ndarray]) -> None:
-        """Adopt a trained state (lock held): every live row re-encodes at
-        the next search sync."""
-        self._m = codebook.shape[0]
-        self._codebook = codebook
-        self._codebook_dev = None
-        self._cnorm_dev = None
-        self._rot = rot
-        self._rot_dev = None
-        self._codes = np.zeros((self._capacity, self._m), np.uint8)
-        self._trained = True
-        self._pq_dirty.clear()
-        self._pq_full_reencode = True
-        self._codes_dev = None
-        self._pq_valid_dirty = True
 
     # -- trained state --------------------------------------------------------
 

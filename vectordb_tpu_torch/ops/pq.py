@@ -1,8 +1,8 @@
 """Product Quantization primitives: training, encoding, decode, scan,
 re-rank.
 
-Port of ``vectordb_tpu/ops/pq.py`` (PQ-Flat's device programs; the IVF-PQ
-scan waits for IVF). The numpy-only pieces (``fit_opq_rotation``,
+Port of ``vectordb_tpu/ops/pq.py``: PQ-Flat's and IVF-PQ's device
+programs. The numpy-only pieces (``fit_opq_rotation``,
 ``pack_codebook``, ``pq_distortion``) are the port's own copies: importing
 them from the JAX module would load JAX.
 
@@ -26,6 +26,9 @@ them from the JAX module would load JAX.
     finishes the selection. The JAX package's ``lax.approx_min_k`` has no
     counterpart: exact per-chunk top r followed by an exact pooled top r
     is the exact global top r of the scores for any chunk size.
+  * IVF-PQ scan (``ivfpq_scan_topr``): the same over the IVF layout's
+    cluster-aligned chunks, each decoded row a residual on its cluster's
+    centroid; one (Q, nlist) pair of products gives every cluster's q.c.
   * re-rank: exact f32 distances of the candidate rows in the direct
     forms (difference form for euclidean), on the device that holds them.
 """
@@ -284,22 +287,137 @@ def pq_scan_topr(queries: torch.Tensor, codes: torch.Tensor,
     vals, idx = [], []
     for c0 in range(0, n, chunk):
         decoded, xsq = _decode_block(codes[c0:c0 + chunk], cb_bf, cnorm)
-        dots = _score_dots(q_hi, q_lo, decoded)
-        if metric is DistanceMetric.DOT_PRODUCT:
-            scores = -dots
-        elif metric is DistanceMetric.EUCLIDEAN:
-            scores = xsq[None, :] - 2.0 * dots            # + |q|^2 dropped
-        else:
-            xnorm = torch.sqrt(torch.clamp(xsq, min=1e-30))
-            scores = -dots / xnorm[None, :]               # / |q| dropped
-        scores = torch.where(valid[None, c0:c0 + chunk], scores,
-                             float("inf"))
+        scores = torch.where(valid[None, c0:c0 + chunk],
+                             _metric_scores(_score_dots(q_hi, q_lo, decoded),
+                                            xsq, metric), float("inf"))
         cv, cl = torch.topk(scores, r, dim=1, largest=False)
         vals.append(cv)
         idx.append(cl + c0)
     vals = torch.cat(vals, dim=1)
     idx = torch.cat(idx, dim=1)
     fv, pos = torch.topk(vals, r, dim=1, largest=False)
+    return fv, torch.gather(idx, 1, pos)
+
+
+def _metric_scores(dots: torch.Tensor, xsq: torch.Tensor,
+                   metric: DistanceMetric) -> torch.Tensor:
+    """(Q, n) f32 query-row dots and (n,) row sq-norms -> the scan's rank
+    surrogates (per-query constants dropped)."""
+    if metric is DistanceMetric.DOT_PRODUCT:
+        return -dots
+    if metric is DistanceMetric.EUCLIDEAN:
+        return xsq[None, :] - 2.0 * dots                  # + |q|^2 dropped
+    xnorm = torch.sqrt(torch.clamp(xsq, min=1e-30))
+    return -dots / xnorm[None, :]                         # / |q| dropped
+
+
+def ivfpq_scan_topr(queries: torch.Tensor, codes: torch.Tensor,
+                    cb_bf: torch.Tensor, cnorm: torch.Tensor,
+                    valid: torch.Tensor, cents: torch.Tensor,
+                    csq: torch.Tensor, cid_sp: torch.Tensor,
+                    metric: DistanceMetric, r: int, cpc: int, span: int,
+                    nlist: int, rot=None):
+    """Residual-corrected streaming PQ scan over an IVF slot layout ->
+    top-r candidate rows per query.
+
+    A row decodes as ``x_hat = c + r_hat``: ``c`` the centroid of its
+    cluster (constant over each ``span``-row cluster block of the IVF
+    repack) and ``r_hat`` its PQ-decoded residual. Rows [0, nlist*span)
+    are the cluster blocks, streamed in chunks of ``cpc * span`` rows (a
+    cluster count that does not fill the last chunk runs once, padded with
+    dead rows); rows [nlist*span, N) are the spill region, scored densely,
+    each row's residual taken against its nearest centroid ``cid_sp``
+    (S,) int32 (garbage for dead slots, which are masked).
+
+    queries (Q, d) f32 · codes (N, m) uint8 · cb_bf (m, ksub, dsub) bf16 ·
+    cnorm (m, ksub) f32 · valid (N,) bool · cents (nlist, d) f32 holding
+    bf16 values (the OPQ-rotated table under ``rot``) · csq (nlist,) f32
+    their sq-norms. Centroids and codewords are bf16 values and the
+    queries split hi/lo, so every term carries only f32 accumulation
+    rounding; each bf16 product comes out in f32 (``_score_dots``; a
+    row-wise product widens its bf16 operands exactly):
+
+    * ``q . x_hat = q . c + q . r_hat``: ``q . c`` from one (Q, nlist)
+      pair of products, each cluster's column shared by its ``span`` rows
+      (the spill rows gather their centroid's column); ``q . r_hat`` from
+      the chunk's decode (K8) and two products;
+    * ``|x_hat|^2 = |c|^2 + 2 c . r_hat + |r_hat|^2``: ``|r_hat|^2``
+      exactly from the codeword norms, ``c . r_hat`` a row-wise product.
+
+    Selection is exact (an exact top r a chunk, then over the pool); the
+    JAX op's ``approx_min_k`` and ``recall_target`` have no counterpart.
+    Returns (scores (Q, r_out) ascending, slots (Q, r_out) int64),
+    ``r_out = min(r, pooled candidates)``; +inf marks dead/masked slots."""
+    n, m = codes.shape
+    big_m = nlist * span
+    s_rows = n - big_m
+    chunk = cpc * span
+    if r > chunk:
+        raise ValueError(f"r={r} exceeds chunk={chunk}")
+    q, d = queries.shape
+    q_hi, q_lo = _split_query(_maybe_rotate(queries.float(), rot))
+    nfull = big_m // chunk
+    tail_cl = nlist - nfull * cpc
+    # pad the centroid tables to the chunk grid: the tail chunk must never
+    # read a real cluster's centroid
+    nlist_pad = (nfull + (1 if tail_cl else 0)) * cpc
+    cents_bf = cents.to(torch.bfloat16)           # exact: values are bf16
+    csq = csq.float()
+    if nlist_pad != nlist:
+        cents_bf = torch.cat([cents_bf, cents_bf.new_zeros(
+            (nlist_pad - nlist, d))])
+        csq = torch.cat([csq, csq.new_zeros(nlist_pad - nlist)])
+    qc = _score_dots(q_hi, q_lo, cents_bf)        # (Q, nlist_pad), once
+    inf = float("inf")
+
+    def chunk_scores(cc, vc, c0):
+        """Scores of one cluster-aligned chunk starting at cluster c0."""
+        decoded, rsq = _decode_block(cc, cb_bf, cnorm)
+        cen = cents_bf[c0:c0 + cpc].float()
+        cr = torch.bmm(decoded.view(cpc, span, d).float(),
+                       cen[:, :, None])[..., 0]                # (cpc, span)
+        xsq = (csq[c0:c0 + cpc, None] + 2.0 * cr
+               + rsq.view(cpc, span)).reshape(chunk)
+        dots = (_score_dots(q_hi, q_lo, decoded).view(q, cpc, span)
+                + qc[:, c0:c0 + cpc, None]).view(q, chunk)
+        return torch.where(vc[None, :], _metric_scores(dots, xsq, metric),
+                           inf)
+
+    vals, idx = [], []
+    for j in range(nfull):
+        r0 = j * chunk
+        scores = chunk_scores(codes[r0:r0 + chunk], valid[r0:r0 + chunk],
+                              j * cpc)
+        cv, cl = torch.topk(scores, r, dim=1, largest=False)
+        vals.append(cv)
+        idx.append(cl + r0)
+    if tail_cl:
+        t0 = nfull * chunk
+        trows = tail_cl * span
+        cc = torch.cat([codes[t0:t0 + trows],
+                        codes.new_zeros((chunk - trows, m))])
+        vc = torch.cat([valid[t0:t0 + trows],
+                        valid.new_zeros(chunk - trows)])
+        scores = chunk_scores(cc, vc, nfull * cpc)
+        cv, cl = torch.topk(scores, min(r, trows), dim=1, largest=False)
+        vals.append(cv)
+        idx.append(cl + t0)
+    if s_rows:
+        dec_sp, rsq_sp = _decode_block(codes[big_m:], cb_bf, cnorm)
+        cid = torch.clamp(cid_sp, 0, nlist - 1).long()
+        cen_sp = cents_bf[cid].float()                         # (S, d)
+        cr_sp = (dec_sp.float() * cen_sp).sum(1)
+        xsq = csq[cid] + 2.0 * cr_sp + rsq_sp
+        dots = _score_dots(q_hi, q_lo, dec_sp) + qc[:, cid]
+        scores = torch.where(valid[None, big_m:],
+                             _metric_scores(dots, xsq, metric), inf)
+        cv, cl = torch.topk(scores, min(r, s_rows), dim=1, largest=False)
+        vals.append(cv)
+        idx.append(cl + big_m)
+    vals = torch.cat(vals, dim=1)
+    idx = torch.cat(idx, dim=1)
+    # a tiny index can pool fewer than r candidates: return what exists
+    fv, pos = torch.topk(vals, min(r, vals.shape[1]), dim=1, largest=False)
     return fv, torch.gather(idx, 1, pos)
 
 
@@ -363,5 +481,5 @@ def pq_distortion(rows, codebook, codes) -> float:
 
 
 __all__ = ["fit_opq_rotation", "pq_fit", "pq_encode", "pack_codebook",
-           "pq_decode_rows", "pq_scan_topr",
+           "pq_decode_rows", "pq_scan_topr", "ivfpq_scan_topr",
            "pq_rerank_topk", "pq_rerank_gathered", "pq_distortion"]

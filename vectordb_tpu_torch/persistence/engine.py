@@ -4,10 +4,13 @@ Port of ``vectordb_tpu/persistence/engine.py`` for the index types the
 port has: "flat" (``storage=`` f32, bf16 or int8; ``search_mode`` exact or
 fast), "pq" (PQ-Flat, its trained codebook kept in ``pq_state.npz``),
 "hnsw" (``hnsw_params``; its graph tables kept in ``hnsw_graph.npz``,
-bound to the snapshot's sha256 and imported on reopen instead of rebuilt)
-and "ivf" (IVF-Flat, ``storage=`` f32, bf16 or int8; its trained layout,
+bound to the snapshot's sha256 and imported on reopen instead of rebuilt),
+"ivf" (IVF-Flat, ``storage=`` f32, bf16 or int8; its trained layout,
 centroids and slot assignment, kept in ``ivf_state.npz``, bound to the
-snapshot the same way and imported on reopen instead of retrained).
+snapshot the same way and imported on reopen instead of retrained) and
+"ivfpq" (IVF-PQ, f32 only; the layout plus its residual codebook, spill
+rows' centroid ids and rotation in ``ivfpq_state.npz``, bound and
+imported the same way; the codes re-encode from the recovered rows).
 Capability parity with reference src/persistence/engine.rs:15-228:
   * ``open``: mkdir, load snapshot, replay WAL on top (engine.rs:44-73)
   * WAL-first durable writes for insert/delete (engine.rs:107-160): one
@@ -31,8 +34,7 @@ package's, byte for byte: either package opens the other's directory.
 ``EngineConfig.device`` (default "cuda") is where the index's device state
 lives; "cuda" without a card raises (an HNSW store keeps its graph on the
 host and runs its device build and batched traversal there). Not ported
-yet: ``index_type`` "ivfpq" (ROADMAP queue 1 item 12) and ``mesh=`` (item
-13).
+yet: ``mesh=`` (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -56,8 +58,6 @@ from .snapshot import SnapshotManager, _durable_write
 from .wal import WriteAheadLog
 
 WAL_FILE = "wal.log"
-# index types of the JAX package the port has not reached, by ROADMAP item
-_UNPORTED = {"ivfpq": 12}
 
 
 class _ChunkedInserter:
@@ -92,7 +92,7 @@ class EngineConfig:
     field for sharded storage, which is not ported yet (it raises)."""
     checkpoint_interval: int = 1000
     metric: DistanceMetric = DistanceMetric.EUCLIDEAN
-    index_type: str = "flat"   # "flat" | "hnsw" | "ivf" | "pq"
+    index_type: str = "flat"   # "flat" | "hnsw" | "ivf" | "pq" | "ivfpq"
     hnsw_params: Optional[object] = None
     mesh: Optional[object] = None
     search_mode: str = "exact"      # flat scan mode: "exact" | "fast"
@@ -104,6 +104,7 @@ class StorageEngine:
     GRAPH_FILE = "hnsw_graph.npz"
     IVF_FILE = "ivf_state.npz"
     PQ_FILE = "pq_state.npz"
+    IVFPQ_FILE = "ivfpq_state.npz"
     _APPLY_CHUNK = 65536
 
     def __init__(self, data_dir: "str | Path",
@@ -112,18 +113,17 @@ class StorageEngine:
         if cfg.mesh is not None:
             raise ValueError("EngineConfig(mesh=...) is not ported yet "
                              "(ROADMAP queue 1 item 13, multi-device)")
-        if cfg.index_type in _UNPORTED:
+        if cfg.index_type in ("pq", "ivfpq") and cfg.storage != "f32":
             raise ValueError(
-                f"index_type={cfg.index_type!r} is not ported yet (ROADMAP "
-                f"queue 1 item {_UNPORTED[cfg.index_type]}); use 'flat', "
-                "'hnsw', 'ivf' or 'pq'")
+                f"index_type={cfg.index_type!r} owns its device "
+                "representation (codes); storage quantization modes do "
+                "not compose")
         if cfg.index_type == "pq":
-            if cfg.storage != "f32":
-                raise ValueError(
-                    "index_type='pq' owns its device representation "
-                    "(codes); storage quantization modes do not compose")
             from ..index.pq import PqFlatIndex
             index = PqFlatIndex(cfg.metric, device=cfg.device)
+        elif cfg.index_type == "ivfpq":
+            from ..index.ivfpq import IvfPqIndex
+            index = IvfPqIndex(cfg.metric, device=cfg.device)
         elif cfg.index_type == "hnsw":
             from ..index.hnsw import HnswIndex, HnswParams
             index = HnswIndex(cfg.metric, cfg.hnsw_params or HnswParams(),
@@ -168,7 +168,7 @@ class StorageEngine:
                       file=sys.stderr, flush=True)
 
         self._recover_mark = _mark
-        if self.config.index_type in ("hnsw", "ivf"):
+        if self.config.index_type in ("hnsw", "ivf", "ivfpq"):
             # the graph or layout import binds to the whole id set: the
             # snapshot is read whole (these families checkpoint at far
             # smaller row counts)
@@ -176,7 +176,7 @@ class StorageEngine:
             if snap is not None:
                 imported = (self._try_import_graph(snap)
                             if self.config.index_type == "hnsw"
-                            else self._try_import_ivf(snap))
+                            else self._try_import_layout(snap))
                 if not imported:
                     self._apply_snapshot(snap)
         else:
@@ -235,21 +235,27 @@ class StorageEngine:
     def _graph_path(self) -> Path:
         return self.data_dir / self.GRAPH_FILE
 
-    def _ivf_path(self) -> Path:
-        return self.data_dir / self.IVF_FILE
+    def _layout_path(self) -> Path:
+        """The trained-layout state file of an "ivf" or "ivfpq" engine."""
+        return self.data_dir / (self.IVFPQ_FILE
+                                if self.config.index_type == "ivfpq"
+                                else self.IVF_FILE)
 
-    def _try_import_ivf(self, snap: DatabaseSnapshot) -> bool:
-        """Restore a trained IVF layout (centroids + slot assignment)
-        instead of retraining on the first search: recovery reproduces
-        the pre-crash search behaviour exactly (reference parity:
+    def _try_import_layout(self, snap: DatabaseSnapshot) -> bool:
+        """Restore a trained IVF layout (centroids + slot assignment; for
+        IVF-PQ also the residual codebook, the spill rows' centroid ids
+        and the rotation, the codes re-encoding from the rows) instead of
+        retraining on the first search: recovery reproduces the
+        pre-crash search behaviour exactly (reference parity:
         engine.rs:44-73 replays to identical state). The state must
         belong to exactly this snapshot (its sha256) and name exactly its
         ids; any mismatch or corruption rebuilds from the snapshot."""
-        if self.config.index_type != "ivf" or not self._ivf_path().exists():
+        path = self._layout_path()
+        if not path.exists():
             return False
         try:
             import numpy as np
-            with np.load(self._ivf_path()) as z:
+            with np.load(path) as z:
                 tables = {key: z[key] for key in z.files}
             if str(tables.get("metric", "")) != self.config.metric.value:
                 return False
@@ -600,16 +606,17 @@ class StorageEngine:
         _durable_write(self._graph_path(), buf.getvalue())
 
     def _save_ivf(self) -> None:
-        """Write the trained IVF layout (centroids + slot assignment; the
-        JAX package's ``ivf_state.npz``, byte for byte) beside the
+        """Write the trained IVF or IVF-PQ state (the JAX package's
+        ``ivf_state.npz`` / ``ivfpq_state.npz``, byte for byte) beside the
         snapshot so reopen imports it instead of retraining. Untrained:
         remove any stale file, so recovery cannot bind an old layout to a
         newer snapshot."""
-        if self.config.index_type != "ivf":
+        if self.config.index_type not in ("ivf", "ivfpq"):
             return
+        path = self._layout_path()
         state = self.store.index.export_trained_state()
         if state is None:
-            self._ivf_path().unlink(missing_ok=True)
+            path.unlink(missing_ok=True)
             return
         import io
 
@@ -617,7 +624,7 @@ class StorageEngine:
         buf = io.BytesIO()
         np.savez(buf, metric=self.config.metric.value,
                  snapshot_digest=self._snapshot_digest(), **state)
-        _durable_write(self._ivf_path(), buf.getvalue())
+        _durable_write(path, buf.getvalue())
 
     def _save_pq(self) -> None:
         """Serialize the trained PQ codebook beside the snapshot so reopen
