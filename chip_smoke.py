@@ -188,8 +188,11 @@ or K7, and K2; K8); each phase-11 load run and route window (K1, K2);
 phase 13's device build (K1, K2, K3) and its three device batches (H1);
 phase 14's calibration (K4, K2), probed searches (K2) and quantized
 stores' searches and truths (K1 / K7, K2); phase 15's store searches (K8)
-and its exact fallback (K4, K2). Every kernel of a path must have launched in its
-window; the direct comparison calls are outside them. Every K1, K4 and K7
+and its exact fallback (K4, K2); phase 16's sharded stores, its
+DistributedFlatIndex batches and its PQ mesh's batch (K1, K4, K7, K2, K8;
+"mesh_launches" in the kernel table). Every kernel of a path must have
+launched in its window; the direct comparison calls are outside them.
+Every K1, K4 and K7
 launch in the windows of phase 3 and of phase 7's bf16, int8 and f32
 stores, every K3 launch of phases 3-4 (the 2^20-row store's tier 2, the
 20k-row store, the forced fallback), and every K5 launch in the f32
@@ -1384,6 +1387,7 @@ def pq_phase(args, rng, card, mods):
     # where the profiler saw no device time
     kernel = [t for t in kern_ms["tile_ring"] if t is not None]
     out = {"launches": counts["pq_decode"],
+           "trained": index.export_trained_state(),
            "ms": mean(call_ms["tile_ring"]),
            "kernel_ms": mean(kernel) if kernel else None,
            "plain_ms": mean(call_ms["plain"]), "bound": b8,
@@ -3419,6 +3423,474 @@ def ivfpq_phase(args, card, mods):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the mesh on the card
+# ---------------------------------------------------------------------------
+
+P16_ROWS = 1 << 20
+P16_QUERIES = 4096
+P16_SHARDS = 4
+P16_MUTATIONS = 64         # deletes, and as many updates, in one shard
+P16_DURABLE = 1 << 17      # the durable mesh engine's rows (reduced)
+P16_TAIL = 4096            # its WAL tail: the last shard's free slots
+P16_DURABLE_QUERIES = 1024
+P16_PQ_POOL_QUERIES = 256
+P16_KEYS = {"f32": ("coarse_minima_f32_1p_sup", "refine_dots"),
+            "bf16": ("coarse_minima_1p_sup", "refine_dots_bf16"),
+            "int8": ("coarse_minima_int8_1p_sup", "refine_dots_int8")}
+
+
+def restore_rows(store, rows, np, ids=None):
+    """Load ``rows`` as ids str(i) (i from ``ids``, default 0..n-1)
+    through the store's snapshot-restore path
+    (VectorStore.restore_snapshot_chunk: no per-row objects, rows taken as
+    the stored values), in 65536-row chunks into reserved storage."""
+    n = rows.shape[0]
+    ids = np.arange(n) if ids is None else ids
+    store.reserve(n, rows.shape[1])
+    for r0 in range(0, n, 1 << 16):
+        r1 = min(r0 + (1 << 16), n)
+        store.restore_snapshot_chunk(ids[r0:r1],
+                                     [str(i) for i in ids[r0:r1].tolist()],
+                                     rows[r0:r1], {})
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def check_ties_only(name, ids, want_ids, ora_d2, np):
+    """Ids equal ``want_ids`` except at the oracle's k-th / (k+1)-th ties
+    or a swap of two ids; returns how many queries differ."""
+    ora_d = np.sqrt(np.maximum(ora_d2, 0.0))
+    return same_answers(name, ids, np.zeros(ids.shape, np.float32),
+                        want_ids, np.zeros(ids.shape, np.float32), ora_d,
+                        None, np)[0]
+
+
+def mesh_store_part(kind, mesh, rows, dead, qs, card, mods, rng):
+    """Phase 16, part 1, for one storage: the sharded store against the
+    on-card oracle and an unsharded store of the same rows; its launches
+    per batch, its forced fallback, and a one-shard mutation."""
+    np, torch, flat = mods["np"], mods["torch"], mods["flat"]
+    cuda_kernels, Vector = mods["cuda_kernels"], mods["Vector"]
+    VectorStore, ck = mods["VectorStore"], mods["ck"]
+    E = mods["DistanceMetric"].EUCLIDEAN
+    dev = torch.device("cuda")
+    n, nq = rows.shape[0], qs.shape[0]
+    shards = mesh.shape["shard"]
+    coarse_key, refine_key = P16_KEYS[kind]
+    stored = {"f32": lambda r: r, "bf16": flat._quantize_bf16,
+              "int8": flat._quantize_int8}[kind](rows)
+    sharded = VectorStore.with_sharded_flat_index(E, mesh, storage=kind)
+    single = VectorStore.with_flat_index(E, storage=kind, device="cuda")
+    _, load_s = timed(lambda: restore_rows(sharded, stored, np))
+    restore_rows(single, stored, np)
+    for store in (sharded, single):
+        for i in dead:
+            store.delete(str(int(i)))
+    index = sharded.index
+    batch = [(Vector(q), K) for q in qs]
+    _, first_s = timed(lambda: sharded.search_batch(batch))
+    # the path's run: only the sharded store's searches in the window
+    cuda_kernels.reset_launches()
+    res, batch_s = None, []
+    for _ in range(2):
+        res, s = timed(lambda: sharded.search_batch(batch))
+        batch_s.append(s)
+    counts = {k: cuda_kernels.launches[k] for k in (coarse_key, refine_key)}
+    bodies = {coarse_key: check_wgmma(f"phase 16 {kind}", coarse_key,
+                                      cuda_kernels),
+              **check_tile_major(f"phase 16 {kind}", cuda_kernels)}
+    if counts != {coarse_key: 2 * shards, refine_key: 2 * shards}:
+        fail(f"phase 16 {kind}: launches in two batches {counts}: each "
+             f"batch must launch {coarse_key} and {refine_key} once a "
+             f"shard ({shards})")
+    single.search_batch(batch)              # its device build
+    res1, single_s = None, []
+    for _ in range(2):
+        res1, s = timed(lambda: single.search_batch(batch))
+        single_s.append(s)
+
+    queries = torch.from_numpy(qs).to(dev)
+    db_t = torch.from_numpy(stored).to(dev)
+    sq = (db_t * db_t).sum(1)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[torch.from_numpy(dead).to(dev)] = False
+    ora_d2, ora_i = oracle_sq(queries, db_t, sq, valid, K, torch)
+    ids, dists = store_ids(res, np)
+    ties, derr = check_exact(f"phase 16 {kind} sharded", ids, dists, ora_d2,
+                             ora_i, K, np)
+    ids1, dists1 = store_ids(res1, np)
+    check_exact(f"phase 16 {kind} unsharded", ids1, dists1, ora_d2, ora_i,
+                K, np)
+    differ = check_ties_only(f"phase 16 {kind} sharded vs unsharded", ids,
+                             ids1, ora_d2, np)
+    dd = float(np.abs(dists - dists1)[ids == ids1].max())
+
+    # the tier-1 certification rate (outside the window: these launches
+    # are not the path's)
+    with index._lock:
+        state = dict(index._sync_device())
+    src = "int8" if kind == "int8" else ("bf16" if kind == "bf16" else "f32")
+    block = index.capacity // shards
+    fn = index._sharded_search_cache[("coarse", K, index.capacity, src)]
+    extra = (state["scales"],) if kind == "int8" else ()
+    cert = fn(qs, state["db"], state["sq_norms"], state["norms"],
+              state["valid"], state["elo_max"], *extra)[2]
+    rate = float(cert.float().mean())
+    # the tier-1 pipeline's time by CUDA events (3 calls back to back):
+    # the sharded one (4 coarse + 4 K2 launches, the merge) beside the
+    # unsharded store's over the same rows
+    dev_ms, _ = cuda_time(lambda: fn(
+        qs, state["db"], state["sq_norms"], state["norms"], state["valid"],
+        state["elo_max"], *extra), torch)
+    with single.index._lock:
+        st1 = dict(single.index._sync_device())
+    dev1_ms, _ = cuda_time(lambda: ck.coarse_search_1p(
+        queries, st1["db"], st1["sq_norms"], st1["norms"], st1["valid"],
+        st1.get("hi"), st1["elo_max"], E, K, scales=st1.get("scales")),
+        torch)
+    del st1
+
+    # forced fallback: an inflated residual bound certifies nothing, so
+    # every query takes the sharded exact scan
+    forced = dict(state)
+    forced["elo_max"] = torch.tensor(1e9, device=dev)
+    if bool(fn(qs[:256], forced["db"], forced["sq_norms"], forced["norms"],
+               forced["valid"], forced["elo_max"], *extra)[2].any()):
+        fail(f"phase 16 {kind}: an inflated elo_max still certified")
+    fd, fi = index._sharded_search(qs[:256], forced, K)
+    # slots: a row's slot is its id here (loaded in order, no update yet)
+    fties, _ = check_exact(f"phase 16 {kind} forced fallback",
+                           np.asarray(fi)[:, :K], np.asarray(fd)[:, :K],
+                           ora_d2[:256], ora_i[:256], K, np)
+    del state, forced, fn
+
+    # one shard's mutation: 64 deletes and 64 updates of ids whose slots
+    # lie in shard 1; no insert (the store is full: one more row would
+    # grow every shard)
+    lo = block + 17
+    live = [i for i in range(lo, lo + 4 * P16_MUTATIONS)
+            if i not in set(dead.tolist())][:2 * P16_MUTATIONS]
+    gone, moved = live[:P16_MUTATIONS], live[P16_MUTATIONS:]
+    new_rows = rng.standard_normal((len(moved), D), dtype=np.float32)
+    new_stored = {"f32": lambda r: r, "bf16": flat._quantize_bf16,
+                  "int8": flat._quantize_int8}[kind](new_rows)
+    slots_before = [index.slot_of(sharded._id_to_internal[str(i)])
+                    for i in moved]
+    for i in gone:
+        sharded.delete(str(i))
+    for i, r in zip(moved, new_rows):
+        sharded.insert(str(i), Vector(r))
+    slots_after = [index.slot_of(sharded._id_to_internal[str(i)])
+                   for i in moved]
+    kept = sum(a == b for a, b in zip(slots_before, slots_after))
+    if any(not (block <= s < 2 * block) for s in slots_after):
+        fail(f"phase 16 {kind}: an update left shard 1: {slots_after}")
+    cuda_kernels.reset_launches()
+    res_m, mut_s = timed(lambda: sharded.search_batch(batch))
+    pieces = list(index.mesh_pieces_put)
+    mut_counts = {k: cuda_kernels.launches[k]
+                  for k in (coarse_key, refine_key)}
+    if pieces != [1]:
+        fail(f"phase 16 {kind}: the mutated store's search re-put pieces "
+             f"{pieces}, not [1]")
+    slots_t = torch.tensor(slots_after, device=dev)
+    db_t[slots_t] = torch.from_numpy(new_stored).to(dev)
+    sq = (db_t * db_t).sum(1)
+    valid[torch.tensor(gone, device=dev)] = False
+    ora_d2m, ora_im = oracle_sq(queries, db_t, sq, valid, K, torch)
+    ids_m, dists_m = store_ids(res_m, np)
+    slot_of = np.vectorize(
+        lambda i: index.slot_of(sharded._id_to_internal[str(i)]))
+    mties, _ = check_exact(f"phase 16 {kind} after the mutation",
+                           slot_of(ids_m), dists_m, ora_d2m, ora_im, K, np)
+    say(f"phase 16 {kind} sharded store, {shards} shards of {block} "
+        f"rows on one card, N={n} ({len(dead)} deleted) Q={nq} k={K} "
+        f"[{card}]: load {load_s:.3f} s (restore path); first batch "
+        f"(device build) {first_s * 1e3:.3f} ms; batch "
+        f"{[round(s * 1e3, 3) for s in batch_s]} ms beside the unsharded "
+        f"store's {[round(s * 1e3, 3) for s in single_s]} ms; the tier-1 "
+        f"pipeline by CUDA events {dev_ms:.3f} ms (unsharded "
+        f"{dev1_ms:.3f} ms); exact against "
+        f"the oracle ({ties} boundary ties, max dist err {derr:.3e}); "
+        f"equal to the unsharded store's ids but at {differ} tied queries, "
+        f"distances within {dd:.3e}; launches in two batches {counts} by "
+        f"body {bodies}; tier-1 certification rate {rate:.6f} "
+        f"({int(cert.sum())}/{nq}); forced fallback Q=256 exact through "
+        f"the sharded exact scan ({fties} ties); mutation: "
+        f"{P16_MUTATIONS} deletes + {P16_MUTATIONS} updates in shard 1 "
+        f"({kept} updates kept their slot, all in shard 1), the next batch "
+        f"re-put pieces {pieces} in {mut_s * 1e3:.3f} ms with launches "
+        f"{mut_counts}, exact ({mties} ties)")
+    out = {"counts": counts, "rate": rate, "batch_s": batch_s,
+           "single_s": single_s, "first_s": first_s, "load_s": load_s,
+           "ids": ids, "dev_ms": dev_ms, "dev1_ms": dev1_ms}
+    del sharded, single, index, db_t, queries, sq, valid, res, res1, res_m
+    free(torch)
+    return out
+
+
+def mesh_distributed_part(mesh, rows, qs, card, mods):
+    """Phase 16, part 2: DistributedFlatIndex over the same rows, on the
+    1-D mesh and on a 2-D (2 row shards x 2 batch blocks) mesh."""
+    np, torch, cuda_kernels = mods["np"], mods["torch"], mods["cuda_kernels"]
+    from vectordb_tpu_torch.parallel import DistributedFlatIndex, make_mesh
+    E = mods["DistanceMetric"].EUCLIDEAN
+    dev = torch.device("cuda")
+    queries = torch.from_numpy(qs).to(dev)
+    db_t = torch.from_numpy(rows).to(dev)
+    valid = torch.ones(rows.shape[0], dtype=torch.bool, device=dev)
+    ora_d2, ora_i = oracle_sq(queries, db_t, (db_t * db_t).sum(1), valid, K,
+                              torch)
+    del db_t, valid
+    mesh2 = make_mesh(P16_SHARDS, ("shard", "batch"), (2, 2),
+                      devices=[mesh.devices.flat[0]] * P16_SHARDS)
+    out = {}
+    for name, m, kw in (("1-D", mesh, {}),
+                        ("2-D", mesh2, {"batch_axis": "batch"})):
+        index = DistributedFlatIndex(m, E, **kw)
+        _, load_s = timed(lambda: index.load(rows))
+        index.search_batch(qs[:256], K)
+        cuda_kernels.reset_launches()
+        res, s = timed(lambda: index.search_batch(qs, K))
+        counts = {k: cuda_kernels.launches[k]
+                  for k in P16_KEYS["f32"]}
+        check_wgmma(f"phase 16 DistributedFlatIndex {name}",
+                    P16_KEYS["f32"][0], cuda_kernels)
+        check_tile_major(f"phase 16 DistributedFlatIndex {name}",
+                         cuda_kernels)
+        if set(counts.values()) != {P16_SHARDS}:
+            fail(f"phase 16 DistributedFlatIndex {name}: launches {counts}"
+                 f", want {P16_SHARDS} of each")
+        ids = np.array([[r[0] for r in row] for row in res])
+        dists = np.array([[r[1] for r in row] for row in res], np.float32)
+        ties, derr = check_exact(f"phase 16 DistributedFlatIndex {name}",
+                                 ids, dists, ora_d2, ora_i, K, np)
+        out[name] = {"counts": counts, "s": s, "load_s": load_s,
+                     "ties": ties, "derr": derr, "mesh": m.shape}
+        del index, res
+        free(torch)
+    say(f"phase 16 DistributedFlatIndex N={rows.shape[0]} Q={len(qs)} "
+        f"k={K} [{card}]: " + "; ".join(
+            f"{name} mesh {r['mesh']}: load {r['load_s']:.3f} s, batch "
+            f"{r['s'] * 1e3:.3f} ms, launches {r['counts']}, exact "
+            f"({r['ties']} ties, max dist err {r['derr']:.3e})"
+            for name, r in out.items()))
+    return out
+
+
+def mesh_pq_part(mesh, p8, card, mods):
+    """Phase 16, part 3: PqFlatIndex(mesh=...) over phase 8's rows (its
+    generator's state), with phase 8's trained codebook imported."""
+    np, torch, cuda_kernels = mods["np"], mods["torch"], mods["cuda_kernels"]
+    Vector, VectorStore = mods["Vector"], mods["VectorStore"]
+    from vectordb_tpu_torch.index.pq import PqFlatIndex
+    from vectordb_tpu_torch.ops import pq as pq_ops
+    E = mods["DistanceMetric"].EUCLIDEAN
+    dev = mesh.devices.flat[0]
+    rng8 = np.random.Generator(np.random.PCG64())
+    rng8.bit_generator.state = p8["rng_state"]
+    n, nq = p8["rows"], p8["queries"]
+    rows, qs = intrinsic_rows(rng8, n, nq, np)
+    dead = rng8.choice(n, 1024, replace=False)
+    store = VectorStore.with_index(PqFlatIndex(E, mesh=mesh))
+    index = store.index
+    _, load_s = timed(lambda: restore_rows(store, rows, np))
+    for i in dead:
+        store.delete(str(int(i)))
+    if p8.get("trained") is not None:
+        index.import_trained_state(p8["trained"])
+        how = "phase 8's codebook imported"
+    else:
+        index.train()
+        how = "trained here"
+    batch = [(Vector(q), K) for q in qs]
+    _, first_s = timed(lambda: store.search_batch(batch))  # the encode
+    cuda_kernels.reset_launches()
+    res, s = timed(lambda: store.search_batch(batch, refine=64))
+    k8 = cuda_kernels.launches["pq_decode"]
+    k8_routes = dict(cuda_kernels.routes["pq_decode"])
+    chunk = index._scan_chunk()
+    block = index.capacity // P16_SHARDS
+    per_shard = [block // chunk] * P16_SHARDS
+    if k8 != sum(per_shard) or k8_routes["tile_ring"] != k8:
+        fail(f"phase 16 PQ: K8 launches {k8} by body {k8_routes}, want "
+             f"{sum(per_shard)} tile_ring ({per_shard} chunks a shard)")
+    queries = torch.from_numpy(qs).to(dev)
+    db_t = torch.from_numpy(rows).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[torch.from_numpy(dead).to(dev)] = False
+    ora_d2, ora_i = oracle_sq(queries, db_t, (db_t * db_t).sum(1), valid, K,
+                              torch)
+    ids, dists = store_ids(res, np)
+    true = torch.sqrt(((db_t[torch.from_numpy(ids).to(dev)]
+                        - queries[:, None, :]) ** 2).sum(-1)).cpu().numpy()
+    derr = np.abs(dists - true)
+    if not np.all(derr <= 2e-5 * true + 1e-6):
+        fail(f"phase 16 PQ: a returned distance is off its id's f32 "
+             f"distance by {derr.max():.3e}")
+    recall = float(np.mean([len(set(a) & set(b)) / K
+                            for a, b in zip(ids, ora_i[:, :K])]))
+    if recall < 0.95:
+        fail(f"phase 16 PQ: recall@{K} {recall:.4f} < 0.95 at refine 64")
+    # the merged pool against the unsharded scan over the same codes
+    q = queries[:P16_PQ_POOL_QUERIES]
+    with index._lock:
+        state = dict(index._scan_state())
+    scan_ms, _ = cuda_time(lambda: index._scan_call(state, queries, 64),
+                           torch, iters=1)
+    sv, sl = index._scan_call(state, q, 64)
+    codes = torch.cat([c.to(dev) for c in state["codes"]])
+    vld = torch.cat([v.to(dev) for v in state["valid"]])
+    rot = index._rot_dev_arr()
+    sv1, sl1 = pq_ops.pq_scan_topr(q, codes, state["codebook"][dev],
+                                   state["cnorm"][dev], vld, E, r=64,
+                                   chunk=chunk, rot=rot)
+    sv, sl, sv1, sl1 = (t.cpu().numpy() for t in (sv, sl, sv1, sl1))
+    # the same scores, in order; the slots may differ only among equal
+    # scores (a tie across the pool's boundary or within it)
+    differ = sum(set(a.tolist()) != set(b.tolist())
+                 for a, b in zip(sl, sl1))
+    if not np.array_equal(sv, sv1):
+        fail(f"phase 16 PQ: the merged pool's scores differ from the "
+             f"unsharded pool's by up to {np.abs(sv - sv1).max():.3e}")
+    say(f"phase 16 PQ mesh: PqFlatIndex(EUCLIDEAN, mesh=...) N={n} "
+        f"({len(dead)} deleted) x {D} intrinsic-dim-32 rows (phase 8's "
+        f"generator), {how}, Q={nq} k={K} [{card}]: load {load_s:.3f} s; "
+        f"first batch "
+        f"(the encode) {first_s * 1e3:.3f} ms; batch at refine 64 "
+        f"{s * 1e3:.3f} ms, its sharded scan {scan_ms:.3f} ms by CUDA "
+        f"events (the rest: the host re-rank, the mesh's venue); K8 "
+        f"launches {k8} by body {k8_routes} "
+        f"(chunks of {chunk} rows, by shard {per_shard}); recall@{K} "
+        f"{recall:.4f}; returned distances = their ids' f32 distances (max "
+        f"err {derr.max():.3e}); the merged pool at Q="
+        f"{P16_PQ_POOL_QUERIES} equals the unsharded pool over the same "
+        f"codes but at {differ} boundary ties")
+    out = {"k8": k8, "recall": recall, "s": s}
+    del store, index, state, db_t, queries, codes, vld
+    free(torch)
+    return out
+
+
+def mesh_durable_part(mesh, card, mods, rng):
+    """Phase 16, part 4: a durable mesh engine; its reopen hydrates
+    progressively and the first search re-puts only the tail's shard."""
+    import shutil
+    import tempfile
+    np, torch = mods["np"], mods["torch"]
+    Vector, BatchInsertItem = mods["Vector"], mods["BatchInsertItem"]
+    from vectordb_tpu_torch.persistence import EngineConfig, StorageEngine
+    n, tail, nq = P16_DURABLE, P16_TAIL, P16_DURABLE_QUERIES
+    rows = make_rows(rng, n, D, np)
+    qs = rng.standard_normal((nq, D), dtype=np.float32)
+    batch = [(Vector(q), K) for q in qs]
+    base = tempfile.mkdtemp(prefix="vdb_p16_")
+    cfg = EngineConfig(mesh=mesh)
+    try:
+        t0 = time.perf_counter()
+        with StorageEngine.open(base, cfg) as eng:
+            for r0 in range(0, n - tail, 1 << 15):
+                r1 = min(r0 + (1 << 15), n - tail)
+                eng.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                                  for i in range(r0, r1)])
+            load_s = time.perf_counter() - t0
+            _, ckpt_s = timed(eng.checkpoint)
+            eng.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                              for i in range(n - tail, n)])
+            block = eng.store.index.capacity // P16_SHARDS
+            tail_shards = sorted({eng.store.index.slot_of(
+                eng.store._id_to_internal[str(i)]) // block
+                for i in range(n - tail, n)})
+            want = store_ids(eng.search_batch(batch), np)
+            cap = eng.store.index.capacity
+        eng, open_s = timed(lambda: StorageEngine.open(base, cfg))
+        with eng:
+            index = eng.store.index
+            installed = [k for k in eng.recovery_marks
+                         if k.startswith("progressive")]
+            dirty = len(index._dirty_slots)
+            dirty_shards = sorted({s // block for s in index._dirty_slots})
+            got, first_s = timed(lambda: eng.search_batch(batch))
+            pieces = list(index.mesh_pieces_put)
+            if len(eng) != n or index.capacity != cap:
+                fail(f"phase 16 durable: {len(eng)} rows, capacity "
+                     f"{index.capacity} after the reopen ({n}, {cap})")
+        if installed != ["progressive hydration finished (installed=True)"]:
+            fail(f"phase 16 durable: the reopen did not install the "
+                 f"progressive hydration: {list(eng.recovery_marks)}")
+        if not set(pieces) <= set(tail_shards) or pieces != dirty_shards:
+            fail(f"phase 16 durable: the first search re-put pieces "
+                 f"{pieces}; the tail wrote shards {tail_shards}, dirty "
+                 f"shards {dirty_shards}")
+        ids, dists = store_ids(got, np)
+        if not (np.array_equal(ids, want[0])
+                and np.array_equal(dists, want[1])):
+            fail("phase 16 durable: the reopened engine's answers differ "
+                 "from the writer's")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    say(f"phase 16 durable mesh engine N={n} ({n - tail} in the snapshot, "
+        f"{tail} in the WAL tail, shards of {block} rows) Q={nq} k={K} "
+        f"[{card}]: load through the WAL {load_s:.3f} s, checkpoint "
+        f"{ckpt_s:.3f} s; the tail wrote shard(s) {tail_shards}; reopen "
+        f"{open_s:.3f} s (progressive hydration installed; "
+        f"{dirty} dirty slots, in shards {dirty_shards}); first search "
+        f"{first_s * 1e3:.3f} ms re-put pieces {pieces} (the JAX "
+        f"package's hydrator leaves every applied slot dirty and would "
+        f"re-put all {P16_SHARDS}); answers equal to the writer's")
+    free(torch)
+    return {"pieces": pieces, "open_s": open_s}
+
+
+def mesh_phase(args, card, mods, p8):
+    """Phase 16 (module docstring). ``p8``: phase 8's generator state,
+    shape and trained state (``pq_phase``). Returns the launch counts of
+    its windows by kernel key."""
+    np, torch = mods["np"], mods["torch"]
+    from vectordb_tpu_torch.parallel import dryrun_multichip, make_mesh
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([args.seed, 16])
+    n, nq = P16_ROWS, P16_QUERIES
+    mesh = make_mesh(P16_SHARDS, devices=["cuda:0"] * P16_SHARDS)
+    rows = make_rows(rng, n, D, np)
+    dead = rng.choice(n, 1024, replace=False)
+    qs = rng.standard_normal((nq, D), dtype=np.float32)
+    stores = {kind: mesh_store_part(kind, mesh, rows, dead, qs, card, mods,
+                                    rng)
+              for kind in ("f32", "bf16", "int8")}
+    count = torch.cuda.device_count()
+    if count > 1:
+        cards = min(P16_SHARDS, count)
+        real = make_mesh(cards, devices=[f"cuda:{i}" for i in range(cards)])
+        r = mesh_store_part("f32", real, rows, dead, qs, card, mods, rng)
+        if not np.array_equal(r["ids"], stores["f32"]["ids"]):
+            fail("phase 16: the mesh over real cards answers otherwise")
+        say(f"phase 16 multi-card mesh over {cards} cards: the f32 store "
+            f"answers as on one card")
+    else:
+        say("phase 16 multi-card mesh: not run (1 card)")
+    dist = mesh_distributed_part(mesh, rows, qs, card, mods)
+    del rows
+    free(torch)
+    pq = mesh_pq_part(mesh, p8, card, mods)
+    durable = mesh_durable_part(mesh, card, mods, rng)
+    dry, dry_s = timed(lambda: dryrun_multichip(P16_SHARDS))
+    say(f"phase 16 dryrun_multichip({P16_SHARDS}) on the card in "
+        f"{dry_s:.3f} s: {dry}")
+    say(f"phase 16 total {time.perf_counter() - t_phase:.3f} s  [{card}]")
+    counts: dict = {}
+    for r in list(stores.values()) + list(dist.values()):
+        for key, v in r["counts"].items():
+            counts[key] = counts.get(key, 0) + v
+    counts["pq_decode"] = pq["k8"]
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
@@ -3798,7 +4270,11 @@ def main() -> None:
                    body=got["int8"]["body"])]
 
     # -- phase 8: PQ-Flat at full width ----------------------------------
+    # phase 16 regenerates phase 8's rows from this state
+    p8 = {"rng_state": rng.bit_generator.state, "rows": args.rows,
+          "queries": args.queries}
     k8 = pq_phase(args, rng, card, mods)
+    p8["trained"] = k8.pop("trained")
     # -- phase 9: the two-phase exact scan (K9) ---------------------------
     k9 = k9_phase(rows, qs, rng, card, mods)
     # -- phase 10: durability on the card ---------------------------------
@@ -3815,6 +4291,9 @@ def main() -> None:
     free(torch)
     # -- phase 15: IVF-PQ ------------------------------------------------
     p15 = ivfpq_phase(args, card, mods)
+    free(torch)
+    # -- phase 16: the mesh on the card ----------------------------------
+    p16 = mesh_phase(args, card, mods, p8)
     table += [
         kernel_row("K8 pq_decode", "pq_decode.cu", 286, k8["launches"],
                    worst["pq_decode"], k8["ms"], k8["plain_ms"], k8["bound"],
@@ -3855,6 +4334,10 @@ def main() -> None:
         if p15["fallback"].get(key):
             # phase 15's fallback window: IVF-PQ's exact path (K4, K2)
             row["ivfpq_fallback_launches"] = p15["fallback"][key]
+        if p16.get(key):
+            # phase 16's windows: the mesh's stores, DistributedFlatIndex
+            # (1-D and 2-D), the PQ mesh (4 coarse + 4 K2 a flat batch)
+            row["mesh_launches"] = p16[key]
     if min(r["launches"] for r in table) < 1:
         fail(f"a kernel never launched on its path: "
              f"{[(r['name'], r['launches']) for r in table]}")

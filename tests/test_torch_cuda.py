@@ -1196,3 +1196,80 @@ def test_hnsw_device_build_runs_k1_wgmma(dev, monkeypatch):
                        & set(t.tolist())) / 10
                    for q, t in zip(queries, truth)])
     assert rec >= 0.9
+
+
+@pytest.mark.parametrize("storage, coarse_key, refine_key", [
+    ("f32", "coarse_minima_f32_1p_sup", "refine_dots"),
+    ("bf16", "coarse_minima_1p_sup", "refine_dots_bf16"),
+    ("int8", "coarse_minima_int8_1p_sup", "refine_dots_int8")])
+def test_mesh_on_one_card_launches_per_shard(dev, storage, coarse_key,
+                                             refine_key):
+    """A 4-shard mesh on cuda:0: each batch launches the shard's coarse
+    kernel (K4 / K1 / K7, "wgmma") and K2 ("tile_major") once a shard,
+    and answers as the unsharded store of the same rows and storage."""
+    from vectordb_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(4, devices=["cuda:0"] * 4)
+    rng = np.random.default_rng(14)
+    n, d, k = 16384, 768, 10
+    rows = rng.standard_normal((n, d), dtype=np.float32)
+    qs = rng.standard_normal((64, d), dtype=np.float32)
+    sharded = VectorStore.with_sharded_flat_index(
+        DistanceMetric.EUCLIDEAN, mesh, storage=storage)
+    single = VectorStore.with_flat_index(DistanceMetric.EUCLIDEAN,
+                                         storage=storage, device="cuda")
+    for store in (sharded, single):
+        store.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                            for i in range(n)])
+    batch = [(Vector(q), k) for q in qs]
+    sharded.search_batch(batch)                 # builds the device state
+    cuda_kernels.reset_launches()
+    got = sharded.search_batch(batch)
+    assert cuda_kernels.launches[coarse_key] == 4
+    assert cuda_kernels.launches[refine_key] == 4
+    assert cuda_kernels.routes[coarse_key]["wgmma"] == 4
+    assert cuda_kernels.routes[refine_key]["tile_major"] == 4
+    want = single.search_batch(batch)
+    assert [[h.id for h in r] for r in got] == \
+        [[h.id for h in r] for r in want]
+    np.testing.assert_allclose([h.distance for r in got for h in r],
+                               [h.distance for r in want for h in r],
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_device_guard_launches_on_the_tensors_card(dev):
+    """A kernel launched on a cuda:1 tensor while cuda:0 is current runs
+    on cuda:1 with cuda:1's attributes and stream, and equals its plain
+    version; a mesh over both cards answers as one card does."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (the device guard launches a "
+                    "kernel on a card that is not current)")
+    from vectordb_tpu_torch.parallel import make_mesh
+    dev1 = torch.device("cuda:1")
+    with torch.cuda.device(0):
+        db, hi, _, queries, terms, bound, bound2 = _operands(
+            dev1, 4096, 768, 100, "euclidean")
+        qThi, _, _, _, qrow, col, inv = terms
+        t_k, s_k = cuda_kernels.coarse_minima_1p_sup(qThi, qrow, hi, col,
+                                                     inv, "euclidean")
+        assert torch.cuda.current_device() == 0
+        assert t_k.device == dev1
+        t_p, s_p = ck._minima_1p_sup_plain(qThi, qrow, hi, col, inv,
+                                           "euclidean")
+        assert _live_err(t_k, t_p) <= bound
+        tidx = torch.randint(0, 4096 // 16, (100, 32), device=dev1)
+        dots = cuda_kernels.refine_dots(tidx, queries, db, 32)
+        plain = ck._refine_dots_plain(tidx, queries, db, 32)
+        assert float((dots - plain).abs().max()) <= bound2
+    mesh = make_mesh(2, devices=["cuda:0", "cuda:1"])
+    rng = np.random.default_rng(15)
+    rows = rng.standard_normal((8192, 64), dtype=np.float32)
+    qs = rng.standard_normal((16, 64), dtype=np.float32)
+    two = VectorStore.with_sharded_flat_index(DistanceMetric.EUCLIDEAN, mesh)
+    one = VectorStore.with_sharded_flat_index(
+        DistanceMetric.EUCLIDEAN, make_mesh(2, devices=["cuda:0"] * 2))
+    for store in (two, one):
+        store.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                            for i in range(len(rows))])
+    batch = [(Vector(q), 5) for q in qs]
+    assert [[h.id for h in r] for r in two.search_batch(batch)] == \
+        [[h.id for h in r] for r in one.search_batch(batch)]

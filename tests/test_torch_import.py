@@ -100,6 +100,38 @@ def test_import_leaves_jax_and_triton_out():
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
+_PROBE_MESH = """
+import sys, tempfile
+import vectordb_tpu_torch.parallel, vectordb_tpu_torch.utils.supervised
+from vectordb_tpu_torch import Vector
+from vectordb_tpu_torch.parallel import dryrun_multichip, make_mesh
+from vectordb_tpu_torch.persistence import EngineConfig, StorageEngine
+dryrun_multichip(4, devices=["cpu"])
+mesh = make_mesh(4, devices=["cpu"] * 4)
+with tempfile.TemporaryDirectory() as d:
+    with StorageEngine.open(d, EngineConfig(mesh=mesh)) as eng:
+        eng.insert("a", Vector([1.0, 2.0]))
+        eng.checkpoint()
+    with StorageEngine.open(d, EngineConfig(mesh=mesh)) as eng:
+        assert eng.search(Vector([1.0, 2.0]), 1)[0].id == "a"
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'vectordb_tpu'))
+print(repr(bad))
+"""
+
+
+def test_parallel_and_supervised_leave_jax_out():
+    """The mesh package (its dry run and a mesh engine's reopen) and the
+    supervisor run without JAX."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", _PROBE_MESH], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
 def test_import_builds_nothing():
     """Importing builds no kernel: the build directory is made at first
     launch, not at import."""

@@ -610,8 +610,24 @@ class TestEngineBatch:
             open_engine(tmp_path / "q", index_type=kind, storage="bf16")
 
     def test_mesh_names_its_item(self, tmp_path):
-        with pytest.raises(ValueError, match="item 13"):
-            open_engine(tmp_path, mesh=object())
+        """``mesh=`` is ported for "flat" and "pq" (the engine reopens
+        into sharded storage); a mesh that is not a parallel.Mesh, or one
+        with an index type that does not shard, raises."""
+        from vectordb_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(4, devices=["cpu"] * 4)
+        for kind in ("flat", "pq"):
+            with open_engine(tmp_path / kind, index_type=kind,
+                             mesh=mesh) as eng:
+                eng.insert("a", Vector([1.0, 2.0]))
+                eng.checkpoint()
+            with open_engine(tmp_path / kind, index_type=kind,
+                             mesh=mesh) as eng:
+                assert eng.store.index._mesh is mesh
+                assert eng.search(Vector([1.0, 2.0]), 1)[0].id == "a"
+        with pytest.raises(ValueError, match="parallel.Mesh"):
+            open_engine(tmp_path / "x", mesh=object())
+        with pytest.raises(ValueError, match="does not support mesh"):
+            open_engine(tmp_path / "h", index_type="hnsw", mesh=mesh)
 
     def test_default_device_is_cuda(self, tmp_path):
         assert EngineConfig().device == "cuda"

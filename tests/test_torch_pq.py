@@ -602,12 +602,27 @@ def test_calibrate_refine_meets_target():
 
 
 def test_unported_options_raise():
-    with pytest.raises(IndexOpError, match="item 13"):
+    """The mesh lane is ported: ``mesh=`` and ``row_axis=`` shard the
+    codes, ``scan_recall`` is checked and kept (the selection is exact);
+    the options, in the JAX package's order, take what JAX's take and
+    refuse what they refuse."""
+    from vectordb_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    t = PqFlatIndex(_tm("euclidean"), None, 16, 64, 15, 8192, 0, None, 0.9,
+                    False, mesh, "shard", "auto", "cpu")
+    assert t._mesh is mesh and t.scan_recall == 0.9 and not t._rotate
+    assert JPq(_jm("euclidean"), scan_recall=0.9).scan_recall == 0.9
+    with pytest.raises(ValueError):
         PqFlatIndex(_tm("euclidean"), mesh=object(), device="cpu")
-    # the JAX scan's recall target and mesh axis have no meaning here
-    for kw in ({"scan_recall": 0.9}, {"row_axis": "shard"}):
-        with pytest.raises(TypeError):
-            PqFlatIndex(_tm("euclidean"), device="cpu", **kw)
+    with pytest.raises(ValueError):
+        PqFlatIndex(_tm("euclidean"), mesh=mesh, row_axis="rows")
+    for bad in (0.0, 1.5):
+        with pytest.raises(ValueError):
+            PqFlatIndex(_tm("euclidean"), scan_recall=bad, device="cpu")
+    with pytest.raises(IndexOpError, match="single-device"):
+        PqFlatIndex(_tm("euclidean"), mesh=mesh,
+                    rerank="device")._rerank_venue()
+    assert PqFlatIndex(_tm("euclidean"), mesh=mesh)._rerank_venue() == "host"
 
 
 @pytest.mark.parametrize("loader", ["stream", "attach"])

@@ -1074,9 +1074,17 @@ def test_engine_config_positional_like_jax():
 
 
 def test_flat_index_positional_and_mesh():
+    from vectordb_tpu_torch.parallel import make_mesh
     idx = FlatIndex(EUC, "exact", None, "shard", "bf16", None, "cpu")
     assert idx.storage == "bf16"
-    with pytest.raises(ValueError, match="item 13"):
+    # the mesh, positionally as in the JAX package: rows shard over it
+    mesh = make_mesh(2, devices=["cpu"] * 2)
+    idx = FlatIndex(EUC, "exact", mesh, "shard", "int8", None, "cpu")
+    assert idx._mesh is mesh and idx.storage == "int8"
+    idx.add(0, Vector([1.0, 2.0]))
+    assert idx.capacity == 2048
+    assert idx.search(Vector([1.0, 2.0]), 1)[0][0] == 0
+    with pytest.raises(ValueError, match="parallel.Mesh"):
         FlatIndex(EUC, mesh=object(), device="cpu")
 
 

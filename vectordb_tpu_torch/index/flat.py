@@ -33,10 +33,15 @@ storage modes. Capability parity with reference src/flat_index.rs:12-74
     (``bulk_load_matrix``, ``bulk_load_stream``, ``bulk_attach_memmap``)
     and ``prehydrate``, which builds the device state on a side thread
     while the WAL tail replays. The first search waits on the CUDA event
-    the build recorded, so its launches never read a half-copied state.
-
-Not in this slice: mesh sharding and its progressive hydration (ROADMAP
-queue 1 item 13).
+    the build recorded, so its launches never read a half-copied state;
+  * ``mesh=``: the packed arrays shard over the mesh's row axis, shard
+    ``s`` owning slots ``[s*B, (s+1)*B)`` (B a power of two >= 1024) on
+    its device, so ids, slots and files on disk stay those of one
+    device. Searches run the per-shard certified pipeline and the merge
+    of parallel/distributed.py; a write rebuilds only the shards that
+    hold dirty slots (``_mesh_piece_resync``), and recovery puts each
+    shard's piece as soon as the snapshot apply has passed its slots
+    (``start_progressive_hydration``).
 """
 
 from __future__ import annotations
@@ -207,11 +212,10 @@ class FlatIndex(Index):
                  host_backing: Optional[str] = None, device="cuda"):
         if search_mode not in ("exact", "fast"):
             raise ValueError(f"unknown search_mode: {search_mode!r}")
-        if mesh is not None:
-            # row_axis names the mesh axis the rows shard over; it has
-            # nothing to shard until the mesh is ported
-            raise ValueError("FlatIndex(mesh=...) is not ported yet "
-                             "(ROADMAP queue 1 item 13, multi-device)")
+        if mesh is not None and row_axis not in getattr(mesh, "axis_names",
+                                                        ()):
+            raise ValueError(f"mesh={mesh!r} is not a parallel.Mesh with "
+                             f"a {row_axis!r} axis")
         if storage not in _STORAGES:
             raise ValueError(f"unknown storage: {storage!r}")
         # "exact": the certified ladder (tiers 1-3). "fast": the 1-pass
@@ -225,7 +229,24 @@ class FlatIndex(Index):
         self.storage = storage
         self._host_dtype = np.dtype(np.uint16 if storage == "bf16"
                                     else np.float32)
-        self._device_t = prepare_device(device)
+        # with a mesh (parallel.Mesh), the packed arrays shard over its
+        # row axis: shard s lives on _shard_devices[s], and _device_t (the
+        # queries, the merge, small tables) is the first of them
+        self._mesh = mesh
+        self._row_axis = row_axis
+        self._sharded_search_cache: dict = {}
+        if mesh is None:
+            self._device_t = prepare_device(device)
+            self._shard_devices = None
+        else:
+            self._shard_devices = mesh.axis_devices(row_axis)
+            self._device_t = self._shard_devices[0]
+        # the shards the last mesh sync put anew (introspection: a write
+        # re-puts only the pieces that hold its slots)
+        self.mesh_pieces_put: list = []
+        # the progressive mesh hydrator in flight, if any (see
+        # _track_dirty)
+        self._hydrating = None
         # host_backing: a directory; the packed row matrix lives in a
         # disk-backed np.memmap there instead of RAM (the OS page cache
         # keeps the hot set); device-side limits are unchanged
@@ -315,6 +336,12 @@ class FlatIndex(Index):
         if self._capacity >= needed:
             return
         new_cap = next_pow2(needed, floor=_MIN_CAPACITY)
+        if self._mesh is not None:
+            # pow2 rows PER SHARD (>= 1024): every shard block is whole
+            # super-tiles for the per-shard coarse kernels
+            n_shards = len(self._shard_devices)
+            new_cap = n_shards * next_pow2(-(-needed // n_shards),
+                                           floor=_MIN_CAPACITY)
         old_path = self._vectors_path
         new_vectors = self._alloc_rows(new_cap, self._dim)
         new_valid = np.zeros(new_cap, dtype=bool)
@@ -454,9 +481,21 @@ class FlatIndex(Index):
         finally:
             # even on a partial failure, every possibly-touched slot is
             # recorded (stale-dirty is safe; missed-dirty is not)
-            if self._device is not None or self._build_inflight:
-                self._dirty_slots.update(slots.tolist())
+            self._track_dirty(slots)
             self._note_appended(slots)
+
+    def _track_dirty(self, slots) -> None:
+        """Record written slots for the next sync (lock held). With no
+        device state and no build in flight nothing is recorded: the next
+        sync builds in full. While a progressive mesh hydration runs with
+        no state installed, only slots whose shard's piece has started
+        its put count: an earlier write is in the piece it reads."""
+        if self._device is None:
+            if not self._build_inflight:
+                return
+            if self._hydrating is not None:
+                slots = self._hydrating.after_put(slots)
+        self._dirty_slots.update(np.asarray(slots).tolist())
 
     def _note_appended(self, slots: np.ndarray) -> None:
         """Subclass seam: called (lock held) with the slot array the
@@ -641,6 +680,8 @@ class FlatIndex(Index):
             if self.storage != "f32":
                 raise ValueError("bulk_attach_memmap supports f32 storage "
                                  "only")
+            if self._mesh is not None:
+                raise ValueError("bulk_attach_memmap is single-device only")
             if n < 1:
                 raise ValueError("n must be >= 1")
             if self._dim is not None and dim != self._dim:
@@ -695,8 +736,7 @@ class FlatIndex(Index):
         self._len += 1
         if sq == 0.0:
             self._zero_norm_live += 1
-        if self._device is not None or self._build_inflight:
-            self._dirty_slots.add(slot)
+        self._track_dirty((slot,))
 
     def _clear_slot(self, slot: int) -> None:
         internal_id = int(self._id_of_slot[slot])
@@ -707,8 +747,7 @@ class FlatIndex(Index):
         self._slot_of_id.pop(internal_id, None)
         self._free_slots.append(slot)
         self._len -= 1
-        if self._device is not None or self._build_inflight:
-            self._dirty_slots.add(slot)
+        self._track_dirty((slot,))
 
     def remove(self, internal_id: int) -> None:
         with self._lock:
@@ -735,16 +774,19 @@ class FlatIndex(Index):
 
     # -- device state -------------------------------------------------------
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+    def _to_device(self, arr: np.ndarray, device=None) -> torch.Tensor:
         # always a copy: on the CPU a from_numpy view would alias the host
         # arrays that later writes mutate under in-flight searches
         return torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(
-            self._device_t, copy=True)
+            self._device_t if device is None else device, copy=True)
 
     def _build_device_full(self) -> dict:
         """A complete device state from the host arrays: rows, norms,
         validity, and what the certified ladder reads for this storage
         (see the module docstring)."""
+        if self._mesh is not None:
+            return self._mesh_state([self._mesh_piece(s)
+                                     for s in range(self._n_shards())])
         dev = {"sq_norms": self._to_device(self._sq_norms),
                "norms": self._to_device(self._norms),
                "valid": self._to_device(self._valid)}
@@ -780,12 +822,83 @@ class FlatIndex(Index):
     def _zero(self) -> torch.Tensor:
         return torch.zeros((), dtype=torch.float32, device=self._device_t)
 
-    def _bf16_to_device(self, rows: np.ndarray) -> torch.Tensor:
+    def _bf16_to_device(self, rows: np.ndarray, device=None) -> torch.Tensor:
         """bf16 host rows (their bit patterns, or f32 rows holding bf16
         values) -> a bf16 device tensor of the same values."""
         if rows.dtype == np.uint16:
-            return self._to_device(rows.view(np.int16)).view(torch.bfloat16)
-        return self._to_device(rows).to(torch.bfloat16)
+            return self._to_device(rows.view(np.int16), device).view(
+                torch.bfloat16)
+        return self._to_device(rows, device).to(torch.bfloat16)
+
+    # -- mesh device state ---------------------------------------------------
+
+    def _n_shards(self) -> int:
+        return len(self._shard_devices)
+
+    def _shard_range(self, s: int) -> Tuple[int, int]:
+        b = self._capacity // self._n_shards()
+        return s * b, (s + 1) * b
+
+    def _mesh_piece(self, s: int) -> dict:
+        """Shard ``s``'s device tensors, from the host arrays of its slot
+        range, on its device: rows as stored (int8: codes and pow2
+        scales), norms and validity. Reads the host arrays as they are
+        (callers hold the lock, or own a hydration window)."""
+        lo, hi = self._shard_range(s)
+        dev = self._shard_devices[s]
+        out = {}
+        if self.storage == "int8":
+            codes, scales = _int8_codes_scales(
+                np.asarray(self._vectors[lo:hi], np.float32))
+            out["db"] = self._to_device(codes, dev)
+            out["scales"] = self._to_device(scales, dev)
+        elif self.storage == "bf16":
+            out["db"] = self._bf16_to_device(self._vectors[lo:hi], dev)
+        else:
+            out["db"] = self._to_device(self._vectors[lo:hi], dev)
+        out["sq_norms"] = self._to_device(self._sq_norms[lo:hi], dev)
+        out["norms"] = self._to_device(self._norms[lo:hi], dev)
+        out["valid"] = self._to_device(self._valid[lo:hi], dev)
+        return out
+
+    def _mesh_state(self, pieces: list) -> dict:
+        """The sharded device state from one piece per shard: each key a
+        list of per-shard tensors, and the per-shard certified route
+        armed. The residual bound is global (stale-high-safe): bf16 and
+        int8 blocks have none; f32 blocks round on chip (K4), so it is
+        the largest shard's."""
+        dev = {key: [p[key] for p in pieces] for key in pieces[0]}
+        if self.storage == "int8":
+            dev["int8_storage"] = True
+            dev["elo_max"] = self._zero()
+        elif self.storage == "bf16":
+            dev["bf16_storage"] = True
+            dev["elo_max"] = self._zero()
+        else:
+            dev["elo_max"] = self._residual_max(dev["db"])
+        return dev
+
+    def _residual_max(self, blocks: list) -> torch.Tensor:
+        """max over the f32 row blocks of their bf16 residual norms, on
+        the first device."""
+        from ..parallel.distributed import _gather
+        return torch.stack(_gather(
+            [coarse_kernel.residual_max_norm_f32(b) for b in blocks],
+            self._device_t)).max()
+
+    def _ready_events(self) -> Optional[list]:
+        """CUDA events after the work this thread launched on each device
+        of the state (None on the CPU): a reader on another stream waits
+        on them before its first launch."""
+        devs = (self._shard_devices if self._mesh is not None
+                else [self._device_t])
+        events = []
+        for d in dict.fromkeys(devs):
+            if d.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(d))
+                events.append(ev)
+        return events or None
 
     def prehydrate(self) -> None:
         """Build the device state OUTSIDE the index lock and install it if
@@ -809,9 +922,7 @@ class FlatIndex(Index):
         ready = None
         try:
             dev = self._build_device_full()
-            if self._device_t.type == "cuda":
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(self._device_t))
+            ready = self._ready_events()
         except Exception:
             with self._lock:
                 self._build_inflight = False
@@ -822,13 +933,79 @@ class FlatIndex(Index):
                 self._device = dev
                 self._device_ready = ready
 
+    def start_progressive_hydration(self, n_rows: int):
+        """Mesh recovery overlap: returns a hydrator whose put thread
+        copies each shard's piece to its device as soon as the caller's
+        ``advance(watermark)`` shows that piece's slot range applied, so
+        the copies ride under the snapshot apply. Caller contract (the
+        engine's streaming recovery): storage pre-sized by ``reserve`` (a
+        reallocation abandons the hydration), slots fill 0..n_rows-1 in
+        order, and ``finish()`` after the WAL tail replays installs the
+        state. Only slots written after their piece's put started are
+        dirty then (``_track_dirty``), so the first search re-puts only
+        the pieces a tail touched. None when not applicable: no mesh, a
+        state already built, unknown dimension, or a build in flight."""
+        if self._mesh is None:
+            return None
+        with self._lock:
+            if (self._device is not None or self._dim is None
+                    or self._capacity == 0 or self._build_inflight):
+                return None
+            self._build_inflight = True
+            try:
+                self._hydrating = _ProgressiveMeshHydrator(self, int(n_rows))
+            except Exception:
+                self._build_inflight = False
+                return None
+            return self._hydrating
+
+    def _mesh_piece_resync(self) -> bool:
+        """Partial resync of a mesh state (lock held): rebuild only the
+        shards whose slot ranges hold dirty slots, reusing every clean
+        shard's tensors as they are. Returns False when more than a
+        quarter of the capacity is dirty, or when every shard is hit (a
+        full rebuild is the same work); the caller then rebuilds in full.
+        On f32 the residual bound can only rise, by the patched rows'."""
+        if len(self._dirty_slots) * 4 > self._capacity:
+            return False
+        dirty = np.fromiter(self._dirty_slots, dtype=np.int64)
+        block = self._capacity // self._n_shards()
+        hit = np.unique(dirty // block).tolist()
+        if len(hit) == self._n_shards():
+            return False
+        dev = self._device
+        for s in hit:
+            piece = self._mesh_piece(s)
+            for key, t in piece.items():
+                # a new list: a reader's copy of the dict keeps its shards
+                dev[key] = list(dev[key])
+                dev[key][s] = t
+        if self.storage == "f32":
+            patched = self._to_device(np.ascontiguousarray(
+                self._vectors[np.sort(dirty)], dtype=np.float32))
+            dev["elo_max"] = torch.maximum(
+                dev["elo_max"], coarse_kernel.residual_max_norm_f32(patched))
+        self.mesh_pieces_put = hit
+        return True
+
     def _sync_device(self) -> dict:
         """Bring the device state up to date. Called with the lock held."""
         if self._device_ready is not None:
             # a side-thread build installed this state: its copies and
             # kernels finish before any launch of this caller reads it
-            self._device_ready.synchronize()
+            for ev in self._device_ready:
+                ev.synchronize()
             self._device_ready = None
+        if self._mesh is not None:
+            # piece-level resync when only some shards are dirty (clean
+            # shards keep their tensors); a full rebuild otherwise
+            self.mesh_pieces_put = []
+            if self._device is None or (self._dirty_slots and
+                                        not self._mesh_piece_resync()):
+                self._device = self._build_device_full()
+                self.mesh_pieces_put = list(range(self._n_shards()))
+            self._dirty_slots.clear()
+            return self._device
         if self._device is None:
             self._device = self._build_device_full()
             self._dirty_slots.clear()
@@ -934,13 +1111,30 @@ class FlatIndex(Index):
         try:
             if slot_mask is not None:
                 mask = np.asarray(slot_mask, dtype=bool)
-                cap = int(dev["valid"].shape[0])
+                cap = (self._capacity if self._mesh is not None
+                       else int(dev["valid"].shape[0]))
                 if mask.shape[0] != cap:
                     padded = np.zeros(cap, dtype=bool)
                     padded[: min(mask.shape[0], cap)] = mask[:cap]
                     mask = padded
-                dev["valid"] = dev["valid"] & self._to_device(mask)
+                if self._mesh is not None:
+                    dev["valid"] = [
+                        v & self._to_device(mask[lo:hi], v.device)
+                        for v, (lo, hi) in zip(
+                            dev["valid"], map(self._shard_range,
+                                              range(self._n_shards())))]
+                else:
+                    dev["valid"] = dev["valid"] & self._to_device(mask)
             k_req = min(int(k), live)
+            if self._mesh is not None:
+                # the sharded search collects before it returns: release
+                # the in-flight mark and hand back a ready handle
+                with annotate("vdb/flat.sharded_search"):
+                    dists, idx = self._sharded_search(queries, dev, k_req)
+                out = _slots_to_ids(dists, idx, id_of_slot, k_req,
+                                    queries.shape[0])
+                self._search_done()
+                return SearchBatchHandle.ready(out)
             with annotate("vdb/flat.submit"):
                 handle = flat_search_batched_submit(
                     queries, dev, self._metric, k_req,
@@ -960,6 +1154,71 @@ class FlatIndex(Index):
     def _search_done(self) -> None:
         with self._lock:
             self._searches_in_flight -= 1
+
+    def _sharded_search(self, queries: np.ndarray, dev: dict, k_req: int):
+        """Per-shard search + top-k merge over the mesh (host arrays out).
+
+        Default route: the 1-pass certified pipeline on every shard
+        (parallel/distributed.make_sharded_search_coarse); queries whose
+        certificate fails on any shard re-run through the sharded exact
+        scan, as does every query of a signature the coarse route does
+        not serve (k too large, shards too small)."""
+        from ..parallel.distributed import (_pad_rows,
+                                            make_sharded_search_coarse,
+                                            sharded_coarse_supported)
+        q = queries.shape[0]
+        # pow2-pad Q, as the JAX package does (its jit signatures)
+        queries = _pad_rows(queries, next_pow2(q, floor=1))
+        block_rows = self._capacity // self._n_shards()
+        src = ("int8" if dev.get("int8_storage")
+               else "bf16" if dev.get("bf16_storage") else "f32")
+        if (dev.get("elo_max") is not None
+                and sharded_coarse_supported(block_rows, self._dim, k_req,
+                                             src)):
+            key = ("coarse", k_req, self._capacity, src)
+            fn = self._sharded_search_cache.get(key)
+            if fn is None:
+                fn = make_sharded_search_coarse(
+                    self._mesh, self._metric, k_req, block_rows,
+                    self._row_axis, src=src)
+                self._sharded_search_cache[key] = fn
+            extra = (dev["scales"],) if src == "int8" else ()
+            out = fn(queries, dev["db"], dev["sq_norms"], dev["norms"],
+                     dev["valid"], dev["elo_max"], *extra)
+            dists, idx, cert = (t.cpu().numpy()[:q] for t in out)
+            bad = np.nonzero(~cert)[0]
+            if bad.size:
+                # rare: re-run uncertified queries through the exact scan
+                sub_d, sub_i = self._sharded_search_xla(
+                    np.ascontiguousarray(queries[bad]), dev, k_req)
+                dists = dists.copy()
+                idx = idx.copy()
+                dists[bad] = sub_d[:, : dists.shape[1]]
+                idx[bad] = sub_i[:, : idx.shape[1]]
+            return dists, idx
+        return self._sharded_search_xla(queries[:q], dev, k_req)
+
+    def _sharded_search_xla(self, queries: np.ndarray, dev: dict,
+                            k_req: int):
+        """The sharded exact scan + top-k merge (the JAX package's XLA
+        route): f32 distances at IEEE precision per shard, bf16 rows
+        widened and int8 codes dequantized exactly."""
+        from ..parallel.distributed import _pad_rows, make_sharded_search
+        k_eff = min(next_pow2(k_req, floor=1), self._capacity)
+        src = "int8" if dev.get("int8_storage") else "f32"
+        key = (k_eff, self._capacity, src)
+        fn = self._sharded_search_cache.get(key)
+        if fn is None:
+            fn = make_sharded_search(self._mesh, self._metric, k_eff,
+                                     self._capacity // self._n_shards(),
+                                     self._row_axis, src=src)
+            self._sharded_search_cache[key] = fn
+        q = queries.shape[0]
+        queries = _pad_rows(queries, next_pow2(q, floor=1))
+        extra = (dev["scales"],) if src == "int8" else ()
+        dists, idx = fn(queries, dev["db"], dev["sq_norms"], dev["norms"],
+                        dev["valid"], *extra)
+        return dists.cpu().numpy()[:q], idx.cpu().numpy()[:q]
 
     def search_masked(self, query: Vector, k: int, slot_mask: np.ndarray,
                       mask_layout_version: Optional[int] = None
@@ -982,6 +1241,101 @@ class FlatIndex(Index):
                     self._valid.copy(), self._id_of_slot.copy())
 
     def __repr__(self) -> str:
+        where = (f"mesh={self._mesh.shape}" if self._mesh is not None
+                 else f"device={self._device_t}")
         return (f"FlatIndex(metric={self._metric.value}, len={self._len}, "
                 f"dim={self._dim}, capacity={self._capacity}, "
-                f"storage={self.storage}, device={self._device_t})")
+                f"storage={self.storage}, {where})")
+
+
+class _ProgressiveMeshHydrator:
+    """Recovery overlap of a mesh-sharded FlatIndex (see
+    FlatIndex.start_progressive_hydration). A put thread copies each
+    shard's piece to its device once the apply watermark passes that
+    piece's slot range; ``finish()`` installs the sharded state. A piece
+    marks its put as started under the index lock before it reads the
+    host arrays: a write before that is in the piece, a write after it
+    is dirty (``after_put``). Unlike the JAX package's hydrator, slots
+    applied before their piece's put are not left dirty, so the first
+    search re-puts nothing that no later write touched."""
+
+    def __init__(self, index: FlatIndex, n_rows: int):
+        self._ix = index
+        self._n = n_rows
+        self._vec0 = index._vectors
+        self._block = index._capacity // index._n_shards()
+        self._started = np.zeros(index._n_shards(), dtype=bool)
+        self._wm = 0
+        self._done = False
+        self._error: Optional[BaseException] = None
+        self._pieces: Optional[list] = None
+        self._events: list = []
+        self._cv = threading.Condition()
+        self._thread = threading.Thread(
+            target=self._run, name="vdb-hydrate", daemon=True)
+        self._thread.start()
+
+    def advance(self, watermark: int) -> None:
+        """Applied-row watermark (slots [0, watermark) are final but for
+        the WAL tail). Cheap; called once per applied chunk."""
+        with self._cv:
+            if watermark > self._wm:
+                self._wm = watermark
+                self._cv.notify_all()
+
+    def after_put(self, slots):
+        """The slots whose piece has started its put (index lock held).
+        After a reallocation every slot counts (the hydration is
+        abandoned; stale-dirty is safe)."""
+        arr = np.asarray(slots, dtype=np.int64)
+        if self._ix._vectors is not self._vec0:
+            return arr
+        return arr[self._started[arr // self._block]]
+
+    def _run(self) -> None:
+        ix = self._ix
+        try:
+            pieces = []
+            for s in range(len(self._started)):
+                need = min((s + 1) * self._block, self._n)
+                with self._cv:
+                    while self._wm < need and not self._done:
+                        self._cv.wait(1.0)
+                with ix._lock:
+                    if ix._vectors is not self._vec0:
+                        return      # reallocated: finish() abandons
+                    self._started[s] = True
+                pieces.append(ix._mesh_piece(s))
+            self._events = ix._ready_events() or []
+            self._pieces = pieces
+        except BaseException as e:  # noqa: BLE001 — reported by finish
+            self._error = e
+
+    def finish(self) -> bool:
+        """Join the put thread and install the state. True if installed;
+        False if a sync built one first, storage was reallocated or a put
+        failed (the next search then builds in full). Always clears the
+        build flag."""
+        with self._cv:
+            self._done = True
+            self._wm = max(self._wm, self._n)
+            self._cv.notify_all()
+        self._thread.join()
+        ix = self._ix
+        try:
+            if self._error is not None or self._pieces is None:
+                return False
+            dev = ix._mesh_state(self._pieces)
+            events = self._events + (ix._ready_events() or [])
+            with ix._lock:
+                if ix._device is None and ix._vectors is self._vec0:
+                    ix._device = dev
+                    ix._device_ready = events or None
+                    return True
+                return False
+        except Exception:
+            return False
+        finally:
+            with ix._lock:
+                ix._build_inflight = False
+                ix._hydrating = None

@@ -33,7 +33,14 @@ index's option): the device holds only the codes. The bulk loaders
 (``bulk_load_matrix``, ``bulk_load_stream``, ``bulk_attach_memmap``) stamp
 every slot and, on a trained index, re-encode in full at the next sync.
 
-Not in this slice: ``mesh=`` (ROADMAP item 13), IVF-PQ (after item 11).
+``mesh=`` (a parallel.Mesh) shards the codes and validity over the mesh's
+row axis, shard ``s`` owning slots ``[s*B, (s+1)*B)``; the codebook
+tables are copied to each device. Each shard streams its block through
+the same scan (``parallel/distributed.make_sharded_pq_scan``, K8 for each
+chunk, the chunk sized on the shard's rows) and one exact top-r over the
+S*r pool merges them; a mutation re-puts the shards' codes wholesale.
+The re-rank runs on the host ("auto" resolves to "host"; "device"
+raises), and the exact-scan fallback is the sharded flat path.
 """
 
 from __future__ import annotations
@@ -117,6 +124,8 @@ class _PqCodesCore:
         self._codes_dev = None
         self._pq_valid_dev = None
         self._pq_valid_dirty = True
+        # mesh: the codebook tables copied to each shard device
+        self._pq_rep: Optional[dict] = None
         self._pq_dirty: set[int] = set()
         self._pq_full_reencode = False
         # per-slot mutation stamps: searches snapshot the tick at submit
@@ -151,7 +160,11 @@ class _PqCodesCore:
         return max(256, _pow2_floor(_SCORE_BYTES // (m * ksub * 4)))
 
     def _scan_chunk(self) -> int:
-        chunk = min(_SCAN_CHUNK, _pow2_floor(self._capacity),
+        cap = self._capacity
+        if self._mesh is not None:
+            # each shard streams its own block (pow2 / pow2 divides)
+            cap //= len(self._shard_devices)
+        chunk = min(_SCAN_CHUNK, _pow2_floor(cap),
                     max(256, _pow2_floor(_ONEHOT_BYTES
                                          // (self._m * self.ksub * 2))))
         return max(chunk, 1)
@@ -339,6 +352,7 @@ class _PqCodesCore:
             self._cnorm_dev = self._to_device(
                 np.sum(self._codebook * self._codebook, axis=-1,
                        dtype=np.float32))
+            self._pq_rep = None
         if self._pq_full_reencode:
             self._reencode_all()
             self._pq_full_reencode = False
@@ -349,7 +363,8 @@ class _PqCodesCore:
                                 count=len(self._pq_dirty))
             self._pq_dirty.clear()
             self._codes[slots] = self._encode_slots(slots)
-            if self._codes_dev is not None and len(slots) <= _SCATTER_MAX:
+            if (self._mesh is None and self._codes_dev is not None
+                    and len(slots) <= _SCATTER_MAX):
                 # in place, or into a copy while a search still reads the
                 # old buffer (ops/update.py)
                 op = (scatter_rows if self._searches_in_flight == 0
@@ -359,19 +374,52 @@ class _PqCodesCore:
             else:
                 self._codes_dev = None
         if self._codes_dev is None:
-            self._codes_dev = self._to_device(self._codes)
+            # a mesh re-puts every shard's codes wholesale (the JAX
+            # package's policy for the sharded codes)
+            self._codes_dev = self._pq_put(self._codes)
             self._pq_valid_dirty = True
         if self._pq_valid_dirty or self._pq_valid_dev is None:
-            self._pq_valid_dev = self._to_device(self._valid)
+            self._pq_valid_dev = self._pq_put(self._valid)
             self._pq_valid_dirty = False
         return (self._codes_dev, self._codebook_dev, self._cnorm_dev,
                 self._pq_valid_dev)
+
+    def _pq_put(self, arr: np.ndarray):
+        """A per-slot host array on the device, or its shard blocks on
+        the mesh's devices (a list of tensors)."""
+        if self._mesh is None:
+            return self._to_device(arr)
+        return [self._to_device(arr[lo:hi], dev) for dev, (lo, hi) in zip(
+            self._shard_devices,
+            map(self._shard_range, range(len(self._shard_devices))))]
+
+    def _pq_mask(self, valid, mask: np.ndarray):
+        """``valid`` AND a host slot mask (per shard on a mesh)."""
+        if self._mesh is None:
+            return valid & self._to_device(mask)
+        return [v & self._to_device(mask[lo:hi], v.device)
+                for v, (lo, hi) in zip(valid, map(self._shard_range,
+                                                  range(len(valid))))]
 
     # -- scan dispatch hooks --------------------------------------------------
 
     def _scan_state(self) -> dict:
         """Device tensors the scan needs (lock held)."""
         codes, cb, cnorm, valid = self._pq_sync()
+        if self._mesh is not None:
+            if self._pq_rep is None:
+                from ..parallel.distributed import replicate
+                devs = self._shard_devices
+                cnorm_h = np.sum(self._codebook * self._codebook, axis=-1,
+                                 dtype=np.float32)
+                self._pq_rep = {
+                    "codebook": {d: t.to(torch.bfloat16) for d, t in
+                                 replicate(self._codebook, devs).items()},
+                    "cnorm": replicate(cnorm_h, devs),
+                    "rot": (None if self._rot is None
+                            else replicate(self._rot, devs))}
+            return {"codes": codes, "codebook": self._pq_rep["codebook"],
+                    "cnorm": self._pq_rep["cnorm"], "valid": valid}
         # the codewords are bf16 values (pq_fit rounds them): exact cast
         return {"codes": codes, "codebook": cb.to(torch.bfloat16),
                 "cnorm": cnorm, "valid": valid}
@@ -385,13 +433,32 @@ class _PqCodesCore:
         return self._scan_pool_cols(r) * 8
 
     def _scan_call(self, state: dict, qb: torch.Tensor, r: int):
-        """One scan dispatch -> (scores (Qb, r), slots (Qb, r)) tensors."""
+        """One scan dispatch -> (scores (Qb, r), slots (Qb, r)) tensors.
+        With a mesh: the per-shard scan and the exact merged top-r
+        (parallel/distributed.make_sharded_pq_scan)."""
+        if self._mesh is not None:
+            rot = self._pq_rep["rot"]
+            fn = self._sharded_pq_scanner(r, rot is not None)
+            return fn(qb, state["codes"], state["codebook"], state["cnorm"],
+                      state["valid"], *(() if rot is None else (rot,)))
         from ..ops.pq import pq_scan_topr
         return pq_scan_topr(qb, state["codes"], state["codebook"],
                             state["cnorm"],
                             state["valid"], self._metric, r=r,
                             chunk=self._scan_chunk(),
                             rot=self._rot_dev_arr())
+
+    def _sharded_pq_scanner(self, r: int, with_rot: bool):
+        key = ("pqscan", r, self._capacity, with_rot)
+        fn = self._sharded_search_cache.get(key)
+        if fn is None:
+            from ..parallel.distributed import make_sharded_pq_scan
+            fn = make_sharded_pq_scan(
+                self._mesh, self._metric, r, self._scan_chunk(),
+                self._capacity // len(self._shard_devices), self._row_axis,
+                with_rot=with_rot)
+            self._sharded_search_cache[key] = fn
+        return fn
 
     def _scan_r_max(self) -> int:
         """Largest refine pool the scan program supports."""
@@ -403,6 +470,13 @@ class _PqCodesCore:
         docstring. The JAX package keys "auto" on the TPU backend; the port
         keys it on the index's device."""
         if self.rerank_mode == "host":
+            return "host"
+        if self._mesh is not None:
+            # the merged pool is on the first device, the rows on the host
+            if self.rerank_mode == "device":
+                raise IndexOpError(
+                    "rerank='device' is single-device only (the sharded "
+                    "path re-ranks on the host after the shard merge)")
             return "host"
         if (self._host_backing is not None
                 or self._capacity * (self._dim or 0) * 4
@@ -497,7 +571,8 @@ class _PqCodesCore:
             mk = None
             exact_args = None
             if slot_mask is not None:
-                cap = int(state["valid"].shape[0])
+                cap = (self._capacity if self._mesh is not None
+                       else int(state["valid"].shape[0]))
                 mk = np.asarray(slot_mask, dtype=bool)
                 if mk.shape[0] < cap:
                     mk = np.concatenate(
@@ -517,7 +592,7 @@ class _PqCodesCore:
                         self._id_of_slot[elig].copy())
                 else:
                     state = dict(state)
-                    state["valid"] = state["valid"] & self._to_device(mk)
+                    state["valid"] = self._pq_mask(state["valid"], mk)
             # bound the stacked per-query device footprint per dispatch
             max_q = max(256, _pow2_floor(
                 _CAND_BYTES // max(self._scan_bytes_per_query(r), 1)))
@@ -895,18 +970,24 @@ class PqFlatIndex(_PqCodesCore, FlatIndex):
     def __init__(self, metric: DistanceMetric, m: Optional[int] = None,
                  ksub: int = 256, refine: int = 64, train_iters: int = 15,
                  auto_train_min: int = 8192, seed: int = 0,
-                 host_backing: Optional[str] = None, rotate: bool = True,
-                 mesh=None, rerank: str = "auto", device="cuda"):
+                 host_backing: Optional[str] = None,
+                 scan_recall: float = 0.85, rotate: bool = True,
+                 mesh=None, row_axis: str = "shard", rerank: str = "auto",
+                 device="cuda"):
         # host_backing: the f32 rows in a disk-backed memmap (the device
-        # holds m bytes a row of codes); rotate: learn an OPQ pre-rotation
-        # at train time; rerank: venue of the exact candidate re-rank
-        # (module docstring); device: where the codes, the scan and the
-        # "mirror" re-rank live
-        if mesh is not None:
-            raise IndexOpError("PqFlatIndex(mesh=...) is not ported yet "
-                               "(ROADMAP queue 1 item 13, multi-device)")
+        # holds m bytes a row of codes); scan_recall: the JAX scan's
+        # approx_min_k target, checked and kept, changes nothing (the
+        # selection is exact); rotate: learn an OPQ pre-rotation at train
+        # time; mesh / row_axis: shard the codes over the mesh (module
+        # docstring); rerank: venue of the exact candidate re-rank;
+        # device: where the codes, the scan and the "mirror" re-rank live
+        # (the mesh's devices, when one is given)
+        if not 0.0 < scan_recall <= 1.0:
+            raise ValueError("scan_recall must be in (0, 1]")
+        self.scan_recall = float(scan_recall)
         super().__init__(metric, search_mode="exact", storage="f32",
-                         device=device, host_backing=host_backing)
+                         mesh=mesh, row_axis=row_axis, device=device,
+                         host_backing=host_backing)
         self._pq_init(m, ksub, refine, train_iters, auto_train_min, seed,
                       rotate=rotate, rerank=rerank)
 
@@ -1007,10 +1088,11 @@ class PqFlatIndex(_PqCodesCore, FlatIndex):
             self._pq_valid_dirty = True
 
     def __repr__(self) -> str:
+        where = (f"mesh={self._mesh.shape}" if self._mesh is not None
+                 else f"device={self._device_t}")
         return (f"PqFlatIndex(metric={self._metric.value}, len={self._len}, "
                 f"dim={self._dim}, m={self._m or self._m_arg}, "
-                f"ksub={self.ksub}, trained={self._trained}, "
-                f"device={self._device_t})")
+                f"ksub={self.ksub}, trained={self._trained}, {where})")
 
 
 __all__ = ["PqFlatIndex"]

@@ -9,9 +9,10 @@ library links no ``libcuda``: ``coarse_wgmma.cu`` reaches the driver's
 ``cuTensorMapEncodeTiled`` through the runtime's entry-point query.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
-raises if the C function reports a CUDA error, and adds one to its entry
-of ``launches`` (a plain integer per kernel, reset by ``reset_launches``).
+outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``
+of the tensors' device with that device current (``_guard``), raises if
+the C function reports a CUDA error, and adds one to its entry of
+``launches`` (a plain integer per kernel, reset by ``reset_launches``).
 
     K1  coarse_minima_1p_sup       coarse_wgmma.cu or     mirrors, 1 pass,
                                    coarse_minima.cu       super
@@ -229,6 +230,14 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
 
 
+def _guard(device):
+    """The launch's device guard: the C entry points read the CURRENT
+    device (``cudaGetDevice`` for the SM count, ``cudaFuncSetAttribute``),
+    so each launch runs with its output tensor's device current; a shard
+    on another card then gets that card's attributes and stream."""
+    return torch.cuda.device(device)
+
+
 def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -326,11 +335,12 @@ def _coarse(key: str, src: str, qThi, qTlo, qrow, db, db_lo, scales, col,
         qk = (qThi.t().index_select(1, _int8_k_index(d, dev))
               if src == "int8" else qThi.t().contiguous())
         qk_lo = qTlo.t().contiguous() if passes == 3 else None
-        rc = _lib().vdb_coarse_wgmma(
-            qk.data_ptr(), ptr(qk_lo), qrow.data_ptr(), db.data_ptr(),
-            ptr(lo), ptr(scales), col.data_ptr(), inv_col.data_ptr(),
-            tile.data_ptr(), ptr(sup), n, d, qp, _MODES[mode], code, passes,
-            int(emit_super), _stream(dev))
+        with _guard(dev):
+            rc = _lib().vdb_coarse_wgmma(
+                qk.data_ptr(), ptr(qk_lo), qrow.data_ptr(), db.data_ptr(),
+                ptr(lo), ptr(scales), col.data_ptr(), inv_col.data_ptr(),
+                tile.data_ptr(), ptr(sup), n, d, qp, _MODES[mode], code,
+                passes, int(emit_super), _stream(dev))
     else:
         rc = _mma_sync(src, qThi, qTlo, qrow, db, lo, scales, col, inv_col,
                        mode, passes, tile, sup)
@@ -346,12 +356,14 @@ def _mma_sync(src: str, qThi, qTlo, qrow, db, db_lo, scales, col, inv_col,
     ``sup``, super minima, or None); returns its cudaError_t."""
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     d, qp = qThi.shape
-    return _lib().vdb_coarse_minima(
-        qThi.data_ptr(), ptr(qTlo if passes == 3 else None), qrow.data_ptr(),
-        db.data_ptr(), ptr(db_lo if passes == 3 else None), ptr(scales),
-        col.data_ptr(), inv_col.data_ptr(), tile.data_ptr(), ptr(sup),
-        db.shape[0], d, qp, _MODES[mode], _COARSE_SRC[src][0], passes,
-        int(sup is not None), _stream(db.device))
+    with _guard(db.device):
+        return _lib().vdb_coarse_minima(
+            qThi.data_ptr(), ptr(qTlo if passes == 3 else None),
+            qrow.data_ptr(), db.data_ptr(),
+            ptr(db_lo if passes == 3 else None), ptr(scales),
+            col.data_ptr(), inv_col.data_ptr(), tile.data_ptr(), ptr(sup),
+            db.shape[0], d, qp, _MODES[mode], _COARSE_SRC[src][0], passes,
+            int(sup is not None), _stream(db.device))
 
 
 def coarse_minima_mma_sync(src: str, qThi, qTlo, qrow, db, db_lo, scales,
@@ -516,13 +528,16 @@ def refine_dots(tile_idx, queries, db, m: int, scales=None):
     sc = scales.data_ptr() if scales is not None else None
     if body == "tile_major":
         tiles, pairs = _refine_work(tile_idx)
-        rc = _lib().vdb_refine_tiles(
-            tiles.data_ptr(), pairs.data_ptr(), qp * m, queries.data_ptr(),
-            db.data_ptr(), sc, out.data_ptr(), m, d, code, _stream(dev))
+        with _guard(dev):
+            rc = _lib().vdb_refine_tiles(
+                tiles.data_ptr(), pairs.data_ptr(), qp * m,
+                queries.data_ptr(), db.data_ptr(), sc, out.data_ptr(), m, d,
+                code, _stream(dev))
     else:
-        rc = _lib().vdb_refine_dots(
-            tile_idx.data_ptr(), queries.data_ptr(), db.data_ptr(), sc,
-            out.data_ptr(), qp, m, d, code, _stream(dev))
+        with _guard(dev):
+            rc = _lib().vdb_refine_dots(
+                tile_idx.data_ptr(), queries.data_ptr(), db.data_ptr(), sc,
+                out.data_ptr(), qp, m, d, code, _stream(dev))
     _raise_on(rc, f"{key} ({body})")
     launches[key] += 1
     routes[key][body] += 1
@@ -594,13 +609,14 @@ def pq_decode(codes, cb):
         return out
     ptrs = (codes.data_ptr(), cb.data_ptr(), out.data_ptr())
     body = decode_body(codes, cb)
-    if body == "tile_ring":
-        rc = _lib().vdb_pq_decode_tiles(*ptrs, rows, m, ksub, dsub,
-                                        *_decode_plan(m, ksub, dsub),
-                                        _raw_stream(codes.device))
-    else:
-        rc = _lib().vdb_pq_decode(*ptrs, rows, m, ksub, dsub,
-                                  _raw_stream(codes.device))
+    with _guard(codes.device):
+        if body == "tile_ring":
+            rc = _lib().vdb_pq_decode_tiles(*ptrs, rows, m, ksub, dsub,
+                                            *_decode_plan(m, ksub, dsub),
+                                            _raw_stream(codes.device))
+        else:
+            rc = _lib().vdb_pq_decode(*ptrs, rows, m, ksub, dsub,
+                                      _raw_stream(codes.device))
     _raise_on(rc, f"pq_decode ({body})")
     launches["pq_decode"] += 1
     routes["pq_decode"][body] += 1
@@ -615,10 +631,11 @@ def pq_decode_grid_stride(codes, cb):
     out, rows, m, ksub, dsub = _decode_args(codes, cb)
     if rows == 0 or m == 0:
         return out
-    _raise_on(_lib().vdb_pq_decode(codes.data_ptr(), cb.data_ptr(),
-                                   out.data_ptr(), rows, m, ksub, dsub,
-                                   _raw_stream(codes.device)),
-              "pq_decode (grid_stride)")
+    with _guard(codes.device):
+        rc = _lib().vdb_pq_decode(codes.data_ptr(), cb.data_ptr(),
+                                  out.data_ptr(), rows, m, ksub, dsub,
+                                  _raw_stream(codes.device))
+    _raise_on(rc, "pq_decode (grid_stride)")
     return out
 
 
@@ -644,10 +661,11 @@ def scan_min(queries, qaux, db, raux, invalidf, mode: str, tile_rows: int):
     out = torch.empty((q, n // tile_rows), dtype=f32, device=dev)
     if q == 0 or n == 0:
         return out
-    rc = _lib().vdb_scan_min(queries.data_ptr(), qaux.data_ptr(),
-                             db.data_ptr(), raux.data_ptr(),
-                             invalidf.data_ptr(), out.data_ptr(), n, q, d,
-                             tile_rows, _MODES[mode], _stream(dev))
+    with _guard(dev):
+        rc = _lib().vdb_scan_min(queries.data_ptr(), qaux.data_ptr(),
+                                 db.data_ptr(), raux.data_ptr(),
+                                 invalidf.data_ptr(), out.data_ptr(), n, q,
+                                 d, tile_rows, _MODES[mode], _stream(dev))
     _raise_on(rc, "scan_min")
     launches["scan_min"] += 1
     return out
@@ -701,12 +719,13 @@ def hnsw_search(vectors, norms, neighbors, valid, queries, entry: int,
     mask_ptr = slot_mask.data_ptr() if slot_mask is not None else None
     for q0 in range(0, nq, chunk):
         q1 = min(q0 + chunk, nq)
-        rc = lib.vdb_hnsw_search(
-            vectors.data_ptr(), norms.data_ptr(), neighbors.data_ptr(),
-            valid.data_ptr(), queries[q0:q1].data_ptr(), mask_ptr,
-            visited.data_ptr(), out_d[q0:q1].data_ptr(),
-            out_slot[q0:q1].data_ptr(), n, q1 - q0, d, layers, m, entry,
-            start_layer, k, ef, _MODES[mode], _stream(dev))
+        with _guard(dev):
+            rc = lib.vdb_hnsw_search(
+                vectors.data_ptr(), norms.data_ptr(), neighbors.data_ptr(),
+                valid.data_ptr(), queries[q0:q1].data_ptr(), mask_ptr,
+                visited.data_ptr(), out_d[q0:q1].data_ptr(),
+                out_slot[q0:q1].data_ptr(), n, q1 - q0, d, layers, m, entry,
+                start_layer, k, ef, _MODES[mode], _stream(dev))
         _raise_on(rc, "hnsw_search")
         launches["hnsw_search"] += 1
     return out_d, out_slot

@@ -33,8 +33,13 @@ package's, byte for byte: either package opens the other's directory.
 
 ``EngineConfig.device`` (default "cuda") is where the index's device state
 lives; "cuda" without a card raises (an HNSW store keeps its graph on the
-host and runs its device build and batched traversal there). Not ported
-yet: ``mesh=`` (ROADMAP queue 1 item 13).
+host and runs its device build and batched traversal there).
+``EngineConfig.mesh`` (a parallel.Mesh; index types "flat" and "pq")
+shards the packed rows or codes over the mesh instead: recovery puts each
+shard's piece to its device while the snapshot apply goes on
+(``FlatIndex.start_progressive_hydration``), and the first search re-puts
+only the shards the WAL tail wrote. The files are the same as without a
+mesh: shard ``s`` owns slots ``[s*B, (s+1)*B)``.
 """
 
 from __future__ import annotations
@@ -88,8 +93,9 @@ class EngineConfig:
     only): quantization at insert is idempotent (pow2 scales / bf16
     round-trip), so WAL replay and snapshot re-apply reproduce the stored
     values bit for bit. ``hnsw_params`` (index_type "hnsw"): an
-    ``HnswParams``, default ``HnswParams()``. ``mesh`` is the JAX package's
-    field for sharded storage, which is not ported yet (it raises)."""
+    ``HnswParams``, default ``HnswParams()``. ``mesh``: a parallel.Mesh
+    for sharded storage (index types "flat" and "pq"; ``device`` is then
+    unused)."""
     checkpoint_interval: int = 1000
     metric: DistanceMetric = DistanceMetric.EUCLIDEAN
     index_type: str = "flat"   # "flat" | "hnsw" | "ivf" | "pq" | "ivfpq"
@@ -110,9 +116,13 @@ class StorageEngine:
     def __init__(self, data_dir: "str | Path",
                  config: Optional[EngineConfig] = None):
         self.config = cfg = config or EngineConfig()
-        if cfg.mesh is not None:
-            raise ValueError("EngineConfig(mesh=...) is not ported yet "
-                             "(ROADMAP queue 1 item 13, multi-device)")
+        if cfg.mesh is not None and cfg.index_type in ("hnsw", "ivf",
+                                                       "ivfpq"):
+            # a silently ignored mesh would read as sharded durability
+            # without being one; only flat (f32/bf16/int8) and pq shard
+            raise ValueError(
+                f"index_type={cfg.index_type!r} does not support mesh= "
+                "(sharded lanes: 'flat' and 'pq')")
         if cfg.index_type in ("pq", "ivfpq") and cfg.storage != "f32":
             raise ValueError(
                 f"index_type={cfg.index_type!r} owns its device "
@@ -120,7 +130,8 @@ class StorageEngine:
                 "not compose")
         if cfg.index_type == "pq":
             from ..index.pq import PqFlatIndex
-            index = PqFlatIndex(cfg.metric, device=cfg.device)
+            index = PqFlatIndex(cfg.metric, mesh=cfg.mesh,
+                                device=cfg.device)
         elif cfg.index_type == "ivfpq":
             from ..index.ivfpq import IvfPqIndex
             index = IvfPqIndex(cfg.metric, device=cfg.device)
@@ -135,7 +146,8 @@ class StorageEngine:
         elif cfg.index_type == "flat":
             from ..index.flat import FlatIndex
             index = FlatIndex(cfg.metric, search_mode=cfg.search_mode,
-                              storage=cfg.storage, device=cfg.device)
+                              mesh=cfg.mesh, storage=cfg.storage,
+                              device=cfg.device)
         else:
             raise ValueError(f"unknown index_type: {cfg.index_type!r}")
         self.store = VectorStore.with_index(index)
@@ -168,46 +180,49 @@ class StorageEngine:
                       file=sys.stderr, flush=True)
 
         self._recover_mark = _mark
-        if self.config.index_type in ("hnsw", "ivf", "ivfpq"):
-            # the graph or layout import binds to the whole id set: the
-            # snapshot is read whole (these families checkpoint at far
-            # smaller row counts)
-            snap = self.snapshots.load()
-            if snap is not None:
-                imported = (self._try_import_graph(snap)
-                            if self.config.index_type == "hnsw"
-                            else self._try_import_layout(snap))
-                if not imported:
-                    self._apply_snapshot(snap)
-        else:
-            reader = self.snapshots.open_stream()
-            if reader is not None:
-                with reader:
-                    self._apply_snapshot_stream(reader)
-        _mark("snapshot applied")
-        # overlap the device build with the WAL tail: the snapshot rows
-        # (the bulk of the database) are final in host storage now, so the
-        # host-to-device copies run on a side thread while the tail replays
-        # host-side; rows the replay touches are re-scattered by the first
-        # locked sync, which also waits on the build's event
+        # a mesh's progressive hydrator, started by the snapshot apply
+        self._hydrator = None
         hydrator = None
-        if self.config.index_type == "flat" and len(self.store):
-            index = self.store.index
-
-            def _hydrate():
-                h0 = time.perf_counter()
-                index.prehydrate()
-                self.recovery_marks["hydration build"] = (
-                    time.perf_counter() - h0)
-
-            hydrator = threading.Thread(target=_hydrate, daemon=True)
-            hydrator.start()
-        # consecutive WAL inserts go through the store's bulk path in
-        # chunks; deletes flush the pending chunk first so apply order is
-        # exact, and duplicate ids within a chunk keep upsert semantics
-        # (insert_batch applies items in order)
-        pending = _ChunkedInserter(self.store, self._APPLY_CHUNK)
         try:
+            if self.config.index_type in ("hnsw", "ivf", "ivfpq"):
+                # the graph or layout import binds to the whole id set: the
+                # snapshot is read whole (these families checkpoint at far
+                # smaller row counts)
+                snap = self.snapshots.load()
+                if snap is not None:
+                    imported = (self._try_import_graph(snap)
+                                if self.config.index_type == "hnsw"
+                                else self._try_import_layout(snap))
+                    if not imported:
+                        self._apply_snapshot(snap)
+            else:
+                reader = self.snapshots.open_stream()
+                if reader is not None:
+                    with reader:
+                        self._apply_snapshot_stream(reader)
+            _mark("snapshot applied")
+            # overlap the device build with the WAL tail: the snapshot rows
+            # (the bulk of the database) are final in host storage now, so the
+            # host-to-device copies run on a side thread while the tail replays
+            # host-side; rows the replay touches are re-scattered by the first
+            # locked sync, which also waits on the build's event
+            if (self._hydrator is None and self.config.index_type == "flat"
+                    and len(self.store)):
+                index = self.store.index
+
+                def _hydrate():
+                    h0 = time.perf_counter()
+                    index.prehydrate()
+                    self.recovery_marks["hydration build"] = (
+                        time.perf_counter() - h0)
+
+                hydrator = threading.Thread(target=_hydrate, daemon=True)
+                hydrator.start()
+            # consecutive WAL inserts go through the store's bulk path in
+            # chunks; deletes flush the pending chunk first so apply order is
+            # exact, and duplicate ids within a chunk keep upsert semantics
+            # (insert_batch applies items in order)
+            pending = _ChunkedInserter(self.store, self._APPLY_CHUNK)
             for entry in self.wal.iter_replay():
                 if entry.kind == WAL_INSERT:
                     pending.add(BatchInsertItem(
@@ -223,6 +238,11 @@ class StorageEngine:
             self.wal.trim_to_replayed()
             _mark("wal replayed")
         finally:
+            if self._hydrator is not None:
+                installed = self._hydrator.finish()
+                self._hydrator = None
+                _mark(f"progressive hydration finished "
+                      f"(installed={installed})")
             if hydrator is not None:
                 hydrator.join()
         if hydrator is not None:
@@ -365,7 +385,16 @@ class StorageEngine:
             if reader.count and reader.dimension:
                 # one allocation up front instead of pow2 growth by chunk
                 self.store.reserve(reader.count, reader.dimension)
+                if self.config.index_type == "flat":
+                    # mesh lane: shard pieces go to their devices under
+                    # the apply (None without a mesh: the post-apply
+                    # thread builds instead)
+                    start = getattr(self.store.index,
+                                    "start_progressive_hydration", None)
+                    if start is not None:
+                        self._hydrator = start(reader.count)
             t_decode = t_apply = 0.0
+            applied = 0
             t_mark = time.perf_counter()
             for iids, sids, rows in reader.vector_chunks(self._APPLY_CHUNK):
                 now = time.perf_counter()
@@ -374,6 +403,9 @@ class StorageEngine:
                                                   metadata)
                 t_mark = time.perf_counter()
                 t_apply += t_mark - now
+                applied += len(iids)
+                if self._hydrator is not None:
+                    self._hydrator.advance(applied)
             self._recover_mark(
                 f"apply split: decode+IO {t_decode:.0f}s / "
                 f"store-apply {t_apply:.0f}s")

@@ -151,6 +151,21 @@ class VectorStore:
     def with_index(cls, index: Index) -> "VectorStore":
         return cls(index)
 
+    @classmethod
+    def with_sharded_flat_index(cls, metric: DistanceMetric, mesh,
+                                row_axis: str = "shard",
+                                storage: str = "f32") -> "VectorStore":
+        """Full store semantics (string ids, metadata, exact filtered
+        search) over a ``FlatIndex`` whose packed rows shard over the row
+        axis of ``mesh`` (parallel.make_mesh): each search runs the
+        per-shard certified pipeline on each shard's device and merges
+        the shards' top-k (the sharded exact scan for uncertified
+        queries). ``storage="bf16"`` halves the bytes per shard and
+        ``"int8"`` quarters them; search stays exact over the stored
+        values."""
+        return cls(FlatIndex(metric, mesh=mesh, row_axis=row_axis,
+                             storage=storage))
+
     # -- insert -------------------------------------------------------------
 
     def insert(self, id: str, vector: Vector) -> None:
