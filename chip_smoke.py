@@ -2814,16 +2814,37 @@ def ivf_store(kind, n, rows, mods, **kw):
     return store, index
 
 
+# a training's stages by their spans (utils/profiling.annotate)
+TRAIN_SPANS = {"kmeans": "vdb/ivf.kmeans", "assign": "vdb/ivf.assign",
+               "repack": "vdb/ivf.repack", "spill_cids": "vdb/pq.spill_cids",
+               "opq": "vdb/pq.opq", "codebook": "vdb/pq.codebook"}
+
+
+def span_seconds(before: dict) -> dict:
+    """Seconds of each training stage since ``before`` (a copy of
+    ``profiling.spans()``), by stage."""
+    from vectordb_tpu_torch.utils import profiling
+    now = profiling.spans()
+
+    def total(table, name):
+        return table.get(name, {}).get("total_s", 0.0)
+    return {stage: total(now, name) - total(before, name)
+            for stage, name in TRAIN_SPANS.items()}
+
+
 def ivf_train(index, torch):
     """(train seconds, its split, device build seconds)."""
+    from vectordb_tpu_torch.utils import profiling
+    before = profiling.spans()
     t0 = time.perf_counter()
     index.train()
     train_s = time.perf_counter() - t0
+    marks = span_seconds(before)
     t0 = time.perf_counter()
     with index._lock:
         index._sync_device()
     torch.cuda.synchronize()
-    return train_s, dict(index.train_marks), time.perf_counter() - t0
+    return train_s, marks, time.perf_counter() - t0
 
 
 def ivf_phase(args, card, mods):
@@ -3082,11 +3103,13 @@ def ivfpq_phase(args, card, mods):
     t0 = time.perf_counter()
     load_store(store, rows, [], BatchInsertItem, Vector)
     load_s = time.perf_counter() - t0
+    from vectordb_tpu_torch.utils import profiling
+    before = profiling.spans()
     t0 = time.perf_counter()
     index.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    marks = dict(index.train_marks)
+    marks = span_seconds(before)
     if index._nlist != min(1 << 15, n // 128):
         fail(f"phase 15: auto nlist is {index._nlist}, not n / 128")
     for i in dead:                  # deletes leave dead slots in clusters
@@ -3938,8 +3961,14 @@ def main() -> None:
         f"{nvcc.strip().splitlines()[-1] if nvcc else '?'}")
     t0 = time.perf_counter()
     info = cuda_kernels.load()
+    from vectordb_tpu_torch.utils import profiling
+    table = profiling.spans()
+
+    def span_s(name):
+        return table.get(name, {}).get("total_s", 0.0)
     say(f"phase 1 build: {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {info['seconds']:.3f} s, one process per source) -> "
+        f"(nvcc {span_s('vdb/kernels.build'):.3f} s, one process per "
+        f"source; load {span_s('vdb/kernels.load'):.3f} s) -> "
         f"{os.path.relpath(info['path'], ROOT)}")
     with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as f:
         f.write(info["log"])

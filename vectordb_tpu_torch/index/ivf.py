@@ -47,6 +47,7 @@ import torch
 from ..distance import DistanceMetric
 from ..errors import IndexOpError
 from ..ops import coarse_kernel
+from ..utils.profiling import annotate
 from ..vector import Vector, as_f32_array
 from .flat import FlatIndex
 
@@ -119,9 +120,6 @@ class IvfFlatIndex(FlatIndex):
         self._cluster_free: List[List[int]] = []
         self._spill_free: List[int] = []
         self._slot_cluster: Optional[np.ndarray] = None
-        # seconds of the last train's stages (k-means, assignment,
-        # balance + repack); the device build follows at the next search
-        self.train_marks: dict = {}
 
     # -- device state ---------------------------------------------------------
 
@@ -162,160 +160,159 @@ class IvfFlatIndex(FlatIndex):
         return max(8, min(1 << 15, n // 128))
 
     def train(self) -> None:
-        """Fit centroids on the live rows and repack by cluster."""
-        import time
-
+        """Fit centroids on the live rows and repack by cluster; its stages
+        are the spans ``vdb/ivf.kmeans``, ``vdb/ivf.assign`` and
+        ``vdb/ivf.repack``."""
         from ..ops.ivf import (assign_preferences, assign_preferences_hier,
                                kmeans_fit)
         with self._lock:
             n = self._len
             if n < 32:
                 raise IndexOpError("need at least 32 vectors to train IVF")
-            t0 = time.perf_counter()
-            nlist = min(self._auto_nlist(n), n // 4,
-                        min(n, _TRAIN_SAMPLE_MAX))
-            nlist = max(nlist, 2)
-            live = np.nonzero(self._valid)[0]
-            if live.size == n and n and int(live[-1]) == n - 1:
-                # contiguous prefix (fresh bulk load): a view, not a copy
-                rows = self._vectors[:n]
-            else:
-                rows = self._vectors[live]                 # (n, d) f32
-            d = rows.shape[1]
+            with annotate("vdb/ivf.kmeans"):
+                nlist = min(self._auto_nlist(n), n // 4,
+                            min(n, _TRAIN_SAMPLE_MAX))
+                nlist = max(nlist, 2)
+                live = np.nonzero(self._valid)[0]
+                if live.size == n and n and int(live[-1]) == n - 1:
+                    # contiguous prefix (fresh bulk load): a view, not a copy
+                    rows = self._vectors[:n]
+                else:
+                    rows = self._vectors[live]                 # (n, d) f32
+                d = rows.shape[1]
 
-            # everything big stays on the device: the buffer the index
-            # already syncs for search
-            dev_state = self._sync_device()
-            cap = self._capacity
-            dev_db = dev_state["db"][:cap]
-            dev_scales = dev_state.get("scales")      # int8 storage only
-            if dev_scales is not None:
-                dev_scales = dev_scales[:cap]
-            dev = dev_db.device
-            if n > _TRAIN_SAMPLE_MAX:
-                sel = torch.from_numpy(np.random.default_rng(
-                    self._seed).choice(live, _TRAIN_SAMPLE_MAX,
-                                       replace=False)).to(dev)
-                sample = dev_db[sel]
-                s_smp = None if dev_scales is None else dev_scales[sel]
-            elif n == cap:
-                sample = dev_db
-                s_smp = dev_scales
-            else:
-                sel = torch.from_numpy(live).to(dev)
-                sample = dev_db[sel]
-                s_smp = None if dev_scales is None else dev_scales[sel]
-            if s_smp is not None:
-                # dequantize the (bounded) sample: codes x pow2 scale is
-                # exact, and k-means wants real magnitudes
-                sample = sample.float() * s_smp[:, None]
-            centroids_dev = kmeans_fit(sample, self._seed, nlist,
-                                       self.train_iters,
-                                       balance_weight=self.kmeans_balance)
-            centroids = centroids_dev.cpu().numpy()
-            t1 = time.perf_counter()
+                # everything big stays on the device: the buffer the index
+                # already syncs for search
+                dev_state = self._sync_device()
+                cap = self._capacity
+                dev_db = dev_state["db"][:cap]
+                dev_scales = dev_state.get("scales")      # int8 storage only
+                if dev_scales is not None:
+                    dev_scales = dev_scales[:cap]
+                dev = dev_db.device
+                if n > _TRAIN_SAMPLE_MAX:
+                    sel = torch.from_numpy(np.random.default_rng(
+                        self._seed).choice(live, _TRAIN_SAMPLE_MAX,
+                                           replace=False)).to(dev)
+                    sample = dev_db[sel]
+                    s_smp = None if dev_scales is None else dev_scales[sel]
+                elif n == cap:
+                    sample = dev_db
+                    s_smp = dev_scales
+                else:
+                    sel = torch.from_numpy(live).to(dev)
+                    sample = dev_db[sel]
+                    s_smp = None if dev_scales is None else dev_scales[sel]
+                if s_smp is not None:
+                    # dequantize the (bounded) sample: codes x pow2 scale is
+                    # exact, and k-means wants real magnitudes
+                    sample = sample.float() * s_smp[:, None]
+                centroids_dev = kmeans_fit(sample, self._seed, nlist,
+                                           self.train_iters,
+                                           balance_weight=self.kmeans_balance)
+                centroids = centroids_dev.cpu().numpy()
 
-            # -- balanced assignment (host logic, device scoring) --------
-            cand = min(_CANDIDATE_CLUSTERS, nlist)
-            chunk = max(256, min(1 << 16, (1 << 28) // max(nlist, 1)))
-            use_hier = (self.assign_mode == "hier"
-                        or (self.assign_mode == "auto"
-                            and nlist >= self._HIER_AUTO_NLIST))
-            if use_hier:
-                pref_all = assign_preferences_hier(
-                    dev_db, centroids_dev, cand, chunk,
-                    _hier_seed(self._seed), scales=dev_scales)
-            else:
-                pref_all = assign_preferences(dev_db, centroids_dev, cand,
-                                              chunk, scales=dev_scales)
-            pref = pref_all[live]
-            t2 = time.perf_counter()
-            cap_rows = int(math.ceil(n / nlist * self.balance_slack))
-            t_c = max(1, math.ceil(cap_rows / SUB))
-            cap_rows = t_c * SUB
-            # vectorized greedy balance: round r offers every unassigned
-            # row its r-th preference; each cluster takes rows up to its
-            # remaining capacity (grouped positional ranks via argsort)
-            counts = np.zeros(nlist, dtype=np.int64)
-            assign = np.full(n, -1, dtype=np.int64)
-            for r in range(cand):
-                un = np.nonzero(assign < 0)[0]
-                if un.size == 0:
-                    break
-                pc = pref[un, r]
-                order = np.argsort(pc, kind="stable")
-                rows_s, c_s = un[order], pc[order]
-                first = np.r_[True, c_s[1:] != c_s[:-1]]
+            with annotate("vdb/ivf.assign"):
+                # -- balanced assignment (host logic, device scoring) --------
+                cand = min(_CANDIDATE_CLUSTERS, nlist)
+                chunk = max(256, min(1 << 16, (1 << 28) // max(nlist, 1)))
+                use_hier = (self.assign_mode == "hier"
+                            or (self.assign_mode == "auto"
+                                and nlist >= self._HIER_AUTO_NLIST))
+                if use_hier:
+                    pref_all = assign_preferences_hier(
+                        dev_db, centroids_dev, cand, chunk,
+                        _hier_seed(self._seed), scales=dev_scales)
+                else:
+                    pref_all = assign_preferences(dev_db, centroids_dev, cand,
+                                                  chunk, scales=dev_scales)
+                pref = pref_all[live]
+            with annotate("vdb/ivf.repack"):
+                cap_rows = int(math.ceil(n / nlist * self.balance_slack))
+                t_c = max(1, math.ceil(cap_rows / SUB))
+                cap_rows = t_c * SUB
+                # vectorized greedy balance: round r offers every unassigned
+                # row its r-th preference; each cluster takes rows up to its
+                # remaining capacity (grouped positional ranks via argsort)
+                counts = np.zeros(nlist, dtype=np.int64)
+                assign = np.full(n, -1, dtype=np.int64)
+                for r in range(cand):
+                    un = np.nonzero(assign < 0)[0]
+                    if un.size == 0:
+                        break
+                    pc = pref[un, r]
+                    order = np.argsort(pc, kind="stable")
+                    rows_s, c_s = un[order], pc[order]
+                    first = np.r_[True, c_s[1:] != c_s[:-1]]
+                    grp_start = np.maximum.accumulate(
+                        np.where(first, np.arange(c_s.size), 0))
+                    pos = np.arange(c_s.size) - grp_start
+                    take = pos < (cap_rows - counts[c_s])
+                    assign[rows_s[take]] = c_s[take]
+                    counts += np.bincount(c_s[take], minlength=nlist)
+                # rows whose preferred clusters were all full go to the spill
+                # region, which every search scans (recall-safe)
+                spill_rows = np.nonzero(assign < 0)[0]
+
+                s_t = max(2, math.ceil(n * self.spill_frac / SUB),
+                          math.ceil(len(spill_rows) / SUB) + 1)
+
+                # -- repack --------------------------------------------------
+                new_cap = (nlist * t_c + s_t) * SUB
+                nv = np.zeros((new_cap, d), np.float32)
+                nvalid = np.zeros(new_cap, bool)
+                nsq = np.zeros(new_cap, np.float32)
+                nnorm = np.zeros(new_cap, np.float32)
+                nids = np.full(new_cap, -1, np.int64)
+                slot_cluster = np.full(new_cap, -1, np.int32)
+                cluster_free: List[List[int]] = []
+                new_slot = np.empty(n, dtype=np.int64)
+                assigned = np.nonzero(assign >= 0)[0]
+                order = np.argsort(assign[assigned], kind="stable")
+                rows_s = assigned[order]
+                c_s = assign[rows_s]
+                first = np.r_[True, c_s[1:] != c_s[:-1]] if c_s.size else \
+                    np.zeros(0, bool)
                 grp_start = np.maximum.accumulate(
-                    np.where(first, np.arange(c_s.size), 0))
-                pos = np.arange(c_s.size) - grp_start
-                take = pos < (cap_rows - counts[c_s])
-                assign[rows_s[take]] = c_s[take]
-                counts += np.bincount(c_s[take], minlength=nlist)
-            # rows whose preferred clusters were all full go to the spill
-            # region, which every search scans (recall-safe)
-            spill_rows = np.nonzero(assign < 0)[0]
+                    np.where(first, np.arange(c_s.size), 0)) if c_s.size else \
+                    np.zeros(0, np.int64)
+                rank = np.arange(c_s.size) - grp_start
+                new_slot[rows_s] = c_s * (t_c * SUB) + rank
+                fill = counts
+                spill_base = nlist * t_c * SUB
+                new_slot[spill_rows] = spill_base + np.arange(len(spill_rows))
+                ns = new_slot
+                nv[ns] = rows
+                nvalid[ns] = True
+                nsq[ns] = self._sq_norms[live]
+                nnorm[ns] = self._norms[live]
+                old_ids = self._id_of_slot[live]
+                nids[ns] = old_ids
+                for c in range(nlist):
+                    base = c * t_c * SUB
+                    slot_cluster[base:base + t_c * SUB] = c
+                    cluster_free.append(
+                        list(range(base + int(fill[c]), base + t_c * SUB)))
+                slot_cluster[spill_base:] = nlist
+                spill_free = list(range(spill_base + len(spill_rows), new_cap))
 
-            s_t = max(2, math.ceil(n * self.spill_frac / SUB),
-                      math.ceil(len(spill_rows) / SUB) + 1)
-
-            # -- repack --------------------------------------------------
-            new_cap = (nlist * t_c + s_t) * SUB
-            nv = np.zeros((new_cap, d), np.float32)
-            nvalid = np.zeros(new_cap, bool)
-            nsq = np.zeros(new_cap, np.float32)
-            nnorm = np.zeros(new_cap, np.float32)
-            nids = np.full(new_cap, -1, np.int64)
-            slot_cluster = np.full(new_cap, -1, np.int32)
-            cluster_free: List[List[int]] = []
-            new_slot = np.empty(n, dtype=np.int64)
-            assigned = np.nonzero(assign >= 0)[0]
-            order = np.argsort(assign[assigned], kind="stable")
-            rows_s = assigned[order]
-            c_s = assign[rows_s]
-            first = np.r_[True, c_s[1:] != c_s[:-1]] if c_s.size else \
-                np.zeros(0, bool)
-            grp_start = np.maximum.accumulate(
-                np.where(first, np.arange(c_s.size), 0)) if c_s.size else \
-                np.zeros(0, np.int64)
-            rank = np.arange(c_s.size) - grp_start
-            new_slot[rows_s] = c_s * (t_c * SUB) + rank
-            fill = counts
-            spill_base = nlist * t_c * SUB
-            new_slot[spill_rows] = spill_base + np.arange(len(spill_rows))
-            ns = new_slot
-            nv[ns] = rows
-            nvalid[ns] = True
-            nsq[ns] = self._sq_norms[live]
-            nnorm[ns] = self._norms[live]
-            old_ids = self._id_of_slot[live]
-            nids[ns] = old_ids
-            for c in range(nlist):
-                base = c * t_c * SUB
-                slot_cluster[base:base + t_c * SUB] = c
-                cluster_free.append(
-                    list(range(base + int(fill[c]), base + t_c * SUB)))
-            slot_cluster[spill_base:] = nlist
-            spill_free = list(range(spill_base + len(spill_rows), new_cap))
-
-            self._vectors, self._valid = nv, nvalid
-            self._sq_norms, self._norms, self._id_of_slot = nsq, nnorm, nids
-            self._slot_of_id = {int(old_ids[i]): int(ns[i])
-                                for i in range(n)}
-            self._free_slots = []        # unused while trained
-            self._capacity = new_cap
-            self._device = None
-            self._dirty_slots.clear()
-            self._trained = True
-            self._layout_version += 1   # slots reordered: slot-addressed
-            self._nlist, self._t_c, self._s_t = nlist, t_c, s_t
-            self._centroids = centroids
-            self._centroids_dev = None
-            self._cluster_free = cluster_free
-            self._spill_free = spill_free
-            self._slot_cluster = slot_cluster
-            self.train_marks = {"kmeans": t1 - t0, "assign": t2 - t1,
-                                "repack": time.perf_counter() - t2}
+                self._vectors, self._valid = nv, nvalid
+                self._sq_norms, self._norms = nsq, nnorm
+                self._id_of_slot = nids
+                self._slot_of_id = {int(old_ids[i]): int(ns[i])
+                                    for i in range(n)}
+                self._free_slots = []        # unused while trained
+                self._capacity = new_cap
+                self._device = None
+                self._dirty_slots.clear()
+                self._trained = True
+                self._layout_version += 1   # slots reordered: slot-addressed
+                self._nlist, self._t_c, self._s_t = nlist, t_c, s_t
+                self._centroids = centroids
+                self._centroids_dev = None
+                self._cluster_free = cluster_free
+                self._spill_free = spill_free
+                self._slot_cluster = slot_cluster
 
     # -- mutation (post-training routing) ------------------------------------
 
@@ -525,7 +522,6 @@ class IvfFlatIndex(FlatIndex):
         try:
             from ..ops.ivf import ivf_search
             from ..ops.topk import _queries_to
-            from ..utils.profiling import annotate
             scales = dev.get("scales")
             with annotate("vdb/ivf.probe"):
                 dists, idx = ivf_search(

@@ -36,7 +36,6 @@ nothing.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -44,6 +43,7 @@ import torch
 
 from ..distance import DistanceMetric
 from ..errors import IndexOpError
+from ..utils.profiling import annotate
 from .flat import _quantize_bf16
 from .ivf import SUB, IvfFlatIndex
 from .pq import (_MAX_REFINE, _ONEHOT_BYTES, _SCAN_CHUNK, _TRAIN_SAMPLE_MAX,
@@ -152,12 +152,12 @@ class IvfPqIndex(_PqCodesCore, IvfFlatIndex):
         """IVF repack (cluster-contiguous slots) + the residual codebook
         fit, so ``_trained`` means layout AND codebook. If the codebook
         fit fails the index stays correct: searches take the exact flat
-        path over the repacked layout. ``train_marks`` adds the seconds of
-        the spill rows' centroid search, the OPQ fit and the codebook fit
-        to IVF's stages; the codes encode at the next search sync."""
+        path over the repacked layout. IVF's stages are followed by the
+        spans ``vdb/pq.spill_cids`` (the spill rows' centroid search),
+        ``vdb/pq.opq`` (the sample's residuals and the OPQ fit) and
+        ``vdb/pq.codebook``; the codes encode at the next search sync."""
         with self._lock:
             IvfFlatIndex.train(self)          # repack; bumps layout_version
-            t0 = time.perf_counter()
             self._trained = False             # not PQ-searchable yet
             # bf16 centroids make the scan's centroid terms exact in bf16
             # arithmetic, as the codewords are
@@ -170,46 +170,46 @@ class IvfPqIndex(_PqCodesCore, IvfFlatIndex):
             self._tick += 1
             self._slot_tick = np.full(self._capacity, self._tick, np.int64)
 
-            m = self._resolve_m(self._dim)
-            live = np.nonzero(self._valid)[0]
-            sb = self._spill_base
-            self._spill_cid = np.full(self._capacity - sb, -1, np.int32)
-            self._cid_sp_dirty = True
-            sp_live = live[live >= sb]
-            if sp_live.size:
-                self._spill_cid[sp_live - sb] = self._nearest_cids(
-                    self._vectors[sp_live])
+            with annotate("vdb/pq.spill_cids"):
+                m = self._resolve_m(self._dim)
+                live = np.nonzero(self._valid)[0]
+                sb = self._spill_base
+                self._spill_cid = np.full(self._capacity - sb, -1, np.int32)
+                self._cid_sp_dirty = True
+                sp_live = live[live >= sb]
+                if sp_live.size:
+                    self._spill_cid[sp_live - sb] = self._nearest_cids(
+                        self._vectors[sp_live])
 
-            t1 = time.perf_counter()
-            smax = min(live.size, _TRAIN_SAMPLE_MAX)
-            if live.size > smax:
-                sel = np.sort(np.random.default_rng(self._seed).choice(
-                    live, smax, replace=False))
-            else:
-                sel = live
-            rows = self._vectors[sel].astype(np.float32)
-            cids = np.where(sel < sb, sel // self._span, 0).astype(np.int64)
-            sp = sel >= sb
-            if sp.any():
-                cids[sp] = self._spill_cid[sel[sp] - sb]
-            res = rows - self._centroids[cids]
-            rot = None
-            if self._rotate:
-                # OPQ on the residuals: their energy is what the subspaces
-                # must balance
-                from ..ops.pq import fit_opq_rotation
-                rot = fit_opq_rotation(res, m)
-            self._rot = rot
-            self._rot_dev = None
-            self._cents_scan_host = None
-            if rot is not None:
-                # fit (and later encode) in the scan's basis: rotated rows
-                # minus the rotated bf16 centroid table
-                res = rows @ rot - self._scan_cents()[cids]
-            t2 = time.perf_counter()
-            self._install_codebook(self._fit_codebook(res, m), rot)
-            self.train_marks.update(spill_cids=t1 - t0, opq=t2 - t1,
-                                    codebook=time.perf_counter() - t2)
+            with annotate("vdb/pq.opq"):
+                smax = min(live.size, _TRAIN_SAMPLE_MAX)
+                if live.size > smax:
+                    sel = np.sort(np.random.default_rng(self._seed).choice(
+                        live, smax, replace=False))
+                else:
+                    sel = live
+                rows = self._vectors[sel].astype(np.float32)
+                cids = np.where(sel < sb, sel // self._span,
+                                0).astype(np.int64)
+                sp = sel >= sb
+                if sp.any():
+                    cids[sp] = self._spill_cid[sel[sp] - sb]
+                res = rows - self._centroids[cids]
+                rot = None
+                if self._rotate:
+                    # OPQ on the residuals: their energy is what the
+                    # subspaces must balance
+                    from ..ops.pq import fit_opq_rotation
+                    rot = fit_opq_rotation(res, m)
+                self._rot = rot
+                self._rot_dev = None
+                self._cents_scan_host = None
+                if rot is not None:
+                    # fit (and later encode) in the scan's basis: rotated
+                    # rows minus the rotated bf16 centroid table
+                    res = rows @ rot - self._scan_cents()[cids]
+            with annotate("vdb/pq.codebook"):
+                self._install_codebook(self._fit_codebook(res, m), rot)
 
     # -- encoding (residuals) -------------------------------------------------
 

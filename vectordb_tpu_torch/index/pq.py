@@ -247,10 +247,11 @@ class _PqCodesCore:
         self._pq_valid_dirty = True
 
     def _reencode_all(self) -> None:
-        live = np.nonzero(self._valid)[0]
-        for a in range(0, live.size, _ENC_SLAB):
-            idx = live[a:a + _ENC_SLAB]
-            self._codes[idx] = self._encode_slots(idx)
+        with annotate("vdb/pq.encode"):
+            live = np.nonzero(self._valid)[0]
+            for a in range(0, live.size, _ENC_SLAB):
+                idx = live[a:a + _ENC_SLAB]
+                self._codes[idx] = self._encode_slots(idx)
 
     # -- mutation hooks -------------------------------------------------------
 
@@ -362,7 +363,8 @@ class _PqCodesCore:
             slots = np.fromiter(self._pq_dirty, np.int64,
                                 count=len(self._pq_dirty))
             self._pq_dirty.clear()
-            self._codes[slots] = self._encode_slots(slots)
+            with annotate("vdb/pq.encode"):
+                self._codes[slots] = self._encode_slots(slots)
             if (self._mesh is None and self._codes_dev is not None
                     and len(slots) <= _SCATTER_MAX):
                 # in place, or into a copy while a search still reads the

@@ -68,10 +68,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 import torch
+
+from ..utils.profiling import annotate
 
 SUB = 16
 SUPER = 16
@@ -121,7 +122,8 @@ routes = {key: ({"wgmma": 0, "mma_sync": 0} if key.startswith("coarse")
                 else {"tile_major": 0, "query_major": 0})
           for key in launches if key.startswith(("coarse", "refine"))}
 routes["pq_decode"] = {"tile_ring": 0, "grid_stride": 0}
-# build facts of the loaded library (path, seconds, compiler output)
+# build facts of the loaded library (path, compiler output); the seconds
+# are the spans ``vdb/kernels.build`` and ``vdb/kernels.load``
 build_info: dict = {}
 
 
@@ -159,28 +161,29 @@ def _lib() -> ctypes.CDLL:
     build = _PKG / "_build"
     build.mkdir(exist_ok=True)
     so = build / f"libvdb_kernels_{digest.hexdigest()[:16]}.so"
-    seconds, log = 0.0, ""
+    log = ""
     if not so.exists():
-        tag = f"{os.getpid()}.tmp"
-        objs = [build / f".{p.stem}.{tag}.o" for p in srcs]
-        t0 = time.perf_counter()
-        procs = [_compile(p, o) for p, o in zip(srcs, objs)]
-        outs = [p.communicate()[0] for p in procs]
-        log = "".join(outs)
-        if any(p.returncode for p in procs):
-            raise RuntimeError(f"nvcc failed:\n{log}")
-        tmp = build / f".{so.name}.{tag}"
-        proc = subprocess.run(
-            [_nvcc(), "-gencode", _ARCH, "-shared", "-o", str(tmp),
-             *map(str, objs)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log += proc.stdout + proc.stderr
-        for o in objs:
-            o.unlink(missing_ok=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+        with annotate("vdb/kernels.build"):
+            tag = f"{os.getpid()}.tmp"
+            objs = [build / f".{p.stem}.{tag}.o" for p in srcs]
+            procs = [_compile(p, o) for p, o in zip(srcs, objs)]
+            outs = [p.communicate()[0] for p in procs]
+            log = "".join(outs)
+            if any(p.returncode for p in procs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            tmp = build / f".{so.name}.{tag}"
+            proc = subprocess.run(
+                [_nvcc(), "-gencode", _ARCH, "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            for o in objs:
+                o.unlink(missing_ok=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({proc.returncode}):\n{log}")
+            os.replace(tmp, so)
+    with annotate("vdb/kernels.load"):
+        lib = ctypes.CDLL(str(so))
     p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     lib.vdb_coarse_minima.argtypes = [p, p, p, p, p, p, p, p, p, p, l, i, i,
                                       i, i, i, i, p]
@@ -203,7 +206,7 @@ def _lib() -> ctypes.CDLL:
     lib.vdb_hnsw_search.restype = i
     lib.vdb_hnsw_search_smem.argtypes = [i, i, i, i]
     lib.vdb_hnsw_search_smem.restype = l
-    build_info.update(path=str(so), seconds=seconds, log=log)
+    build_info.update(path=str(so), log=log)
     return lib
 
 

@@ -36,6 +36,7 @@ from .errors import (DimensionMismatchError, IndexOpError,
 from .index.base import Index
 from .index.flat import FlatIndex
 from .metadata import ColumnarMetadata, Metadata, MetadataFilter
+from .utils.profiling import annotate
 from .vector import Vector, as_f32_array
 
 # Bounded retries when a concurrent slot repack invalidates a compiled
@@ -660,24 +661,25 @@ class VectorStore:
         rows validated by the snapshot codec; ``metadata`` maps
         internal_id -> fields for the whole snapshot and is probed per
         id."""
-        rows = np.ascontiguousarray(rows, dtype=np.float32)
-        self._check_or_fix_dimension(int(rows.shape[1]))
-        iids_arr = np.ascontiguousarray(internal_ids, dtype=np.int64)
-        # quantized=True: snapshot rows ARE the stored (already quantized)
-        # values, so the idempotent re-quantize is skipped
-        self._index.bulk_append_matrix(iids_arr, rows, quantized=True)
-        # no _cow_inflight_id_maps: this path only ADDS fresh ids
-        iids = iids_arr.tolist()
-        self._id_to_internal.update(zip(string_ids, iids))
-        self._internal_to_id.update(zip(iids, string_ids))
-        for iid in iids:
-            fields = metadata.get(iid)
-            if fields:
-                self._record_metadata(iid, Metadata(fields))
-            else:
-                # one object per id: Metadata is mutable
-                self._metadata[iid] = Metadata()
-        self._next_id = max(self._next_id, max(iids, default=-1) + 1)
+        with annotate("vdb/store.load"):
+            rows = np.ascontiguousarray(rows, dtype=np.float32)
+            self._check_or_fix_dimension(int(rows.shape[1]))
+            iids_arr = np.ascontiguousarray(internal_ids, dtype=np.int64)
+            # quantized=True: snapshot rows ARE the stored (already
+            # quantized) values, so the idempotent re-quantize is skipped
+            self._index.bulk_append_matrix(iids_arr, rows, quantized=True)
+            # no _cow_inflight_id_maps: this path only ADDS fresh ids
+            iids = iids_arr.tolist()
+            self._id_to_internal.update(zip(string_ids, iids))
+            self._internal_to_id.update(zip(iids, string_ids))
+            for iid in iids:
+                fields = metadata.get(iid)
+                if fields:
+                    self._record_metadata(iid, Metadata(fields))
+                else:
+                    # one object per id: Metadata is mutable
+                    self._metadata[iid] = Metadata()
+            self._next_id = max(self._next_id, max(iids, default=-1) + 1)
 
     def reserve(self, n_rows: int, dim: "int | None" = None) -> None:
         """Pre-size the index's packed storage for ``n_rows`` rows
@@ -685,7 +687,8 @@ class VectorStore:
         No-op on indexes without packed storage."""
         fn = getattr(self._index, "reserve", None)
         if fn is not None:
-            fn(n_rows, dim)
+            with annotate("vdb/store.load"):
+                fn(n_rows, dim)
 
     @property
     def next_internal_id(self) -> int:

@@ -6,19 +6,43 @@ the device, so this module adds torch.profiler integration:
 
   * ``trace(logdir)`` — capture a CPU + CUDA trace around any block and
     write it as a Chrome trace
-  * ``annotate(name)`` — a named ``record_function`` range so store/index
-    phases show up inside the device trace
+  * ``annotate(name)`` — the program's one kind of span: it adds to an
+    in-process table (``spans()``: count, total and self seconds by name)
+    and, while a profiler records, opens a ``record_function`` range of
+    the same name, so the range lands in the device trace on its clock
+  * ``python/gc`` — the interpreter's collections, as spans (a hook in
+    ``gc.callbacks``, registered at import)
   * ``timed()`` — wall-clock timing helper that synchronises the device
     on exit, so recorded latencies include real device time (asynchronous
     launches otherwise under-report)
+
+A span's self seconds are its total less the spans nested in it on the
+same thread (a thread-local stack gives the nesting) and less the
+collections that ran inside its interval on that thread: each thread
+keeps a running sum of its collections' time, read with each clock
+reading. With no profiler recording, a span costs two clock reads and
+one table update.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import threading
 import time
 
 import torch
+
+GC_SPAN = "python/gc"
+
+_clock = time.perf_counter_ns
+_profiler_enabled = torch._C._autograd._profiler_enabled
+# name -> [count, total ns, self ns]; an RLock because a collection (and
+# so the gc hook) may start between any two bytecodes, also inside the
+# update that holds it
+_table: dict = {}
+_lock = threading.RLock()
+_local = threading.local()
 
 
 @contextlib.contextmanager
@@ -34,9 +58,125 @@ def trace(logdir: str):
     prof.export_chrome_trace(logdir)
 
 
-def annotate(name: str):
-    """Named range visible in profiler traces."""
-    return torch.profiler.record_function(name)
+def _thread() -> list:
+    """This thread's [span stack, ns of its collections so far, the open
+    collection's (record_function or None, start ns) or None]."""
+    try:
+        return _local.state
+    except AttributeError:
+        _local.state = [[], 0, None]
+        return _local.state
+
+
+def _now(state: list) -> tuple:
+    """(clock ns, the thread's collection ns) with no collection between
+    the two readings: one that runs right after the clock is read (the
+    interpreter runs them at such points) makes the pair read again."""
+    while True:
+        gc_ns = state[1]
+        now = _clock()
+        if state[1] == gc_ns:
+            return now, gc_ns
+
+
+def _open(name: str) -> list:
+    """Push a frame [name, record_function or None, start ns, children's
+    ns less their collections, collection ns at the start]."""
+    rf = None
+    if _profiler_enabled():
+        rf = torch.profiler.record_function(name)
+        rf.__enter__()
+    state = _thread()
+    frame = [name, rf, 0, 0, 0]
+    state[0].append(frame)
+    frame[2], frame[4] = _now(state)
+    return frame
+
+
+def _close(frame: list) -> None:
+    state = _thread()
+    end, gc_ns = _now(state)
+    stack = state[0]
+    stack.pop()                 # ``frame``: spans nest on a thread
+    total = end - frame[2]
+    own = total - (gc_ns - frame[4])    # less the collections inside
+    if stack:
+        stack[-1][3] += own
+    _add(frame[0], total, own - frame[3])
+    if frame[1] is not None:
+        frame[1].__exit__(None, None, None)
+
+
+def _add(name: str, total: int, self_ns: int) -> None:
+    with _lock:
+        entry = _table.get(name)
+        if entry is None:
+            entry = _table[name] = [0, 0, 0]
+        entry[0] += 1
+        entry[1] += total
+        entry[2] += self_ns
+
+
+class annotate:
+    """A named span (see the module docstring); a context manager."""
+
+    __slots__ = ("name", "_frame")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._frame = None
+
+    def __enter__(self):
+        self._frame = _open(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        _close(self._frame)
+        return False
+
+
+def spans() -> dict:
+    """A copy of the span table: name -> {"count", "total_s", "self_s"}."""
+    with _lock:
+        # one C call: a collection's hook cannot add a name mid-iteration
+        items = list(_table.items())
+        items = [(name, tuple(entry)) for name, entry in items]
+    return {name: {"count": c, "total_s": t * 1e-9, "self_s": s * 1e-9}
+            for name, (c, t, s) in items}
+
+
+def reset_spans() -> None:
+    with _lock:
+        _table.clear()
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: a collection is the span ``python/gc``, its
+    time added to the thread's collection ns. Never raises."""
+    try:
+        state = _thread()
+        if phase == "start":
+            rf = None
+            if _profiler_enabled():
+                rf = torch.profiler.record_function(GC_SPAN)
+                rf.__enter__()
+            state[2] = (rf, _clock())
+            return
+        opened = state[2]
+        if opened is None:
+            return
+        state[2] = None
+        rf, start = opened
+        pause = _clock() - start
+        state[1] += pause
+        _add(GC_SPAN, pause, pause)
+        if rf is not None:
+            rf.__exit__(None, None, None)
+    except Exception:       # noqa: BLE001 - a hook that raises is printed
+        pass                # by the interpreter at every collection
+
+
+gc.callbacks.append(_on_gc)
 
 
 class timed:
@@ -62,4 +202,4 @@ class timed:
         return False
 
 
-__all__ = ["trace", "annotate", "timed"]
+__all__ = ["trace", "annotate", "spans", "reset_spans", "timed"]
