@@ -166,16 +166,22 @@ nothing is caught and passed over):
      trained (k-means, assignment, repack, spill centroids, OPQ, codebook
      timed apart) and encoded; Q=4096, k=10 at refine 16, 32, 64 and 128:
      recall@10 against an on-card f32 oracle (>= 0.95 at refine 128),
-     every returned distance the f32 distance of its id, K8's launches by
-     body against the route of the chunk and of the spill block; at
-     Q=256 the scan's pool with K8 equal to the pool with the plain
-     decode (and K8 bit for bit at both shapes), the pool's scores within
-     PQ_SCORE_LIMIT of their f64 recomputation from c + r_hat (controls:
+     every returned distance the f32 distance of its id, every search's
+     scan on the fused route (K8s, ``ops/pq.py`` ``_ivfpq_scan_fused``:
+     one launch a query block, no K8); at Q=256 K8s's pool against the
+     chunk loop's on the card (each query within its largest score limit
+     below, but for ties), the chunk loop's pool with K8 equal to the one
+     with the plain decode (and K8 bit for bit at both shapes), the
+     pool's scores within PQ_SCORE_LIMIT of their f64 recomputation from
+     c + r_hat (controls:
      a bf16-output c.r_hat and a dropped q_lo must break it), the
      "mirror" and "host" venues agreeing, refine 2048 taking the exact
      fallback (K4 + K2) exactly; refine 16 and 128 over the native front
      end (nprobe refused, 400); the scan and device re-rank of a batch at
-     each refine and the scan's steps at one chunk by CUDA events; a
+     each refine and the chunk loop's steps at one chunk by CUDA events;
+     K8s alone at the benchmark cell's scan (P15_CELL) beside its bound,
+     the top r, the fused call (and its device operations by profiler),
+     the chunk loop with K8 and with the plain decode, their pools; a
      durable ``index_type="ivfpq"`` engine at 2^17 rows (reduced: the
      reopen) checkpointed and reopened with ``ivfpq_state.npz`` imported
      (no train), its answers bit-equal to the writer's.
@@ -187,7 +193,7 @@ two-phase searches (K9); each phase-10 reopen with its first searches (K1
 or K7, and K2; K8); each phase-11 load run and route window (K1, K2);
 phase 13's device build (K1, K2, K3) and its three device batches (H1);
 phase 14's calibration (K4, K2), probed searches (K2) and quantized
-stores' searches and truths (K1 / K7, K2); phase 15's store searches (K8)
+stores' searches and truths (K1 / K7, K2); phase 15's store searches (K8s)
 and its exact fallback (K4, K2); phase 16's sharded stores, its
 DistributedFlatIndex batches and its PQ mesh's batch (K1, K4, K7, K2, K8;
 "mesh_launches" in the kernel table). Every kernel of a path must have
@@ -414,6 +420,24 @@ def device_ms(fn, torch, iters=K8_LAUNCHES):
                      getattr(ev, "self_cuda_time_total", 0))
              for ev in prof.key_averages())
     return us / 1e3 / iters if us > 0 else None
+
+
+def device_launches(fn, torch, iters=3):
+    """Device operations (kernels, copies, fills) a call of ``fn`` issues,
+    by torch.profiler over ``iters`` calls after a warm-up: (count a call,
+    {name: count a call}); (None, {}) where the profiler saw no device
+    event (a later profiler run in this process may see none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = {ev.key[:48]: ev.count / iters for ev in prof.key_averages()
+             if ev.count and getattr(ev, "self_device_time_total",
+                                     getattr(ev, "self_cuda_time_total", 0))}
+    return (sum(names.values()) if names else None), names
 
 
 def bound(flops, nbytes, peak):
@@ -3055,6 +3079,9 @@ P15_RECALL_MIN = 0.95      # recall@10 at refine 128
 P15_CHECK_QUERIES = 256    # the pool, score and venue checks
 P15_DURABLE = 1 << 17      # the durable engine's rows (reduced)
 P15_CENTERS = 2048         # benchmarks/pq_bench.py CENTERS, NOISE
+# K8s alone at the benchmark cell's scan (cohere768-1m-ivfpq: nlist 7812,
+# span 208, the spill block rounded to 2^15 slots; Q = 64, m = 96)
+P15_CELL = {"nlist": 7812, "span": 208, "spill": 1 << 15, "queries": 64}
 P15_NOISE = 0.25
 
 
@@ -3076,6 +3103,105 @@ def clustered_intrinsic_rows(rng, n, nq, np):
     for r0 in range(0, n, 1 << 16):
         rows[r0:r0 + (1 << 16)] = draw(min(1 << 16, n - r0))
     return rows, draw(nq)
+
+
+SCAN_POOL_LIMIT = 2e-6      # K8s against the chunk loop at the cell's
+                            # scan (cosine), of each query's max|score|
+
+
+def pool_agreement(sv_a, sl_a, sv_b, sl_b, tol):
+    """Two scans' pools against each query's tolerance ``tol`` (a list):
+    (the worst of a slot both kept, its two scores' difference over tol,
+    and of a slot only one kept, its score's distance from the other
+    pool's last kept score over 2 tol; the count of such positions)."""
+    worst, ties = 0.0, 0
+    for a_v, a_s, b_v, b_s, t in zip(sv_a.tolist(), sl_a.tolist(),
+                                     sv_b.tolist(), sl_b.tolist(), tol):
+        a_of, b_of = dict(zip(a_s, a_v)), dict(zip(b_s, b_v))
+        for slot in a_of.keys() & b_of.keys():
+            if a_of[slot] != b_of[slot]:
+                worst = max(worst, abs(a_of[slot] - b_of[slot]) / t)
+        for slot in a_of.keys() ^ b_of.keys():
+            ties += 1
+            worst = max(worst, abs(a_of.get(slot, b_of.get(slot))
+                                   - b_v[-1]) / (2 * t))
+    return worst, ties
+
+
+def k8s_at_cell(rng, np, torch, pq_ops, cuda_kernels, metric):
+    """K8s alone at the benchmark cell's scan geometry (P15_CELL: random
+    codes, codebook, centroids and queries; 1% dead slots), by CUDA events:
+    the kernel for each metric, the top r over its scores (its selection
+    kernel, beside torch.topk and held to its values), the whole fused
+    scan call and its device operations (profiler), the chunk loop with
+    K8 and with the plain decode, and the two routes' pools."""
+    nlist, span, spill, q = (P15_CELL[k] for k in ("nlist", "span",
+                                                    "spill", "queries"))
+    m, ksub, dsub, r = 96, 256, 8, 128
+    dev = torch.device("cuda")
+    n = nlist * span + spill
+    cb = torch.from_numpy(rng.standard_normal(
+        (m, ksub, dsub), dtype=np.float32) * 0.3).to(dev).to(torch.bfloat16)
+    codes = torch.from_numpy(rng.integers(0, ksub, (n, m),
+                                          dtype=np.uint8)).to(dev)
+    valid = torch.from_numpy(rng.random(n) >= 0.01).to(dev)
+    cents = torch.from_numpy(rng.standard_normal(
+        (nlist, D), dtype=np.float32)).to(dev).to(torch.bfloat16).float()
+    csq = (cents * cents).sum(1)
+    cid_sp = torch.from_numpy(rng.integers(0, nlist, spill).astype(
+        np.int32)).to(dev)
+    qs = torch.from_numpy(rng.standard_normal((q, D), dtype=np.float32)).to(
+        dev)
+    cnorm = (cb.float() ** 2).sum(-1)
+    cpc = PQ_CHUNK // span
+    q_hi, q_lo = pq_ops._split_query(qs)
+    cents_bf = cents.to(torch.bfloat16)
+    qc = pq_ops._score_dots(q_hi, q_lo, cents_bf)
+    ms = {}
+    for mode in ("euclidean", "dot", "cosine"):
+        ms[mode], scores = cuda_time(lambda mo=mode: cuda_kernels.ivfpq_scan(
+            codes, cb, q_hi, q_lo, qc, cents_bf, csq, cid_sp, valid, span,
+            nlist, mo), torch, iters=20)
+    topk_ms, (sv_s, sl_s) = cuda_time(lambda: pq_ops._select_topr(scores, r),
+                                      torch, 10)
+    lib_topk_ms, want = cuda_time(lambda: torch.topk(scores, r, dim=1,
+                                                     largest=False), torch,
+                                  10)
+    if not (torch.equal(sv_s, want.values)
+            and torch.equal(torch.gather(scores, 1, sl_s), sv_s)):
+        fail("phase 15: K8s's selection differs from torch.topk at the "
+             "cell's scan")
+    del scores, want, sv_s, sl_s
+    args = (qs, codes, cb, cnorm, valid, cents, csq, cid_sp, metric)
+    scan_ms, (sv_f, sl_f) = cuda_time(lambda: pq_ops.ivfpq_scan_topr(
+        *args, r=r, cpc=cpc, span=span, nlist=nlist), torch, 10)
+    launches, ops = device_launches(lambda: pq_ops.ivfpq_scan_topr(
+        *args, r=r, cpc=cpc, span=span, nlist=nlist), torch)
+    chunked_ms, (sv_c, sl_c) = cuda_time(lambda: pq_ops._ivfpq_scan_chunked(
+        *args, r, cpc, span, nlist), torch)
+    real = pq_ops.pq_decode_rows
+    pq_ops.pq_decode_rows = pq_ops._decode_rows_plain
+    try:
+        plain_ms, _ = cuda_time(lambda: pq_ops._ivfpq_scan_chunked(
+            *args, r, cpc, span, nlist), torch, 1)
+    finally:
+        pq_ops.pq_decode_rows = real
+    tol = (SCAN_POOL_LIMIT * sv_c.abs().max(1).values).tolist()
+    off, ties = pool_agreement(sv_f, sl_f, sv_c, sl_c, tol)
+    if off > 1.0:
+        fail(f"phase 15: at the cell's scan K8s's pool is off the chunk "
+             f"loop's by {off:.3f} of SCAN_POOL_LIMIT x max|score|")
+    flops = 2 * 2 * q * n * D
+    nbytes = n * m + 4 * q * n
+    return {"n": n, "nlist": nlist, "span": span, "spill": spill, "q": q,
+            "r": r, "ms": ms["cosine"], "ms_euclidean": ms["euclidean"],
+            "ms_dot": ms["dot"], "bound": bound(flops, nbytes, PEAK_BF16),
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "topk_ms": topk_ms, "lib_topk_ms": lib_topk_ms,
+            "scan_ms": scan_ms,
+            "route": cuda_kernels.ivfpq_scan_body(codes, cb),
+            "launches": launches, "ops": ops, "chunked_ms": chunked_ms,
+            "plain_ms": plain_ms, "pool_off": off, "pool_ties": ties}
 
 
 def ivfpq_phase(args, card, mods):
@@ -3140,27 +3266,20 @@ def ivfpq_phase(args, card, mods):
         store_s[refine] = time.perf_counter() - t0
     counts = dict(cuda_kernels.launches)
     k8_routes = dict(cuda_kernels.routes["pq_decode"])
-    scans = counts["pq_decode"] // per_scan
-    if (counts["pq_decode"] % per_scan
-            or scans < 1 + len(P15_REFINES)):
-        fail(f"phase 15: K8 launched {counts['pq_decode']} times, not "
-             f"{per_scan} a scan over {1 + len(P15_REFINES)} searches: "
-             f"{counts}")
+    scan_routes = dict(cuda_kernels.routes["ivfpq_scan"])
+    searches = 1 + len(P15_REFINES)
     with index._lock:
         state = dict(index._scan_state())
         rr_rows = index._sync_device()["db"]
-    want_body = {"chunk": cuda_kernels.decode_body(
-        state["codes"][:chunk], state["codebook"])}
-    if s_rows:
-        want_body["spill"] = cuda_kernels.decode_body(
-            state["codes"][big_m:], state["codebook"])
-    expect = {"tile_ring": 0, "grid_stride": 0}
-    for part, body in want_body.items():
-        expect[body] += scans * (
-            (nfull + (1 if tail else 0)) if part == "chunk" else 1)
-    if any(k8_routes.get(b, 0) != c for b, c in expect.items()):
-        fail(f"phase 15: K8 launches by body {k8_routes}, expected "
-             f"{expect} (chunk and spill bodies {want_body})")
+    route = cuda_kernels.ivfpq_scan_body(state["codes"], state["codebook"])
+    # every search: one K8s launch a query block, no K8, no chunk loop
+    if (route != "fused" or counts["pq_decode"] or scan_routes["chunked"]
+            or scan_routes["fused"] < searches
+            or scan_routes["fused"] % searches):
+        fail(f"phase 15: the store's scans took route {route!r}, K8s by "
+             f"route {scan_routes}, K8 {counts['pq_decode']} over "
+             f"{searches} searches: {counts}")
+    fused_a_scan = scan_routes["fused"] // searches
 
     # (1) every returned distance is the f32 distance of its id; (2)
     # recall@10 against an on-card f32 oracle over the rows as inserted
@@ -3188,23 +3307,31 @@ def ivfpq_phase(args, card, mods):
         fail(f"phase 15: recall@{K} at refine 128 is {recall[128]:.4f} < "
              f"{P15_RECALL_MIN}")
 
-    # (3) the scan's pool with K8 is the pool with the plain decode
+    # (3) the scan's pool (K8s) against the chunk loop's on the card, and
+    # the chunk loop's with K8 against the one with the plain decode
     rot = index._rot_dev_arr()
     qc = queries[:P15_CHECK_QUERIES]
 
     def scan(qb, r=64):
         return index._scan_call(state, qb, r)
 
+    def chunked(qb, r=64):
+        return pq_ops._ivfpq_scan_chunked(
+            qb, state["codes"], state["codebook"], state["cnorm"],
+            state["valid"], state["cents"], state["csq"], state["cid_sp"],
+            E, r, cpc, span, nlist, rot)
+
     sv_k, sl_k = scan(qc)
+    sv_c, sl_c = chunked(qc)
     real = pq_ops.pq_decode_rows
     pq_ops.pq_decode_rows = pq_ops._decode_rows_plain
     try:
-        sv_p, sl_p = scan(qc)
+        sv_p, sl_p = chunked(qc)
     finally:
         pq_ops.pq_decode_rows = real
-    if not (torch.equal(sl_k, sl_p) and torch.equal(sv_k, sv_p)):
-        fail("phase 15: the scan's pool with K8 differs from the plain "
-             "decode's")
+    if not (torch.equal(sl_c, sl_p) and torch.equal(sv_c, sv_p)):
+        fail("phase 15: the chunk loop's pool with K8 differs from the "
+             "plain decode's")
     # K8 at the chunk and the spill block, bit for bit (after the
     # window's read: these launches compare the kernel with its plain
     # version)
@@ -3252,6 +3379,15 @@ def ivfpq_phase(args, card, mods):
              f" {score_off} (in units of the limit)")
     if min(score_off["bf16 c.r"], score_off["no q_lo"]) <= 1.0:
         fail(f"phase 15: a score control passed the limit: {score_off}")
+    # K8s's pool against the chunk loop's: each query's tolerance its
+    # largest limit above (PQ_SCORE_LIMIT of |x|^2 + 2 |x| |q|); the
+    # euclidean surrogate cancels most of its terms, so max|score| is no
+    # scale for its rounding
+    pool_off, pool_ties = pool_agreement(sv_k, sl_k, sv_c, sl_c,
+                                         lim.max(1).values.tolist())
+    if pool_off > 1.0:
+        fail(f"phase 15: K8s's pool is off the chunk loop's by {pool_off:.3f}"
+             f" of the limit (ties {pool_ties})")
     del res_h, cen, x64, ref, lim, cr64, cr_bf, d_nolo
 
     # (5) the "mirror" and "host" re-rank venues agree
@@ -3355,6 +3491,8 @@ def ivfpq_phase(args, card, mods):
     ms_qc, _ = cuda_time(lambda: pq_ops._score_dots(q_hi, q_lo, cents_bf),
                          torch)
     del dec, dots, qcc
+    cell = k8s_at_cell(rng, np, torch, pq_ops, cuda_kernels,
+                       mods["DistanceMetric"].COSINE)
 
     # (6) a durable IVF-PQ engine at P15_DURABLE rows: the reopen imports
     # ivfpq_state.npz (no train) and answers bit for bit as its writer
@@ -3423,9 +3561,33 @@ def ivfpq_phase(args, card, mods):
         f"|q|^2 + |x|^2; refine 16 and 128 over the native front end"
         f" answer as the store, nprobe -> 400")
     say(f"phase 15 launch counts (the IVF-PQ store's searches): "
-        f"{ {k: v for k, v in counts.items() if v} }; K8 by body "
-        f"{k8_routes} ({per_scan} a scan: chunks "
-        f"{want_body['chunk']}, spill {want_body.get('spill')})")
+        f"{ {k: v for k, v in counts.items() if v} }; scans by route "
+        f"{scan_routes} ({fused_a_scan} K8s launches a scan of {nq} "
+        f"queries, K8 on that path 0; the chunk loop would take "
+        f"{per_scan} K8 a scan); K8s's pool at Q={P15_CHECK_QUERIES} vs "
+        f"the chunk loop's on the card: {pool_off:.4f} of the limit "
+        f"({pool_ties} tied positions), the chunk loop's with K8 = with "
+        f"the plain decode")
+    say(f"phase 15 K8s at the cell's scan [{card}]: N={cell['n']} slots "
+        f"(nlist {cell['nlist']}, span {cell['span']}, spill "
+        f"{cell['spill']}), m=96, Q={cell['q']}, cosine: kernel "
+        f"{cell['ms']:.4f} ms by CUDA events (euclidean "
+        f"{cell['ms_euclidean']:.4f}, dot {cell['ms_dot']:.4f}) against "
+        f"its bound {cell['bound'][0]:.4f} ms ({cell['bound'][1]}: "
+        f"{cell['gflop']:.1f} GFLOP of bf16, {cell['mbytes']:.1f} MB of "
+        f"codes + scores); top-{cell['r']} over its scores "
+        f"{cell['topk_ms']:.4f} ms (scan_select, two launches; torch.topk "
+        f"{cell['lib_topk_ms']:.4f} ms, the same values); the scan call "
+        f"(route "
+        f"{cell['route']}) {cell['scan_ms']:.4f} ms, "
+        + (f"{cell['launches']:.0f} device ops a call ({cell['ops']})"
+           if cell['launches'] is not None else
+           "device ops not read (the profiler saw no device event)")
+        + f"; the chunk loop with K8 "
+        f"{cell['chunked_ms']:.4f} ms, with the plain decode "
+        f"{cell['plain_ms']:.4f} ms; pools {cell['pool_off']:.4f} of "
+        f"{SCAN_POOL_LIMIT:g} max|score| apart ({cell['pool_ties']} tied "
+        f"positions)")
     say(f"phase 15 times [{card}]: one batch by CUDA events, scan + device "
         f"re-rank ms, by refine "
         f"{ {r: (round(a, 3), round(b, 3)) for r, (a, b) in splits.items()} };"
@@ -3439,9 +3601,11 @@ def ivfpq_phase(args, card, mods):
         f"writer's; K8 by body {durable_k8}")
     out = {"launches": counts["pq_decode"], "routes": k8_routes,
            "durable": durable_k8,
-           "fallback": {k: v for k, v in fb_counts.items() if v}}
+           "fallback": {k: v for k, v in fb_counts.items() if v},
+           "scan_launches": scan_routes["fused"], "scan_routes": scan_routes,
+           "cell": cell}
     del store, index, state, rr_rows, db_t, queries, results, res_m, res_h
-    del sv_k, sl_k, sv_p, sl_p, fb
+    del sv_k, sl_k, sv_c, sl_c, sv_p, sl_p, fb
     free(torch)
     return out
 
@@ -4330,6 +4494,17 @@ def main() -> None:
                    body="tile_ring", kernel_ms=k8["kernel_ms"],
                    ivfpq_launches=p15["launches"],
                    ivfpq_routes=p15["routes"]),
+        kernel_row("K8s ivfpq_scan", "ivfpq_scan.cu", 519,
+                   p15["scan_launches"], None,
+                   p15["cell"]["ms"], p15["cell"]["plain_ms"],
+                   p15["cell"]["bound"], None, src="vectordb_tpu/ops/pq.py",
+                   body="fused", select_ms=p15["cell"]["topk_ms"],
+                   topk_library_ms=p15["cell"]["lib_topk_ms"],
+                   scan_ms=p15["cell"]["scan_ms"],
+                   chunked_ms=p15["cell"]["chunked_ms"],
+                   scan_device_ops=p15["cell"]["launches"],
+                   pool_off_of_limit=p15["cell"]["pool_off"],
+                   routes=p15["scan_routes"]),
         kernel_row("K9 scan_min", "scan_min.cu", 43, k9["launches"],
                    max(worst["scan_min"], k9["err"]), k9["ms"],
                    k9["plain_ms"], k9["bound"], k9["library_ms"],

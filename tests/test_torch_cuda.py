@@ -757,11 +757,11 @@ def test_pq_store_on_card_matches_store_on_cpu(dev, metric):
 @pytest.mark.parametrize("rotate", [False, True])
 @pytest.mark.parametrize("metric", list(DistanceMetric))
 def test_ivfpq_scan_on_card_matches_cpu(dev, metric, rotate):
-    """ivfpq_scan_topr on the card (K8, bf16 GEMMs with f32 output) and on
-    the CPU (the plain decode, operands widened to f32): scores within
-    2e-6 of max|score|, each slot scored alike on both, the same slots but
-    where neighbouring scores tie within that (the devices sum in their
-    own orders); a tail chunk and a spill region."""
+    """ivfpq_scan_topr on the card (this shape's route: K8s, one launch,
+    no K8) and on the CPU (the plain decode, operands widened to f32):
+    scores within 2e-6 of max|score|, each slot scored alike on both, the
+    same slots but where neighbouring scores tie within that (the devices
+    sum in their own orders); a tail chunk and a spill region."""
     from vectordb_tpu_torch.ops import pq
     rng = np.random.default_rng(16)
     m, dsub, ksub, nlist, cpc, span, s_rows = 96, 8, 256, 10, 3, 64, 96
@@ -784,12 +784,19 @@ def test_ivfpq_scan_on_card_matches_cpu(dev, metric, rotate):
         args = [t.to(device) for t in (qs, codes, cb, cnorm, valid, cents,
                                        csq, cid_sp)]
         before = cuda_kernels.launches["pq_decode"]
+        routes = dict(cuda_kernels.routes["ivfpq_scan"])
         sv, sl = pq.ivfpq_scan_topr(*args, metric, r=64, cpc=cpc, span=span,
                                     nlist=nlist, rot=None if rot is None
                                     else rot.to(device))
         if device == "cuda":
-            # three full chunks, the tail, the spill block
-            assert cuda_kernels.launches["pq_decode"] == before + 5
+            if cuda_kernels.ivfpq_scan_body(args[1], args[2]) == "fused":
+                # one launch for the 64 queries, no K8
+                assert cuda_kernels.launches["pq_decode"] == before
+                assert cuda_kernels.routes["ivfpq_scan"]["fused"] == (
+                    routes["fused"] + 1)
+            else:
+                # three full chunks, the tail, the spill block
+                assert cuda_kernels.launches["pq_decode"] == before + 5
         out.append((sv.cpu(), sl.cpu()))
     scale = float(out[1][0][torch.isfinite(out[1][0])].abs().max())
     tol = 2e-6 * scale
@@ -803,6 +810,186 @@ def test_ivfpq_scan_on_card_matches_cpu(dev, metric, rotate):
             # a slot only one device kept ties the last kept score
             score = card_of.get(slot, cpu_of.get(slot))
             assert abs(score - float(sv_p[-1])) <= 2 * tol
+
+
+def _ivfpq_scan_operands(q, dsub=8, seed=16, d=768):
+    """test_ivfpq_scan_on_card_matches_cpu's geometry (three full chunks
+    of three 64-row clusters, a tail cluster, 96 spill slots, 10% dead)
+    at ``q`` queries and codewords of ``dsub`` dims (d = 768)."""
+    rng = np.random.default_rng(seed)
+    m, ksub, nlist, span, s_rows = d // dsub, 256, 10, 64, 96
+    d = m * dsub
+    cb = torch.from_numpy(rng.standard_normal(
+        (m, ksub, dsub), dtype=np.float32) * 0.3).to(torch.bfloat16)
+    n = nlist * span + s_rows
+    codes = torch.from_numpy(rng.integers(0, ksub, (n, m), dtype=np.uint8))
+    valid = torch.from_numpy(rng.random(n) >= 0.1)
+    cents = torch.from_numpy(rng.standard_normal(
+        (nlist, d), dtype=np.float32)).to(torch.bfloat16).float()
+    csq = (cents * cents).sum(1)
+    cid_sp = torch.from_numpy(rng.integers(0, nlist, s_rows).astype(np.int32))
+    qs = torch.from_numpy(rng.standard_normal((q, d), dtype=np.float32))
+    cnorm = (cb.float() ** 2).sum(-1)
+    return (qs, codes, cb, cnorm, valid, cents, csq, cid_sp), nlist, span
+
+
+def _check_scan_pools(got, want):
+    """Two scans' pools: scores within 2e-6 of max|score|, each slot
+    scored alike, the same slots but where neighbouring scores tie."""
+    scale = float(want[0][torch.isfinite(want[0])].abs().max())
+    tol = 2e-6 * scale
+    torch.testing.assert_close(got[0], want[0], rtol=2e-6, atol=tol)
+    for (sv_c, sl_c), (sv_p, sl_p) in zip(zip(*got), zip(*want)):
+        card_of = dict(zip(sl_c.tolist(), sv_c.tolist()))
+        cpu_of = dict(zip(sl_p.tolist(), sv_p.tolist()))
+        for slot in card_of.keys() & cpu_of.keys():
+            assert abs(card_of[slot] - cpu_of[slot]) <= 2 * tol
+        for slot in card_of.keys() ^ cpu_of.keys():
+            score = card_of.get(slot, cpu_of.get(slot))
+            assert abs(score - float(sv_p[-1])) <= 2 * tol
+
+
+@pytest.mark.parametrize("q, budget_q, blocks", [
+    (1, None, 1), (63, None, 1), (64, None, 1), (200, None, 1),
+    (200, 48, 5)])
+@pytest.mark.parametrize("rotate", [False, True])
+@pytest.mark.parametrize("metric", list(DistanceMetric))
+def test_ivfpq_fused_scan_matches_cpu(dev, metric, rotate, q, budget_q,
+                                      blocks, monkeypatch):
+    """K8s at query counts that fill one n-tile, part of one, one block's
+    eight and several query tiles in one launch; with the score budget
+    forced to 48 queries, 200 queries in five launches (48 x 4 + 8): the
+    pool is the CPU chunk loop's, one fused launch a query block, no K8
+    and no chunked scan."""
+    from vectordb_tpu_torch.ops import pq
+    args, nlist, span = _ivfpq_scan_operands(q)
+    d = args[0].shape[1]
+    rng = np.random.default_rng(3)
+    rot = (torch.linalg.qr(torch.from_numpy(rng.standard_normal(
+        (d, d), dtype=np.float32)))[0].contiguous() if rotate else None)
+    if budget_q is not None:
+        monkeypatch.setattr(pq, "_SCAN_SCORE_BYTES",
+                            4 * args[1].shape[0] * budget_q)
+    out = []
+    for device in ("cuda", "cpu"):
+        cuda_kernels.reset_launches()
+        sv, sl = pq.ivfpq_scan_topr(
+            *[t.to(device) for t in args], metric, r=64, cpc=3, span=span,
+            nlist=nlist, rot=None if rot is None else rot.to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert cuda_kernels.routes["ivfpq_scan"] == {"fused": blocks,
+                                                         "chunked": 0}
+            assert cuda_kernels.launches["ivfpq_scan"] == blocks
+            # one selection launch a block: 1056 slots are one segment
+            assert cuda_kernels.launches["scan_select"] == blocks
+            assert cuda_kernels.launches["pq_decode"] == 0
+        out.append((sv.cpu(), sl.cpu()))
+    assert out[0][0].shape == (q, 64) and out[0][1].dtype == torch.int64
+    _check_scan_pools(out[0], out[1])
+
+
+@pytest.mark.parametrize("n, k, dead, distinct", [
+    (50000, 128, 0.1, None), (50000, 1, 0.1, None), (40000, 1000, 0.1, None),
+    (16384, 64, 0.1, None), (100, 128, 0.1, None), (128, 128, 0.1, None),
+    (40000, 128, 0.995, None), (40000, 128, 0.0, 1), (40000, 700, 0.0, 1)])
+def test_scan_select_matches_plain(dev, n, k, dead, distinct):
+    """K8s's selection against its plain version (torch.topk a segment):
+    clustered scores with exact ties, +inf dead slots, -0 and +0 and a
+    negative run; segments longer, shorter and as long as k, mostly dead
+    ones (at most k finite keys), one value in bulk (no sample threshold:
+    the radix passes); with and without a payload. Equal values; the same
+    (value, slot) pairs but where a value ties a segment's last."""
+    from vectordb_tpu_torch.ops import pq
+    rng = np.random.default_rng(n + k)
+    x = (50.0 + rng.standard_normal((3, n))).astype(np.float32)
+    if distinct is not None:
+        x = np.ascontiguousarray(x[:, :distinct][:, rng.integers(
+            0, distinct, n)])
+    x[:, ::7] = x[:, 3:4]
+    x[rng.random((3, n)) < dead] = np.inf
+    x[:, 1], x[:, 2], x[0, :5] = -0.0, 0.0, -3.0
+    keys = torch.from_numpy(x).to(dev)
+    pay = torch.from_numpy(rng.permutation(3 * n).reshape(3, n)).to(dev)
+    for p in (None, pay):
+        before = cuda_kernels.launches["scan_select"]
+        got = cuda_kernels.scan_select(keys, k, p)
+        torch.cuda.synchronize()
+        assert cuda_kernels.launches["scan_select"] == before + 1
+        want = pq._select_plain(keys, k, p)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0,
+                                   equal_nan=True)
+        for gv, gi, wv, wi in zip(got[0].tolist(), got[1].tolist(),
+                                  want[0].tolist(), want[1].tolist()):
+            for a in range(0, len(wv), k):
+                last = wv[a + k - 1]
+                g = sorted(zip(gv[a:a + k], gi[a:a + k]), key=str)
+                w = sorted(zip(wv[a:a + k], wi[a:a + k]), key=str)
+                keep = lambda pairs: [(v, i) for v, i in pairs  # noqa
+                                      if v == v and v != last]
+                assert keep(g) == keep(w)
+    v, i = pq._select_topr(keys, min(k, n))
+    want = torch.topk(keys, min(k, n), dim=1, largest=False)
+    assert torch.equal(v, want.values)
+    assert torch.equal(torch.gather(keys, 1, i), v)
+
+
+@pytest.mark.parametrize("metric", list(DistanceMetric))
+def test_ivfpq_fused_scan_wide_rows_take_the_small_tile(dev, metric):
+    """d = 1536: 64 queries do not fit one block's shared memory, so 40
+    queries go as three tiles of 16 in one launch; the pool is the CPU's."""
+    from vectordb_tpu_torch.ops import pq
+    args, nlist, span = _ivfpq_scan_operands(40, d=1536)
+    assert cuda_kernels._scan_tile(40, 1536, 192) == 2
+    out = []
+    for device in ("cuda", "cpu"):
+        cuda_kernels.reset_launches()
+        sv, sl = pq.ivfpq_scan_topr(*[t.to(device) for t in args], metric,
+                                    r=64, cpc=3, span=span, nlist=nlist)
+        if device == "cuda":
+            assert cuda_kernels.routes["ivfpq_scan"] == {"fused": 1,
+                                                         "chunked": 0}
+        out.append((sv.cpu(), sl.cpu()))
+    _check_scan_pools(out[0], out[1])
+
+
+@pytest.mark.parametrize("metric", list(DistanceMetric))
+def test_ivfpq_scan_outside_the_envelope_runs_the_chunk_loop(dev, metric):
+    """Codewords of 4 dims (dsub % 8 != 0): the chunked route, counted as
+    one chunked scan and five K8 launches (three chunks, the tail, the
+    spill block), the same pool as the CPU's."""
+    from vectordb_tpu_torch.ops import pq
+    args, nlist, span = _ivfpq_scan_operands(64, dsub=4)
+    out = []
+    for device in ("cuda", "cpu"):
+        cuda_kernels.reset_launches()
+        t = [a.to(device) for a in args]
+        if device == "cuda":
+            assert cuda_kernels.ivfpq_scan_body(t[1], t[2]) == "chunked"
+        sv, sl = pq.ivfpq_scan_topr(*t, metric, r=64, cpc=3, span=span,
+                                    nlist=nlist)
+        if device == "cuda":
+            assert cuda_kernels.routes["ivfpq_scan"] == {"fused": 0,
+                                                         "chunked": 1}
+            assert cuda_kernels.launches["pq_decode"] == 5
+        out.append((sv.cpu(), sl.cpu()))
+    _check_scan_pools(out[0], out[1])
+
+
+@pytest.mark.parametrize("metric", list(DistanceMetric))
+def test_ivfpq_fused_scan_matches_the_chunk_loop_on_card(dev, metric):
+    """The two routes over the same CUDA tensors: K8s's pool and the chunk
+    loop's (K8 and the library products) agree as the card and the CPU
+    do."""
+    from vectordb_tpu_torch.ops import pq
+    args, nlist, span = _ivfpq_scan_operands(64, seed=21)
+    t = [a.to(dev) for a in args]
+    fused = pq.ivfpq_scan_topr(*t, metric, r=64, cpc=3, span=span,
+                               nlist=nlist)
+    chunked = pq._ivfpq_scan_chunked(*t, metric, r=64, cpc=3, span=span,
+                                     nlist=nlist)
+    _check_scan_pools(tuple(x.cpu() for x in fused),
+                      tuple(x.cpu() for x in chunked))
 
 
 @pytest.mark.parametrize("metric", list(DistanceMetric))

@@ -31,6 +31,12 @@ the C function reports a CUDA error, and adds one to its entry of
         two bodies, see below)
     K8  pq_decode                  pq_decode.cu      uint8 codes -> bf16 rows
                                    (two bodies, see below)
+    K8s ivfpq_scan                 ivfpq_scan.cu     uint8 codes -> f32 IVF-PQ
+                                   scores of every slot (K8's decode fused
+                                   with the residual scoring)
+        scan_select                ivfpq_scan.cu     the exact top k of each
+                                   segment of a row of scores (K8s's
+                                   selection, two launches a query block)
     K9  scan_min                   scan_min.cu       f32 per-tile minima
     H1  hnsw_search                hnsw_search.cu    batched HNSW traversal
         (one block a query; the counterpart of an XLA program, not of a
@@ -53,7 +59,10 @@ group of subspaces whose codebook stays in L1, walk tiles of rows; each
 tile's codes come into a shared-memory ring by bulk copy) for 16-byte
 codewords or a multiple of them (dsub % 8 == 0), 16-byte aligned codes,
 codebook and output and m <= 4096; "grid_stride" (a thread per codeword
-word) for every other shape.
+word) for every other shape. K8s has one body; ``ivfpq_scan_body``
+says whether an IVF-PQ scan takes it ("fused") or the chunk loop over K8
+and library products ("chunked"), and ``routes["ivfpq_scan"]`` counts the
+scans of each, ``launches["ivfpq_scan"]`` all of them.
 ``routes[key][body]`` counts the coarse kernels', K2's and K8's launches
 by body beside ``launches``. No body stands in for another: a failed
 build or launch raises. K9 (``scan_min.cu``) has one body for every
@@ -95,6 +104,13 @@ _DECODE_L1_SLICE = 96 * 1024
 _DECODE_TILE_WORDS = 768
 _DECODE_STAGE_BYTES = 16384
 _DECODE_MAX_M = 4096
+# K8s (ivfpq_scan.cu): 32-row warp tiles, 8 warps a block; the shared
+# memory holds a block's queries (hi and lo) and each warp's tile of codes
+_SCAN_WARP_ROWS = 32
+_SCAN_WARPS = 8
+_SELECT_SEG = 16384                    # keys a selection block reads
+_SELECT_MAX_K = 1024
+_SELECT_MAX_ROWS = 65535               # rows a selection launch takes
 _MODES = {"euclidean": 0, "dot": 1, "cosine": 2}
 # coarse source: (C code, row dtype)
 _COARSE_SRC = {"mirrors": (0, torch.bfloat16), "f32": (1, torch.float32),
@@ -105,7 +121,7 @@ _REFINE_SRC = {torch.float32: (0, "refine_dots"),
                torch.int8: (2, "refine_dots_int8")}
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = ("coarse_minima.cu", "coarse_wgmma.cu", "refine_dots.cu",
-            "pq_decode.cu", "scan_min.cu", "hnsw_search.cu")
+            "pq_decode.cu", "scan_min.cu", "hnsw_search.cu", "ivfpq_scan.cu")
 # H1: device bytes of visited bitmasks one launch may hold (N/8 bytes a
 # query); larger batches go in several launches
 _HNSW_VISITED_BYTES = 256 << 20
@@ -115,13 +131,15 @@ launches = {"coarse_minima_1p_sup": 0, "coarse_minima": 0,
             "coarse_minima_f32_1p_sup": 0, "coarse_minima_f32": 0,
             "coarse_minima_1p": 0, "coarse_minima_int8_1p_sup": 0,
             "refine_dots": 0, "refine_dots_bf16": 0, "refine_dots_int8": 0,
-            "pq_decode": 0, "scan_min": 0, "hnsw_search": 0}
+            "pq_decode": 0, "scan_min": 0, "hnsw_search": 0,
+            "ivfpq_scan": 0, "scan_select": 0}
 # coarse, K2 and K8 launches by body (see _coarse_route, _refine_route,
 # _decode_route), reset with ``launches``
 routes = {key: ({"wgmma": 0, "mma_sync": 0} if key.startswith("coarse")
                 else {"tile_major": 0, "query_major": 0})
           for key in launches if key.startswith(("coarse", "refine"))}
 routes["pq_decode"] = {"tile_ring": 0, "grid_stride": 0}
+routes["ivfpq_scan"] = {"fused": 0, "chunked": 0}
 # build facts of the loaded library (path, compiler output); the seconds
 # are the spans ``vdb/kernels.build`` and ``vdb/kernels.load``
 build_info: dict = {}
@@ -206,6 +224,11 @@ def _lib() -> ctypes.CDLL:
     lib.vdb_hnsw_search.restype = i
     lib.vdb_hnsw_search_smem.argtypes = [i, i, i, i]
     lib.vdb_hnsw_search_smem.restype = l
+    lib.vdb_ivfpq_scan.argtypes = [p, p, p, p, p, p, p, p, p, p, l, l, i, i,
+                                   i, i, i, i, i, i, i, p]
+    lib.vdb_ivfpq_scan.restype = i
+    lib.vdb_select.argtypes = [p, p, p, p, l, l, i, p]
+    lib.vdb_select.restype = i
     build_info.update(path=str(so), log=log)
     return lib
 
@@ -642,6 +665,134 @@ def pq_decode_grid_stride(codes, cb):
     return out
 
 
+def _scan_smem(d: int, m: int, nt: int) -> int:
+    """K8s's shared memory: a block's ``8 nt`` queries, hi and lo, and each
+    warp's tile of codes (ivfpq_scan.cu, ``vdb_ivfpq_scan_smem``)."""
+    return 4 * nt * 8 * d + _SCAN_WARPS * _SCAN_WARP_ROWS * m
+
+
+def _scan_tile(q: int, d: int, m: int) -> int:
+    """The n-tiles of 8 queries a K8s block holds (ivfpq_scan.cu builds
+    two): 8 for more than 16 queries where the block's shared memory
+    holds them, else 2; 0 if 2 do not fit."""
+    for nt in ((8, 2) if q > 16 else (2,)):
+        if _scan_smem(d, m, nt) <= _MAX_SMEM:
+            return nt
+    return 0
+
+
+def _ivfpq_scan_route(dtype, d: int, dsub: int, m: int,
+                      aligned: bool) -> str:
+    """The route of an IVF-PQ scan over CUDA tensors, from its shape
+    alone: "fused" (K8s, one launch a query block) for uint8 codes, d % 16
+    == 0 and dsub % 8 == 0 (whole k16 steps, each lane's four dims within
+    one codeword), 16-byte aligned codes and codebook, and a block's
+    shared memory that holds two n-tiles of queries beside its codes;
+    "chunked" (ops/pq.py's chunk loop over K8 and library products)
+    otherwise."""
+    if (dtype == torch.uint8 and d % 16 == 0 and dsub % 8 == 0 and aligned
+            and _scan_tile(1, d, m)):
+        return "fused"
+    return "chunked"
+
+
+def ivfpq_scan_body(codes, cb) -> str:
+    """``_ivfpq_scan_route`` of a scan over ``codes`` (N, m) with the
+    codebook ``cb`` (m, ksub, dsub): both must be 16-byte aligned."""
+    m, _, dsub = cb.shape
+    aligned = (codes.data_ptr() | cb.data_ptr()) % 16 == 0
+    return _ivfpq_scan_route(codes.dtype, m * dsub, dsub, m, aligned)
+
+
+def ivfpq_scan(codes, cb, q_hi, q_lo, qc, cents, csq, cid_sp, valid,
+               span: int, nlist: int, mode: str):
+    """K8s: (Q, N) f32 scan scores of every slot, one launch. ``codes``
+    (N, m) uint8 (each < ksub), ``cb`` (m, ksub, dsub) bf16, ``q_hi``,
+    ``q_lo`` (Q, d) bf16 (the query split), ``qc`` (Q, nlist) f32 (q.c of
+    each cluster), ``cents`` (nlist, d) bf16, ``csq`` (nlist,) f32,
+    ``cid_sp`` (N - nlist*span,) int32 (the spill slots' clusters),
+    ``valid`` (N,) bool. Scores as ops/pq.py's ``_metric_scores`` of the
+    residual dots, +inf on dead slots; the route must be "fused"
+    (``ivfpq_scan_body``)."""
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"ivfpq_scan kernel needs CUDA tensors, got {dev}")
+    if codes.dim() != 2 or cb.dim() != 3 or q_hi.dim() != 2:
+        raise ValueError("ivfpq_scan: codes (N, m), cb (m, ksub, dsub), "
+                         "queries (Q, d)")
+    n, m = codes.shape
+    _, ksub, dsub = cb.shape
+    q, d = q_hi.shape
+    big_m = nlist * span
+    if d != m * dsub or not 0 <= big_m <= n or not 1 <= ksub <= 256:
+        raise ValueError(f"ivfpq_scan: d={d}, m={m}, dsub={dsub}, "
+                         f"ksub={ksub}, nlist*span={big_m}, N={n}")
+    bf, f32 = torch.bfloat16, torch.float32
+    _check("codes", codes, torch.uint8, (n, m), dev)
+    _check("cb", cb, bf, (m, ksub, dsub), dev)
+    _check("q_hi", q_hi, bf, (q, d), dev)
+    _check("q_lo", q_lo, bf, (q, d), dev)
+    _check("qc", qc, f32, (q, nlist), dev)
+    _check("cents", cents, bf, (nlist, d), dev)
+    _check("csq", csq, f32, (nlist,), dev)
+    _check("cid_sp", cid_sp, torch.int32, (n - big_m,), dev)
+    _check("valid", valid, torch.bool, (n,), dev)
+    body = ivfpq_scan_body(codes, cb)
+    if body != "fused" or (cents.data_ptr() | q_hi.data_ptr()
+                           | q_lo.data_ptr()) % 16:
+        raise ValueError(f"ivfpq_scan: this shape takes the {body} route, "
+                         "or a table is not 16-byte aligned")
+    out = torch.empty((q, n), dtype=f32, device=dev)
+    if q == 0 or n == 0:
+        return out
+    with _guard(dev):
+        rc = _lib().vdb_ivfpq_scan(
+            codes.data_ptr(), cb.data_ptr(), q_hi.data_ptr(),
+            q_lo.data_ptr(), qc.data_ptr(), cents.data_ptr(),
+            csq.data_ptr(), cid_sp.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), n, big_m, q, d, m, ksub, dsub, span, nlist,
+            _scan_tile(q, d, m), _MODES[mode], _raw_stream(dev))
+    _raise_on(rc, "ivfpq_scan")
+    launches["ivfpq_scan"] += 1
+    routes["ivfpq_scan"]["fused"] += 1
+    return out
+
+
+def scan_select(keys, k: int, payload=None):
+    """K8s's selection: for each row of ``keys`` (R, L) f32 and each
+    segment of ``_SELECT_SEG`` keys, its k smallest, ascending -> (values
+    (R, S*k) f32, slots (R, S*k) int64), S = ceil(L / _SELECT_SEG); a slot
+    is the key's column, or its entry of ``payload`` (R, L) int64. A
+    segment of fewer than k keys ends in NaN values and slot -1. Ties may
+    come in another order than torch.topk's; the values are the same.
+    Its plain version is ops/pq.py ``_select_plain``."""
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"scan_select kernel needs CUDA tensors, got {dev}")
+    if keys.dim() != 2:
+        raise ValueError("scan_select: keys must be (rows, len)")
+    rows, n = keys.shape
+    if not 1 <= k <= _SELECT_MAX_K or rows > _SELECT_MAX_ROWS:
+        raise ValueError(f"scan_select: k={k} (1..{_SELECT_MAX_K}), "
+                         f"{rows} rows (at most {_SELECT_MAX_ROWS})")
+    _check("keys", keys, torch.float32, (rows, n), dev)
+    if payload is not None:
+        _check("payload", payload, torch.int64, (rows, n), dev)
+    segs = -(-n // _SELECT_SEG)
+    out_v = torch.empty((rows, segs * k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((rows, segs * k), dtype=torch.int64, device=dev)
+    if rows == 0 or n == 0:
+        return out_v, out_i
+    with _guard(dev):
+        rc = _lib().vdb_select(
+            keys.data_ptr(),
+            payload.data_ptr() if payload is not None else None,
+            out_v.data_ptr(), out_i.data_ptr(), rows, n, k, _raw_stream(dev))
+    _raise_on(rc, "scan_select")
+    launches["scan_select"] += 1
+    return out_v, out_i
+
+
 def scan_min(queries, qaux, db, raux, invalidf, mode: str, tile_rows: int):
     """K9: (Q, N / tile_rows) f32 per-tile minima of the f32 scores of
     ``queries`` (Q, d) against ``db`` (N, d) rows (IEEE fmaf dots; the
@@ -737,7 +888,8 @@ def hnsw_search(vectors, norms, neighbors, valid, queries, entry: int,
 __all__ = ["coarse_minima_1p_sup", "coarse_minima", "coarse_minima_f32_1p_sup",
            "coarse_minima_f32", "coarse_minima_1p",
            "coarse_minima_int8_1p_sup", "refine_dots", "pq_decode",
-           "pq_decode_grid_stride", "scan_min", "hnsw_search", "launches",
-           "routes",
-           "coarse_body", "refine_body", "decode_body", "reset_launches",
+           "pq_decode_grid_stride", "scan_min", "hnsw_search", "ivfpq_scan",
+           "scan_select", "launches", "routes",
+           "coarse_body", "refine_body", "decode_body", "ivfpq_scan_body",
+           "reset_launches",
            "load", "build_info"]

@@ -26,9 +26,13 @@ them from the JAX module would load JAX.
     finishes the selection. The JAX package's ``lax.approx_min_k`` has no
     counterpart: exact per-chunk top r followed by an exact pooled top r
     is the exact global top r of the scores for any chunk size.
-  * IVF-PQ scan (``ivfpq_scan_topr``): the same over the IVF layout's
-    cluster-aligned chunks, each decoded row a residual on its cluster's
-    centroid; one (Q, nlist) pair of products gives every cluster's q.c.
+  * IVF-PQ scan (``ivfpq_scan_topr``): on the card, one launch of K8s
+    (``csrc/ivfpq_scan.cu``) a query block decodes every slot on chip and
+    writes its f32 score, and one exact top r a query block selects; the
+    plain version (a CPU tensor, or a shape outside K8s) is the same over
+    the IVF layout's cluster-aligned chunks, each decoded row a residual
+    on its cluster's centroid; one pair of products gives every cluster's
+    q.c.
   * re-rank: exact f32 distances of the candidate rows in the direct
     forms (difference form for euclidean), on the device that holds them.
 """
@@ -39,9 +43,12 @@ import torch
 
 from ..distance import DistanceMetric
 from . import cuda_kernels
+from .coarse_kernel import _metric_mode
 
 _OPQ_COV_ROWS = 65536
 _RERANK_DEV_QBLK = 512   # queries per gather block of pq_rerank_topk
+_SCAN_SCORE_BYTES = 1 << 29   # the fused IVF-PQ scan's (Q_blk, N) f32
+                              # scores: the queries go in blocks within it
 
 
 def fit_opq_rotation(sample, m: int) -> "np.ndarray":
@@ -317,15 +324,13 @@ def ivfpq_scan_topr(queries: torch.Tensor, codes: torch.Tensor,
                     csq: torch.Tensor, cid_sp: torch.Tensor,
                     metric: DistanceMetric, r: int, cpc: int, span: int,
                     nlist: int, rot=None):
-    """Residual-corrected streaming PQ scan over an IVF slot layout ->
-    top-r candidate rows per query.
+    """Residual-corrected PQ scan over an IVF slot layout -> top-r
+    candidate rows per query.
 
     A row decodes as ``x_hat = c + r_hat``: ``c`` the centroid of its
     cluster (constant over each ``span``-row cluster block of the IVF
     repack) and ``r_hat`` its PQ-decoded residual. Rows [0, nlist*span)
-    are the cluster blocks, streamed in chunks of ``cpc * span`` rows (a
-    cluster count that does not fill the last chunk runs once, padded with
-    dead rows); rows [nlist*span, N) are the spill region, scored densely,
+    are the cluster blocks; rows [nlist*span, N) are the spill region,
     each row's residual taken against its nearest centroid ``cid_sp``
     (S,) int32 (garbage for dead slots, which are masked).
 
@@ -334,26 +339,130 @@ def ivfpq_scan_topr(queries: torch.Tensor, codes: torch.Tensor,
     bf16 values (the OPQ-rotated table under ``rot``) · csq (nlist,) f32
     their sq-norms. Centroids and codewords are bf16 values and the
     queries split hi/lo, so every term carries only f32 accumulation
-    rounding; each bf16 product comes out in f32 (``_score_dots``; a
-    row-wise product widens its bf16 operands exactly):
+    rounding; each bf16 product comes out in f32:
 
-    * ``q . x_hat = q . c + q . r_hat``: ``q . c`` from one (Q, nlist)
-      pair of products, each cluster's column shared by its ``span`` rows
-      (the spill rows gather their centroid's column); ``q . r_hat`` from
-      the chunk's decode (K8) and two products;
-    * ``|x_hat|^2 = |c|^2 + 2 c . r_hat + |r_hat|^2``: ``|r_hat|^2``
-      exactly from the codeword norms, ``c . r_hat`` a row-wise product.
+    * ``q . x_hat = q . c + q . r_hat``: ``q . c`` from one pair of
+      products against the centroid table, each cluster's value shared by
+      its ``span`` rows (the spill rows take their centroid's);
+      ``q . r_hat`` from the decoded rows and two products;
+    * ``|x_hat|^2 = |c|^2 + 2 c . r_hat + |r_hat|^2``.
 
-    Selection is exact (an exact top r a chunk, then over the pool); the
-    JAX op's ``approx_min_k`` and ``recall_target`` have no counterpart.
-    Returns (scores (Q, r_out) ascending, slots (Q, r_out) int64),
-    ``r_out = min(r, pooled candidates)``; +inf marks dead/masked slots."""
+    Route, by ``cuda_kernels.ivfpq_scan_body``: CUDA tensors in K8s's
+    envelope take ``_ivfpq_scan_fused`` (every slot scored in one launch a
+    query block, one exact top r over each query's row of scores); other
+    CUDA shapes and CPU tensors take ``_ivfpq_scan_chunked`` (K8 or its
+    plain version a chunk of ``cpc`` clusters, an exact top r a chunk,
+    then over the pool). Both select exactly; the JAX op's
+    ``approx_min_k`` and ``recall_target`` have no counterpart. Returns
+    (scores (Q, r_out) ascending, slots (Q, r_out) int64), ``r_out =
+    min(r, pooled candidates)`` (the same count on both routes: min(r,
+    N)); +inf marks dead/masked slots."""
+    chunk = cpc * span
+    if r > chunk:
+        raise ValueError(f"r={r} exceeds chunk={chunk}")
+    if codes.is_cuda:
+        route = cuda_kernels.ivfpq_scan_body(codes, cb_bf)
+        if route == "fused":
+            return _ivfpq_scan_fused(queries, codes, cb_bf, valid, cents,
+                                     csq, cid_sp, metric, r, span, nlist,
+                                     rot)
+        cuda_kernels.launches["ivfpq_scan"] += 1
+        cuda_kernels.routes["ivfpq_scan"]["chunked"] += 1
+    return _ivfpq_scan_chunked(queries, codes, cb_bf, cnorm, valid, cents,
+                               csq, cid_sp, metric, r, cpc, span, nlist,
+                               rot)
+
+
+def _ivfpq_scan_fused(queries, codes, cb_bf, valid, cents, csq, cid_sp,
+                      metric: DistanceMetric, r: int, span: int, nlist: int,
+                      rot=None):
+    """``ivfpq_scan_topr`` on K8s: per query block, the (Q_blk, nlist) q.c
+    table (two bf16 products with f32 output), one launch that scores
+    every slot into a (Q_blk, N) f32 buffer, and the exact top r of each
+    query's row (``_select_topr``). Blocks hold ``_SCAN_SCORE_BYTES`` of
+    scores at most (whole multiples of the kernel's 64-query tile where
+    that fits)."""
+    n = codes.shape[0]
+    q = queries.shape[0]
+    q_hi, q_lo = _split_query(_maybe_rotate(queries.float(), rot))
+    cents_bf = cents.to(torch.bfloat16)           # exact: values are bf16
+    csq = csq.float()
+    cid_sp = cid_sp.to(torch.int32)
+    mode = _metric_mode(metric.value)
+    qblk = _scan_query_block(n)
+    r_out = min(r, n)
+    vals, idx = [], []
+    for a in range(0, q, qblk):
+        hi, lo = q_hi[a:a + qblk], q_lo[a:a + qblk]
+        qc = _score_dots(hi, lo, cents_bf)        # (Q_blk, nlist)
+        scores = cuda_kernels.ivfpq_scan(codes, cb_bf, hi, lo, qc, cents_bf,
+                                         csq, cid_sp, valid, span, nlist,
+                                         mode)
+        v, i = _select_topr(scores, r_out)
+        vals.append(v)
+        idx.append(i)
+    if len(vals) == 1:
+        return vals[0], idx[0]
+    return torch.cat(vals), torch.cat(idx)
+
+
+def _scan_query_block(n: int) -> int:
+    """Queries a fused scan scores at once over ``n`` slots: its (Q_blk,
+    N) f32 scores within ``_SCAN_SCORE_BYTES``, at most the selection's
+    row limit, whole 64-query tiles of K8s where that fits."""
+    per = max(1, min(_SCAN_SCORE_BYTES // (4 * max(n, 1)),
+                     cuda_kernels._SELECT_MAX_ROWS))
+    return per - per % 64 if per >= 64 else per
+
+
+def _select_plain(keys: torch.Tensor, k: int, payload=None):
+    """Plain version of ``cuda_kernels.scan_select``: the k smallest of
+    each ``_SELECT_SEG``-key segment of each row, ascending, with their
+    columns (or ``payload`` entries); NaN and -1 past a short segment's
+    keys."""
+    rows, n = keys.shape
+    seg = cuda_kernels._SELECT_SEG
+    segs = -(-n // seg)
+    pad = segs * seg - n
+    kp = torch.cat([keys, keys.new_full((rows, pad), float("nan"))], 1)
+    v, pos = torch.topk(kp.view(rows, segs, seg), k, dim=2, largest=False)
+    col = pos + torch.arange(segs, device=keys.device)[None, :, None] * seg
+    col = col.reshape(rows, segs * k)
+    dead = col >= n
+    if payload is not None:
+        col = torch.gather(payload, 1, torch.where(dead, 0, col))
+    return v.reshape(rows, segs * k), torch.where(dead, -1, col)
+
+
+def _select_topr(scores: torch.Tensor, r: int):
+    """The exact r smallest of each row of ``scores`` (Q, N) f32, r <= N,
+    ascending with their columns: ``scan_select`` (its plain version on a
+    CPU tensor) over segments of the row, then over the candidates until
+    one segment is left (two launches up to N = _SELECT_SEG^2 / r)."""
+    select = (cuda_kernels.scan_select if scores.is_cuda
+              else _select_plain)
+    vals, idx = select(scores, r)
+    while vals.shape[1] > r:
+        vals, idx = select(vals, r, idx)
+    return vals, idx
+
+
+def _ivfpq_scan_chunked(queries, codes, cb_bf, cnorm, valid, cents, csq,
+                        cid_sp, metric: DistanceMetric, r: int, cpc: int,
+                        span: int, nlist: int, rot=None):
+    """``ivfpq_scan_topr``'s chunk loop, the plain version of K8s (and the
+    card's route outside its envelope): the cluster blocks stream in
+    chunks of ``cpc * span`` rows (a cluster count that does not fill the
+    last chunk runs once, padded with dead rows), the spill region is
+    scored densely; each chunk is decoded (``_decode_block``: K8 on the
+    card), ``|r_hat|^2`` comes exactly from the codeword norms ``cnorm``,
+    ``c . r_hat`` is a row-wise product, ``q . r_hat`` two products
+    (``_score_dots``), and an exact top r keeps the chunk's best before
+    one exact top r over the pool."""
     n, m = codes.shape
     big_m = nlist * span
     s_rows = n - big_m
     chunk = cpc * span
-    if r > chunk:
-        raise ValueError(f"r={r} exceeds chunk={chunk}")
     q, d = queries.shape
     q_hi, q_lo = _split_query(_maybe_rotate(queries.float(), rot))
     nfull = big_m // chunk
