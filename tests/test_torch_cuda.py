@@ -583,6 +583,43 @@ def test_store_on_card_matches_store_on_cpu(dev, metric, storage,
     np.testing.assert_allclose(out[0][1], out[1][1], rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("metric", [DistanceMetric.COSINE,
+                                    DistanceMetric.EUCLIDEAN])
+def test_forced_tier2_on_card_counts_and_stays_exact(dev, metric,
+                                                     monkeypatch):
+    """Tier 1's coefficient inflated on the card: its certificate holds
+    for no query, the counters put every query into tier 2 (K3, then the
+    plain scan for any it leaves), and the answers are still the plain
+    reference's exact top-k (float64)."""
+    from vdbbench.references import exact_topk
+    from vectordb_tpu_torch.ops import topk
+    from vectordb_tpu_torch.utils import profiling
+    monkeypatch.setattr(topk, "_EXACT1P_MIN_N", 512)
+    real = ck._coarse_body
+    monkeypatch.setattr(ck, "_coarse_body",
+                        lambda src, arr, passes, *a: "forced"
+                        if passes == 1 else real(src, arr, passes, *a))
+    monkeypatch.setitem(ck._ACCUM_COEFF, "forced", 1e6)
+    rng = np.random.default_rng(6)
+    rows = rng.standard_normal((4096, 128), dtype=np.float32)
+    qs = rng.standard_normal((16, 128), dtype=np.float32)
+    s = VectorStore.with_flat_index(metric, device="cuda")
+    s.insert_batch([BatchInsertItem(str(i), Vector(rows[i]))
+                    for i in range(len(rows))])
+    profiling.reset_spans()
+    res = s.search_batch([(Vector(q), 10) for q in qs])
+    got = profiling.counters()
+    assert got["flat.queries"] == 16 and got["flat.tier2_queries"] == 16
+    assert "vdb/flat.tier2" in profiling.spans()
+    ref_d, ref_i = exact_topk.topk(torch.from_numpy(qs),
+                                   torch.from_numpy(rows),
+                                   metric.value, 10, "f64")
+    assert [[int(r.id) for r in row] for row in res] == ref_i.tolist()
+    # f32 distances of the named rows (test_torch_flat_ladder.py's limit)
+    np.testing.assert_allclose([[r.distance for r in row] for row in res],
+                               ref_d.numpy(), rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # K8 (PQ decode) and K9 (per-tile minima); the PQ store and the two-phase
 # scan on the card against the same on the CPU

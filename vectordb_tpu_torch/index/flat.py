@@ -61,7 +61,7 @@ from ..ops import coarse_kernel
 from ..ops.topk import flat_search_batched_submit, next_pow2
 from ..ops.update import (scatter_rows, scatter_rows_copy, scatter_values,
                           scatter_values_copy)
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, count
 from ..vector import Vector, as_f32_array
 from .base import Index
 
@@ -1135,6 +1135,10 @@ class FlatIndex(Index):
                                     queries.shape[0])
                 self._search_done()
                 return SearchBatchHandle.ready(out)
+            nq = queries.shape[0]
+            # the ladder's re-runs count flat.tier2_queries and
+            # flat.tier3_queries against this (ops/topk.py)
+            count("flat.queries", nq)
             with annotate("vdb/flat.submit"):
                 handle = flat_search_batched_submit(
                     queries, dev, self._metric, k_req,
@@ -1142,7 +1146,6 @@ class FlatIndex(Index):
         except BaseException:
             self._search_done()
             raise
-        nq = queries.shape[0]
 
         def _collect():
             with annotate("vdb/flat.collect"):

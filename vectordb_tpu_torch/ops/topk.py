@@ -27,7 +27,14 @@ package's branch order:
                  where supports() holds and supports_1p() does not (a
                  256-row state), the legacy coarse_search(exact=False)
                  (K6 or K5 at 1 pass)
-Each tier's uncertified queries re-run through the next one.
+Each tier's uncertified queries re-run through the next one, inside
+``collect``. Each re-run is a span and a counter
+(``utils.profiling``), named by the scan it reaches:
+  ``vdb/flat.tier2``, ``flat.tier2_queries``  tier 1's re-runs: the
+                 bf16x3 tier 2 (mirrors, coarse_f32), the blockwise bf16
+                 scan (bf16 storage) or the dequantizing scan (int8)
+  ``vdb/flat.tier3``, ``flat.tier3_queries``  tier 2's re-runs: the
+                 plain f32 scan
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from ..distance import DistanceMetric, pairwise_distances
+from ..utils.profiling import annotate, count
 
 # Max elements of one (Q-chunk, N) distance block in the plain scans: an
 # eager scan materialises it, so large batches are cut into query chunks
@@ -153,29 +161,34 @@ def _collect_plain(dists, idx):
 
 
 def _collect_certified(dists, idx, certified, queries_in, fb_state,
-                       metric, k):
+                       metric, k, tier):
     """Fetch a certified search's outputs; re-run uncertified rows through
     the next tier (whatever ``fb_state`` still routes to: the bf16x3
     pipeline when only elo_max was stripped, the plain scan when the
-    mirrors were), in chunks of _FALLBACK_CHUNK queries. The fallback
-    reads ``fb_state``, the snapshot taken at submit, and the queries as
-    they were submitted (numpy, or a tensor on the state's device)."""
+    mirrors were), in chunks of _FALLBACK_CHUNK queries, inside the span
+    ``vdb/flat.<tier>``, counted in ``flat.<tier>_queries`` (the module
+    docstring). The fallback reads ``fb_state``, the snapshot taken at
+    submit, and the queries as they were submitted (numpy, or a tensor
+    on the state's device)."""
     d_, i_, cert = _to_host(dists, idx, certified)
     if bool(np.all(cert)):
         return d_, i_
     d_ = d_.copy()
     i_ = i_.copy()
     bad = np.nonzero(~cert)[0]
-    for start in range(0, bad.shape[0], _FALLBACK_CHUNK):
-        rows = bad[start:start + _FALLBACK_CHUNK]
-        if isinstance(queries_in, torch.Tensor):
-            sub_q = queries_in[torch.from_numpy(rows).to(queries_in.device)]
-        else:
-            sub_q = np.ascontiguousarray(np.asarray(queries_in)[rows])
-        sub_d, sub_i = flat_search_batched(sub_q, fb_state, metric, k,
-                                           mode="exact")
-        d_[rows] = sub_d[:, : d_.shape[1]]
-        i_[rows] = sub_i[:, : i_.shape[1]]
+    count(f"flat.{tier}_queries", bad.shape[0])
+    with annotate(f"vdb/flat.{tier}"):
+        for start in range(0, bad.shape[0], _FALLBACK_CHUNK):
+            rows = bad[start:start + _FALLBACK_CHUNK]
+            if isinstance(queries_in, torch.Tensor):
+                sub_q = queries_in[torch.from_numpy(rows).to(
+                    queries_in.device)]
+            else:
+                sub_q = np.ascontiguousarray(np.asarray(queries_in)[rows])
+            sub_d, sub_i = flat_search_batched(sub_q, fb_state, metric, k,
+                                               mode="exact")
+            d_[rows] = sub_d[:, : d_.shape[1]]
+            i_[rows] = sub_i[:, : i_.shape[1]]
     return d_, i_
 
 
@@ -285,12 +298,15 @@ class SearchHandle:
         return self._done
 
 
-def _certified_handle(out, queries_np, device_state, drop, metric, k):
+def _certified_handle(out, queries_np, device_state, drop, metric, k,
+                      tier):
     """Handle of a certified tier whose uncertified rows re-run through
-    the state minus ``drop`` (the next tier)."""
+    the state minus ``drop`` (the next tier, ``tier``: "tier2" or
+    "tier3")."""
     fb_state = {kk: vv for kk, vv in device_state.items() if kk not in drop}
     return SearchHandle(functools.partial(_collect_certified, *out,
-                                          queries_np, fb_state, metric, k))
+                                          queries_np, fb_state, metric, k,
+                                          tier))
 
 
 def flat_search_batched_submit(queries_np: np.ndarray, device_state: dict,
@@ -349,7 +365,7 @@ def _submit(queries_np: np.ndarray, device_state: dict,
                 *args, None, device_state["elo_max"], metric, k_eff,
                 scales=device_state["scales"])
             return _certified_handle(out, queries_np, device_state,
-                                     ("elo_max",), metric, k)
+                                     ("elo_max",), metric, k, "tier2")
         dists, idx = flat_search_int8(
             queries, db, device_state["scales"], *args[2:], metric, k_eff)
         return SearchHandle(functools.partial(_collect_plain, dists, idx))
@@ -381,7 +397,7 @@ def _submit(queries_np: np.ndarray, device_state: dict,
             drop = (("hi", "lo", "elo_max", "coarse_f32", "bf16_storage")
                     if device_state.get("bf16_storage") else ("elo_max",))
             return _certified_handle(out, queries_np, device_state, drop,
-                                     metric, k)
+                                     metric, k, "tier2")
         if not device_state.get("bf16_storage"):
             # tier 2: bf16x3 (K3 over the mirrors, K5 over f32 rows);
             # uncertified rows re-run through the plain scan
@@ -390,7 +406,7 @@ def _submit(queries_np: np.ndarray, device_state: dict,
                 exact=True)
             return _certified_handle(out, queries_np, device_state,
                                      ("hi", "lo", "elo_max", "coarse_f32"),
-                                     metric, k)
+                                     metric, k, "tier3")
 
     if db.dtype == torch.bfloat16:
         # bf16 storage off the coarse path: the widening scan, exact over

@@ -10,6 +10,9 @@ the device, so this module adds torch.profiler integration:
     in-process table (``spans()``: count, total and self seconds by name)
     and, while a profiler records, opens a ``record_function`` range of
     the same name, so the range lands in the device trace on its clock
+  * ``count(name, n)`` — a named integer counter beside the span table
+    (``counters()``), for work that a span's time cannot show: how many
+    queries a tier re-ran. One locked dict update, no clock read
   * ``python/gc`` — the interpreter's collections, as spans (a hook in
     ``gc.callbacks``, registered at import)
   * ``timed()`` — wall-clock timing helper that synchronises the device
@@ -41,6 +44,8 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 # so the gc hook) may start between any two bytecodes, also inside the
 # update that holds it
 _table: dict = {}
+# name -> int, under the same lock
+_counts: dict = {}
 _lock = threading.RLock()
 _local = threading.local()
 
@@ -146,8 +151,22 @@ def spans() -> dict:
 
 
 def reset_spans() -> None:
+    """Clear the span table and the counters."""
     with _lock:
         _table.clear()
+        _counts.clear()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def counters() -> dict:
+    """A copy of the counters: name -> int."""
+    with _lock:
+        return dict(_counts)
 
 
 def _on_gc(phase: str, info: dict) -> None:
@@ -202,4 +221,5 @@ class timed:
         return False
 
 
-__all__ = ["trace", "annotate", "spans", "reset_spans", "timed"]
+__all__ = ["trace", "annotate", "spans", "reset_spans", "count",
+           "counters", "timed"]
