@@ -1322,10 +1322,10 @@ def pq_phase(args, rng, card, mods):
                                        state["valid"], E, K)
         dv_h, ds_h = dv.cpu().numpy(), ds.cpu().numpy()
         t2 = time.perf_counter()
-        raw = index._collect_device_rerank(qs, [(dv_h, ds_h, sv, sl, nq)],
-                                           K, index._tick,
-                                           index.slot_layout_version, None)
-        mapped = [store._map_results(r) for r in raw]
+        cols = index._collect_device_rerank(qs, [(dv_h, ds_h, sv, sl, nq)],
+                                            K, index._tick,
+                                            index.slot_layout_version, None)
+        mapped = store._map_columns(cols, [K] * nq)
         t3 = time.perf_counter()
         if [r.id for r in mapped[0]] != [r.id for r in results[64][0]]:
             fail("the split batch disagrees with the store's batch")

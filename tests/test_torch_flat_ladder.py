@@ -7,8 +7,8 @@ tier 2); tier 1's accumulation coefficient inflated, so that its
 certificate holds for no query and every query re-runs through tier 2
 (bf16x3); and both tiers' coefficients inflated, so that every query
 reaches tier 3 (the plain tiled f32 scan). Every way returns the exact
-top-k. Last, the collect's mapping of slots to internal ids against an
-element-by-element reading."""
+top-k. (The collect's mapping of slots to internal ids is held in
+``test_torch_hit_columns.py``.)"""
 
 import numpy as np
 import pytest
@@ -131,38 +131,3 @@ def test_reset_spans_clears_the_counters():
     assert profiling.counters() == {"flat.queries": 4}     # a copy
     profiling.reset_spans()
     assert profiling.counters() == {}
-
-
-def _slots_to_ids_by_element(dists, idx, id_of_slot, k_req, nq):
-    out = []
-    for qi in range(nq):
-        row = []
-        for j in range(dists.shape[1]):
-            if np.isinf(dists[qi, j]) or len(row) == k_req:
-                break
-            row.append((int(id_of_slot[int(idx[qi, j])]), float(dists[qi, j])))
-        out.append(row)
-    return out
-
-
-@pytest.mark.parametrize("seed", range(4))
-def test_slots_to_ids_trims_the_infinite_tail(seed):
-    # the collect's mapping against one read element by element: each
-    # row stops at k_req or at its first infinite distance (a masked or
-    # invalid slot, whose index is never read), ids and dists as Python
-    # int and float
-    from vectordb_tpu_torch.index.flat import _slots_to_ids
-    rng = np.random.default_rng(seed)
-    q, w, cap = 8, 12, 64
-    dists = np.sort(rng.standard_normal((q, w)).astype(np.float32), axis=1)
-    cut = rng.integers(0, w + 1, q)
-    dists[np.arange(w) >= cut[:, None]] = np.inf
-    idx = rng.integers(-1, cap, (q, w))
-    idx[np.isinf(dists)] = 1 << 40          # out of range: must not be read
-    id_of_slot = rng.integers(-1, 1 << 20, cap)
-    for k_req, nq in ((K, q), (w, q), (3, q - 2), (0, q)):
-        got = _slots_to_ids(dists, idx, id_of_slot, k_req, nq)
-        assert got == _slots_to_ids_by_element(dists, idx, id_of_slot,
-                                               k_req, nq)
-        assert all(type(i) is int and type(d) is float
-                   for row in got for i, d in row)

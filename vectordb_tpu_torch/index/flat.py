@@ -141,14 +141,41 @@ def _int8_codes_scales(rows: np.ndarray):
     return codes, scales
 
 
+class HitColumns:
+    """A batched search's hits as columns, each query's row ascending by
+    distance: ``ids`` (Q, w) int64 internal ids, -1 past the query's
+    count; ``dists`` (Q, w), the producer's floats; ``counts`` (Q,) the
+    hits a query has. The store maps a whole call from these in one
+    gather; ``rows()`` is the per-query [(internal_id, dist)] form."""
+
+    __slots__ = ("ids", "dists", "counts")
+
+    def __init__(self, ids: np.ndarray, dists: np.ndarray,
+                 counts: np.ndarray):
+        self.ids, self.dists, self.counts = ids, dists, counts
+
+    def rows(self) -> List[List[Tuple[int, float]]]:
+        return [list(zip(i[:n], d[:n])) for i, d, n in
+                zip(self.ids.tolist(), self.dists.tolist(),
+                    self.counts.tolist())]
+
+
+def as_rows(hits) -> List[List[Tuple[int, float]]]:
+    """The per-query rows of a search's hits, given as rows or as
+    HitColumns."""
+    return hits.rows() if isinstance(hits, HitColumns) else hits
+
+
 class SearchBatchHandle:
     """An in-flight index-level batched search (search_batch_submit).
 
-    ``collect()`` blocks on the device result, maps slots to internal ids,
-    and releases the index's in-flight mark — exactly once, even if called
-    repeatedly or if the device work failed. An abandoned handle releases
-    the mark from ``__del__`` so writes don't stay pinned to the
-    copy-scatter path forever."""
+    ``collect()`` blocks on the device result and returns per-query
+    [(internal_id, dist)] rows; ``collect_columns()`` returns the same
+    hits as HitColumns where the search produced them, else None. The
+    first of them releases the index's in-flight mark — exactly once,
+    even if called repeatedly or if the device work failed. An abandoned
+    handle releases the mark from ``__del__`` so writes don't stay pinned
+    to the copy-scatter path forever."""
 
     __slots__ = ("_fn", "_on_done", "_result", "_has_result")
 
@@ -160,12 +187,13 @@ class SearchBatchHandle:
 
     @classmethod
     def ready(cls, result) -> "SearchBatchHandle":
+        """A finished handle over rows or HitColumns."""
         handle = cls(None)
         handle._result = result
         handle._has_result = True
         return handle
 
-    def collect(self):
+    def _resolve(self):
         if not self._has_result:
             try:
                 self._result = self._fn()
@@ -173,6 +201,13 @@ class SearchBatchHandle:
             finally:
                 self._release()
         return self._result
+
+    def collect(self) -> List[List[Tuple[int, float]]]:
+        return as_rows(self._resolve())
+
+    def collect_columns(self) -> Optional[HitColumns]:
+        result = self._resolve()
+        return result if isinstance(result, HitColumns) else None
 
     def _release(self):
         done, self._on_done = self._on_done, None
@@ -187,21 +222,15 @@ class SearchBatchHandle:
 
 
 def _slots_to_ids(dists, idx, id_of_slot, k_req: int, nq: int
-                  ) -> List[List[Tuple[int, float]]]:
-    """Map (Q, k) slot results to per-query [(internal_id, dist)] rows,
-    trimming the +inf masked/invalid tail."""
-    out: List[List[Tuple[int, float]]] = []
-    for qi in range(nq):
-        row: List[Tuple[int, float]] = []
-        for j in range(dists.shape[1]):
-            dist = float(dists[qi, j])
-            if math.isinf(dist):
-                break  # masked/invalid tail
-            if len(row) == k_req:
-                break
-            row.append((int(id_of_slot[int(idx[qi, j])]), dist))
-        out.append(row)
-    return out
+                  ) -> HitColumns:
+    """Map (Q, k) slot results to HitColumns of internal ids: each row
+    stops at ``k_req`` or at its first +inf (a masked or invalid slot,
+    whose index is never read). One gather for the whole batch."""
+    w = min(int(k_req), dists.shape[1])
+    dists = dists[:nq, :w]
+    gone = np.logical_or.accumulate(np.isinf(dists), axis=1)
+    ids = np.where(gone, -1, id_of_slot[np.where(gone, 0, idx[:nq, :w])])
+    return HitColumns(ids, dists, w - gone.sum(axis=1))
 
 
 class FlatIndex(Index):

@@ -54,7 +54,7 @@ from ..distance import DistanceMetric, validate_cosine_operands
 from ..errors import IndexOpError
 from ..ops.update import scatter_rows, scatter_rows_copy
 from ..utils.profiling import annotate
-from .flat import FlatIndex, SearchBatchHandle
+from .flat import FlatIndex, HitColumns, SearchBatchHandle, as_rows
 
 _TRAIN_SAMPLE_MAX = 1 << 18
 _SCAN_CHUNK = 16384         # rows per streamed scan chunk (pow2; picked on
@@ -503,16 +503,25 @@ class _PqCodesCore:
         """The scan + re-rank pipeline is synchronous (the re-rank needs
         the candidates), so the async contract is served eagerly —
         inheriting FlatIndex's launcher would swap the PQ lane for a full
-        exact scan."""
-        return SearchBatchHandle.ready(self.search_batch(
-            queries, k, slot_mask=slot_mask,
-            mask_layout_version=mask_layout_version))
+        exact scan. The handle holds HitColumns where the device re-rank
+        answered."""
+        return SearchBatchHandle.ready(self._search_hits(
+            queries, k, slot_mask, None, mask_layout_version))
 
     def search_batch(self, queries: np.ndarray, k: int,
                      slot_mask: Optional[np.ndarray] = None,
                      refine: Optional[int] = None,
                      mask_layout_version: Optional[int] = None
                      ) -> List[List[Tuple[int, float]]]:
+        return as_rows(self._search_hits(queries, k, slot_mask, refine,
+                                         mask_layout_version))
+
+    def _search_hits(self, queries: np.ndarray, k: int,
+                     slot_mask: Optional[np.ndarray],
+                     refine: Optional[int],
+                     mask_layout_version: Optional[int]):
+        """``search_batch``'s hits: HitColumns from the device re-rank,
+        per-query rows from every other venue and fallback."""
         if slot_mask is not None:
             # no auto-train on a filtered query (the JAX package's policy)
             with self._lock:
@@ -535,8 +544,7 @@ class _PqCodesCore:
     def _pq_search(self, queries: np.ndarray, k: int,
                    refine: Optional[int],
                    slot_mask: Optional[np.ndarray],
-                   mask_layout_version: Optional[int]
-                   ) -> List[List[Tuple[int, float]]]:
+                   mask_layout_version: Optional[int]):
         from ..ops.topk import next_pow2
         fb: dict = ({} if slot_mask is None else
                     {"slot_mask": slot_mask,
@@ -649,7 +657,8 @@ class _PqCodesCore:
                     res = self._rerank(queries, scan_scores, slots,
                                        k_req, tick0, lv0, slot_mask=mk)
         if res is not None and mk is not None:
-            res = self._fill_masked_short(res, queries, k_req, mk, lv0)
+            res = self._fill_masked_short(as_rows(res), queries, k_req, mk,
+                                          lv0)
         if res is not None:
             return res
         # the slot layout changed mid-flight: the candidate slots address
@@ -664,13 +673,15 @@ class _PqCodesCore:
     def _collect_device_rerank(self, queries: np.ndarray, dev_out,
                                k_req: int, tick0: int, lv0: int,
                                slot_mask: Optional[np.ndarray]
-                               ) -> Optional[List[List[Tuple[int, float]]]]:
-        """Map the device re-rank's (Q, k) results to ids. Distances were
+                               ) -> Optional[HitColumns]:
+        """Map the device re-rank's (Q, k) results to ids, as HitColumns:
+        each row stops at its first non-finite distance. Distances were
         computed over the snapshot rows; slots mutated after ``tick0`` are
         dropped, and a query that lost results that way is re-answered by
         the host re-rank over its full candidate pool, which the dispatch
-        loop kept on the device for this repair."""
-        out: List[List[Tuple[int, float]]] = []
+        loop kept on the device for this repair; its row is written into
+        the columns."""
+        parts = []
         a = 0
         for dv, ds, sv_dev, sl_dev, got in dev_out:
             sl = ds.astype(np.int64)
@@ -684,7 +695,9 @@ class _PqCodesCore:
                 ids = self._id_of_slot[sl]
             finite = np.isfinite(dv)
             dropped = finite & ~ok
-            fixed: dict = {}
+            run = np.logical_and.accumulate(finite, axis=1)
+            ids = np.where(run, ids, -1)
+            counts = run.sum(axis=1)
             if dropped.any():
                 qidx = np.nonzero(dropped.any(axis=1))[0]
                 sv_h = sv_dev.cpu().numpy()
@@ -695,21 +708,19 @@ class _PqCodesCore:
                     slot_mask=slot_mask)
                 if rows is None:
                     return None
-                fixed = dict(zip(qidx.tolist(), rows))
-            dl, il = dv.tolist(), ids.tolist()
-            fl = finite.tolist()
-            for qi in range(got):
-                if qi in fixed:
-                    out.append(fixed[qi])
-                    continue
-                row: List[Tuple[int, float]] = []
-                for j, fin in enumerate(fl[qi]):
-                    if not fin:
-                        break
-                    row.append((il[qi][j], dl[qi][j]))
-                out.append(row)
+                dv = dv.copy()
+                for qi, row in zip(qidx.tolist(), rows):
+                    n = counts[qi] = len(row)
+                    ids[qi] = -1
+                    if n:
+                        ids[qi, :n], dv[qi, :n] = zip(*row)
+            parts.append((ids, dv, counts))
             a += got
-        return out
+        if not parts:
+            return HitColumns(np.empty((0, k_req), np.int64),
+                              np.empty((0, k_req), np.float32),
+                              np.empty(0, np.int64))
+        return HitColumns(*(np.concatenate(c) for c in zip(*parts)))
 
     def _rerank_gathered(self, queries: np.ndarray,
                          scan_scores: np.ndarray, slots: np.ndarray,

@@ -34,9 +34,9 @@ from .distance import DistanceMetric
 from .errors import (DimensionMismatchError, IndexOpError,
                      StaleSlotMaskError, VectorNotFoundError)
 from .index.base import Index
-from .index.flat import FlatIndex
+from .index.flat import FlatIndex, HitColumns
 from .metadata import ColumnarMetadata, Metadata, MetadataFilter
-from .utils.profiling import annotate
+from .utils.profiling import annotate, count
 from .vector import Vector, as_f32_array
 
 # Bounded retries when a concurrent slot repack invalidates a compiled
@@ -60,17 +60,23 @@ class BatchInsertItem:
 
 
 class _InflightIdMap:
-    """Copy-on-write internal→string id map snapshot for one in-flight
+    """Copy-on-write internal→string id column snapshot for one in-flight
     search_batch_submit. ``map`` stays None (collect reads the live
-    store map) until a mutation lands while the handle is in flight;
-    the mutation freezes the pre-mutation map here so collect() maps
-    the device snapshot's internal ids against the ids that existed at
-    submit time (matching the index side's copy-scatter snapshot)."""
+    store column) until a mutation lands while the handle is in flight;
+    the mutation freezes a copy of the pre-mutation column here so
+    collect() maps the device snapshot's internal ids against the ids
+    that existed at submit time (matching the index side's copy-scatter
+    snapshot)."""
 
     __slots__ = ("map",)
 
     def __init__(self):
-        self.map: Optional[Dict[int, str]] = None
+        self.map: Optional[np.ndarray] = None
+
+
+def _string_id(col: np.ndarray, internal_id) -> Optional[str]:
+    """The string id ``col`` holds for an internal id, None for none."""
+    return col[internal_id] if 0 <= internal_id < len(col) else None
 
 
 class StoreSearchHandle:
@@ -122,7 +128,10 @@ class VectorStore:
     def __init__(self, index: Index):
         self._index = index
         self._id_to_internal: Dict[str, int] = {}
-        self._internal_to_id: Dict[int, str] = {}
+        # internal -> string id: an object column indexed by internal id,
+        # None where no row holds the id. 8 bytes for each internal id
+        # ever allocated (ids are never reused); grows geometrically
+        self._ids = np.empty(0, dtype=object)
         self._metadata: Dict[int, Metadata] = {}
         self._next_id = 0
         self._dimension: Optional[int] = None
@@ -196,7 +205,14 @@ class VectorStore:
         appear in an older device snapshot's results."""
         for holder in self._inflight_id_maps:
             if holder.map is None:
-                holder.map = dict(self._internal_to_id)
+                holder.map = self._ids.copy()
+
+    def _fit_ids(self, n: int) -> None:
+        """Room in the id column for internal ids below ``n``."""
+        if n > len(self._ids):
+            col = np.empty(max(n, 2 * len(self._ids)), dtype=object)
+            col[:len(self._ids)] = self._ids
+            self._ids = col
 
     def _remove_existing(self, id: str) -> None:
         old_internal = self._id_to_internal.get(id)
@@ -206,13 +222,14 @@ class VectorStore:
         self._clear_columnar(old_internal)
         self._index.remove(old_internal)
         self._metadata.pop(old_internal, None)
-        self._internal_to_id.pop(old_internal, None)
+        self._ids[old_internal] = None
 
     def _alloc_internal(self, id: str) -> int:
         internal_id = self._next_id
         self._next_id += 1
         self._id_to_internal[id] = internal_id
-        self._internal_to_id[internal_id] = id
+        self._fit_ids(self._next_id)
+        self._ids[internal_id] = id
         return internal_id
 
     def _ensure_columnar_current(self) -> None:
@@ -296,7 +313,7 @@ class VectorStore:
             vector = Vector([])
         self._cow_inflight_id_maps()
         self._clear_columnar(internal_id)
-        self._internal_to_id.pop(internal_id, None)
+        self._ids[internal_id] = None
         self._metadata.pop(internal_id, None)
         self._index.remove(internal_id)
         return vector
@@ -326,15 +343,39 @@ class VectorStore:
             raise DimensionMismatchError(self._dimension, query.dimension)
 
     def _map_results(self, raw: List[Tuple[int, float]],
-                     id_map: Optional[Dict[int, str]] = None
+                     id_map: Optional[np.ndarray] = None
                      ) -> List[SearchResult]:
-        if id_map is None:
-            id_map = self._internal_to_id
+        """[(internal_id, dist)] -> SearchResults through the id column
+        (``id_map``: a frozen copy of it); ids with no string id drop."""
+        col = self._ids if id_map is None else id_map
         out = []
         for internal_id, dist in raw:
-            sid = id_map.get(internal_id)
+            sid = _string_id(col, internal_id)
             if sid is not None:
                 out.append(SearchResult(id=sid, distance=dist))
+        return out
+
+    def _map_columns(self, hits: HitColumns, ks: List[int],
+                     id_map: Optional[np.ndarray] = None
+                     ) -> List[List[SearchResult]]:
+        """A call's HitColumns -> SearchResults, as ``_map_results`` over
+        each query's first ``k`` hits: one gather from internal to string
+        ids and one ``tolist()`` for the call, then one pass a query."""
+        col = self._ids if id_map is None else id_map
+        ids = hits.ids
+        known = (ids >= 0) & (ids < len(col))
+        sids = np.empty(ids.shape, dtype=object)
+        sids[known] = col[ids[known]]
+        count("store.columnar_queries", len(ks))
+        out = []
+        for s, d, n, k in zip(sids.tolist(), hits.dists.tolist(),
+                              hits.counts.tolist(), ks):
+            s = s[:min(n, k)]
+            if None in s:
+                out.append([SearchResult(i, x) for i, x in zip(s, d)
+                            if i is not None])
+            else:
+                out.append(list(map(SearchResult, s, d)))
         return out
 
     def search(self, query: Vector, k: int, *, ef: Optional[int] = None,
@@ -480,7 +521,7 @@ class VectorStore:
         for internal_id, dist in raw:
             if len(out) == k:
                 break
-            sid = self._internal_to_id.get(internal_id)
+            sid = _string_id(self._ids, internal_id)
             if sid is None:
                 continue
             meta = self._metadata.get(internal_id)
@@ -582,12 +623,15 @@ class VectorStore:
                 pass
 
         def _collect():
-            raw_batches = handle.collect()
             # a delete/upsert that landed between submit and collect froze
-            # the submit-time map in the holder; results reflect the same
-            # snapshot point as the index's copy-scatter device state
+            # the submit-time column in the holder; results reflect the
+            # same snapshot point as the index's copy-scatter device state
+            columns = getattr(handle, "collect_columns", None)
+            hits = columns() if columns is not None else None
+            if hits is not None:
+                return self._map_columns(hits, ks, holder.map)
             return [self._map_results(raw[:k], holder.map)
-                    for raw, k in zip(raw_batches, ks)]
+                    for raw, k in zip(handle.collect(), ks)]
 
         return StoreSearchHandle(_collect, release=_release)
 
@@ -650,7 +694,8 @@ class VectorStore:
         return self._index
 
     def internal_to_string_ids(self) -> Dict[int, str]:
-        return dict(self._internal_to_id)
+        return {iid: sid for iid, sid in enumerate(self._ids.tolist())
+                if sid is not None}
 
     def restore_snapshot_chunk(self, internal_ids, string_ids,
                                rows, metadata: Dict[int, Dict[str, str]]
@@ -671,7 +716,8 @@ class VectorStore:
             # no _cow_inflight_id_maps: this path only ADDS fresh ids
             iids = iids_arr.tolist()
             self._id_to_internal.update(zip(string_ids, iids))
-            self._internal_to_id.update(zip(iids, string_ids))
+            self._fit_ids(max(iids, default=-1) + 1)
+            self._ids[iids_arr] = string_ids
             for iid in iids:
                 fields = metadata.get(iid)
                 if fields:
@@ -710,7 +756,9 @@ class VectorStore:
         metadata, dimension, and the columnar filter mirror."""
         self._cow_inflight_id_maps()
         self._id_to_internal = {sid: iid for iid, sid in id_map.items()}
-        self._internal_to_id = dict(id_map)
+        self._ids = np.empty(0, dtype=object)
+        self._fit_ids(max(id_map, default=-1) + 1)
+        self._ids[list(id_map)] = list(id_map.values())
         self._metadata = {iid: Metadata(fields)
                           for iid, fields in metadata.items()}
         for iid in id_map:
