@@ -1,25 +1,28 @@
-"""The columnar hit hand-off from index to store on the CPU.
+"""The hand-off of search hits from index to store on the CPU.
 
-The flat and IVF-PQ collects hand the store HitColumns ((Q, w) internal
-ids, distances, per-query counts); the store maps a whole call with one
-gather from its id column. Each case holds that column path to the tuple
-path it replaces, hit for hit: the index handle's ``collect()`` rows
-mapped one at a time by ``VectorStore._map_results``. The slot mapping
-itself is held to an element-by-element reading, and the counter
-``store.columnar_queries`` to the queries that took the column path."""
+Every batched index search hands the store HitColumns ((Q, w) internal
+ids, distances, per-query counts), each query's row cut by
+``HitColumns.cut``; the store maps a whole call with one gather from its
+id column (``VectorStore._map_columns``). Each case holds the store's
+answers to an element-by-element mapping written here: the index
+handle's rows, each cut at its k, mapped one hit at a time through the
+id column. The producers' cuts are held to element-by-element readings
+of their rules: the flat slot mapping stops at +inf, the host, gathered
+and IVF-probed ones at the first non-finite distance."""
 
 import numpy as np
 import pytest
 import torch
 
 from vectordb_tpu_torch import (DistanceMetric, HnswIndex, HnswParams,
-                                IvfPqIndex, PqFlatIndex, Vector,
-                                VectorStore)
+                                IvfFlatIndex, IvfPqIndex, PqFlatIndex,
+                                Vector, VectorStore)
+from vectordb_tpu_torch.index import pq as tpqi
 from vectordb_tpu_torch.index.flat import FlatIndex, _slots_to_ids
+from vectordb_tpu_torch.ops import pq as tpq
 from vectordb_tpu_torch.ops import topk as ttopk
 from vectordb_tpu_torch.parallel import make_mesh
-from vectordb_tpu_torch.store import BatchInsertItem
-from vectordb_tpu_torch.utils import profiling
+from vectordb_tpu_torch.store import BatchInsertItem, SearchResult
 
 torch.set_num_threads(1)
 EUC = DistanceMetric.EUCLIDEAN
@@ -29,9 +32,6 @@ N, D, NQ, K = 600, 16, 12, 10
 @pytest.fixture(autouse=True)
 def _ladder(monkeypatch):
     monkeypatch.setattr(ttopk, "_EXACT1P_MIN_N", 512)
-    profiling.reset_spans()
-    yield
-    profiling.reset_spans()
 
 
 def _rows(n=N, seed=0):
@@ -138,23 +138,42 @@ CASES = {
 
 
 def _spy(store, monkeypatch):
-    """Record the index handle each submit returns and the id column each
-    column-path collect maps through."""
-    seen = {}
+    """Record the index handle the first submit returns (the batch's: a
+    mutation between submit and collect may run single searches) and the
+    id column and query count of each mapping."""
+    seen = {"mapped": []}
     submit = store.index.search_batch_submit
     map_columns = store._map_columns
 
     def spy_submit(queries, k):
-        seen["handle"] = submit(queries, k)
-        return seen["handle"]
+        handle = submit(queries, k)
+        seen.setdefault("handle", handle)
+        return handle
 
-    def spy_map(hits, ks, id_map=None):
+    def spy_map(hits, ks=None, id_map=None):
         seen["id_map"] = id_map
+        seen["mapped"].append(len(hits.counts))
         return map_columns(hits, ks, id_map)
 
     monkeypatch.setattr(store.index, "search_batch_submit", spy_submit)
     monkeypatch.setattr(store, "_map_columns", spy_map)
     return seen
+
+
+def _map_by_element(store, rows, ks, id_map=None):
+    """Each query's first k [(internal_id, dist)] hits mapped one at a
+    time through the id column (``id_map``: a frozen copy of it); ids
+    with no string id drop."""
+    col = store._ids if id_map is None else id_map
+    out = []
+    for row, k in zip(rows, ks):
+        hits = []
+        for iid, dist in row[:k]:
+            sid = col[iid] if 0 <= iid < len(col) else None
+            if sid is not None:
+                hits.append(SearchResult(sid, dist))
+        out.append(hits)
+    return out
 
 
 def _slot_case(seed):
@@ -163,6 +182,7 @@ def _slot_case(seed):
     dists = np.sort(rng.standard_normal((q, w)).astype(np.float32), axis=1)
     cut = rng.integers(0, w + 1, q)
     dists[np.arange(w) >= cut[:, None]] = np.inf
+    dists[0, 1] = np.nan                    # kept: only +inf ends a row
     idx = rng.integers(-1, cap, (q, w))
     idx[np.isinf(dists)] = 1 << 40          # out of range: must not be read
     id_of_slot = rng.integers(-1, 1 << 20, cap)
@@ -181,35 +201,183 @@ def _slots_to_ids_by_element(dists, idx, id_of_slot, k_req, nq):
     return out
 
 
+def _same_rows(got, want):
+    # NaN distances compare by position, everything else exactly
+    assert [[i for i, _ in r] for r in got] == [[i for i, _ in r]
+                                                for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal([d for _, d in g], [d for _, d in w])
+    assert all(type(i) is int and type(d) is float
+               for row in got for i, d in row)
+
+
+def _same_results(got, want):
+    # ids exactly, each id's distance by position (NaN equals NaN)
+    assert [[r.id for r in row] for row in got] == [[r.id for r in row]
+                                                    for row in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal([r.distance for r in g],
+                                      [r.distance for r in w])
+    assert all(type(r.id) is str and type(r.distance) is float
+               for row in got for r in row)
+
+
 def _check_slot_mapping(seed):
     # the collect's mapping against one read element by element: each
     # row stops at k_req or at its first infinite distance (a masked or
     # invalid slot, whose index is never read), ids and dists as Python
-    # int and float; then the store's column path over the same hits
-    # against its tuple path, with ids past the column and unnamed ones
+    # int and float; then the store's mapping of the same hits against
+    # one hit at a time, with ids past the column and unnamed ones
     dists, idx, id_of_slot = _slot_case(seed)
     store = _flat_store(_rows(40))
     store.delete("r3")
     q = dists.shape[0]
     for k_req, nq in ((K, q), (dists.shape[1], q), (3, q - 2), (0, q)):
         hits = _slots_to_ids(dists, idx, id_of_slot, k_req, nq)
-        rows = hits.rows()
-        assert rows == _slots_to_ids_by_element(dists, idx, id_of_slot,
-                                                k_req, nq)
-        assert all(type(i) is int and type(d) is float
-                   for row in rows for i, d in row)
+        _same_rows(hits.rows(), _slots_to_ids_by_element(
+            dists, idx, id_of_slot, k_req, nq))
         hits.ids = hits.ids % 80 - 2        # -2..77: 39 named of 64
         ks = [k_req, 2] * (nq // 2)
-        assert store._map_columns(hits, ks) == [
-            store._map_results(r[:k]) for r, k in zip(hits.rows(), ks)]
+        _same_results(store._map_columns(hits, ks),
+                      _map_by_element(store, hits.rows(), ks))
 
 
-@pytest.mark.parametrize("case", [f"slots-seed{s}" for s in range(4)]
-                         + list(CASES) + ["flat-masked-tail",
-                                          "pq-repair-in-flight"])
-def test_column_path_matches_tuple_path(case, monkeypatch):
+def _cut_by_element(dists, ids_at, k_req):
+    """A producer's rows read one element at a time: each stops at
+    ``k_req`` or at its first non-finite distance; ``ids_at(qi, j)`` is
+    read only for the hits kept."""
+    out = []
+    for qi in range(dists.shape[0]):
+        row = []
+        for j in range(dists.shape[1]):
+            dv = float(dists[qi, j])
+            if not np.isfinite(dv) or len(row) >= k_req:
+                break
+            row.append((int(ids_at(qi, j)), dv))
+        out.append(row)
+    return out
+
+
+def _ranked_case(seed, q, w):
+    """(q, w) ascending distances with +inf tails and a NaN inside some
+    rows."""
+    rng = np.random.default_rng(seed)
+    dists = np.sort(rng.random((q, w)).astype(np.float32), axis=1)
+    cut = rng.integers(0, w + 1, q)
+    dists[np.arange(w) >= cut[:, None]] = np.inf
+    nan_at = rng.integers(0, w, q)
+    rows = np.nonzero(rng.random(q) < 0.4)[0]
+    dists[rows, nan_at[rows]] = np.nan
+    return rng, dists
+
+
+def _pq_index(rows, rerank):
+    index = PqFlatIndex(EUC, m=4, ksub=16, refine=32, rerank=rerank,
+                        device="cpu")
+    index.add_batch([(3 * i + 1, Vector(r)) for i, r in enumerate(rows)])
+    return index
+
+
+def _check_host_producer(seed):
+    # venue "host": the candidates' exact distances, dead ones (a
+    # non-finite scan score, a NaN row) at +inf or NaN, ranked and cut
+    index = _pq_index(_rows(), "host")
+    rng = np.random.default_rng(seed)
+    q, r, k_req = 9, 24, K
+    index._vectors[7] = np.nan
+    queries = _rows(q, seed=seed + 1)
+    slots = rng.integers(0, N, (q, r))
+    slots[:, 0] = 7
+    scores = rng.random((q, r)).astype(np.float32)
+    scores[rng.random((q, r)) < rng.random((q, 1))] = np.inf
+    scores[rng.random((q, r)) < 0.1] = np.nan
+    got = index._rerank(queries, scores, slots, k_req, index._tick,
+                        index.slot_layout_version)
+    cand = index._vectors[slots]
+    diff = cand - queries[:, None, :]
+    dist = np.sqrt(np.einsum("qrd,qrd->qr", diff, diff, optimize=True))
+    dist = np.where(np.isfinite(scores), dist, np.inf).astype(np.float32)
+    order = np.argsort(dist, axis=1, kind="stable")[:, :k_req]
+    ids = index._id_of_slot[slots]
+    want = _cut_by_element(np.take_along_axis(dist, order, axis=1),
+                           lambda qi, j: ids[qi, order[qi, j]], k_req)
+    _same_rows(got.rows(), want)
+    assert (got.counts < k_req).any()
+
+
+def _check_gathered_producer(seed, monkeypatch):
+    # venue "gathered": the device's (Q, k) distances and positions into
+    # each query's candidate list, collected block by block
+    index = _pq_index(_rows(), "device")
+    q, r, k_req = 11, 16, K
+    rng, dv = _ranked_case(seed, q, k_req)
+    pos = rng.integers(0, r, (q, k_req))
+    slots = rng.integers(0, N, (q, r))
+    queries = _rows(q, seed=seed + 1)
+    queries[:, 0] = np.arange(q)            # the fake reads its block
+
+    def fake(qb, rows, ok, metric, k):
+        a = int(qb[0, 0])
+        b = a + qb.shape[0]
+        return torch.from_numpy(dv[a:b]), torch.from_numpy(pos[a:b])
+
+    monkeypatch.setattr(tpq, "pq_rerank_gathered", fake)
+    monkeypatch.setattr(tpqi, "_RERANK_QBLOCK", 3)
+    got = index._rerank_gathered(queries, np.zeros((q, r), np.float32),
+                                 slots, k_req, index._tick,
+                                 index.slot_layout_version)
+    ids = index._id_of_slot[slots]
+    want = _cut_by_element(dv, lambda qi, j: ids[qi, pos[qi, j]], k_req)
+    _same_rows(got.rows(), want)
+    assert (got.counts < k_req).any()
+
+
+def _check_ivf_producer(seed, monkeypatch):
+    # the IVF probed search: (Q, w) slots and distances from the device,
+    # read through the id snapshot up to each row's first non-finite
+    # distance; a query left short of k re-runs through the exact scan
+    index = IvfFlatIndex(EUC, nlist=4, auto_train_min=1 << 20,
+                         device="cpu")
+    index.add_batch([(2 * i + 5, Vector(r)) for i, r in
+                     enumerate(_rows())])
+    q, w, k = 10, 12, 6
+    rng, dists = _ranked_case(seed, q, w)
+    idx = rng.integers(0, index.capacity, (q, w))
+    idx[~np.isfinite(dists)] = 1 << 40      # out of range: must not be read
+    id_of_slot = index._id_of_slot.copy()
+    monkeypatch.setattr(index, "_probed_slots",
+                        lambda *a: (idx, dists, id_of_slot, k))
+    queries = _rows(q, seed=seed + 1)
+    got = index._probed_search(queries, k, None, None, None).rows()
+    want = _cut_by_element(dists, lambda qi, j: id_of_slot[idx[qi, j]], k)
+    short = [qi for qi, row in enumerate(want) if len(row) < k]
+    assert short and len(short) < q
+    for qi, row in zip(short, FlatIndex.search_batch(index, queries[short],
+                                                     k)):
+        want[qi] = row
+    _same_rows(got, want)
+
+
+PRODUCERS = {"host": _check_host_producer,
+             "gathered": _check_gathered_producer,
+             "ivf-probed": _check_ivf_producer}
+
+
+@pytest.mark.parametrize(
+    "case", [f"slots-seed{s}" for s in range(4)]
+    + [f"{p}-seed{s}" for p in PRODUCERS for s in range(2)]
+    + list(CASES) + ["flat-masked-tail", "pq-repair-in-flight"])
+def test_store_matches_element_mapping(case, monkeypatch):
     if case.startswith("slots-seed"):
         _check_slot_mapping(int(case[len("slots-seed"):]))
+        return
+    producer, _, seed = case.rpartition("-seed")
+    if producer in PRODUCERS:
+        check = PRODUCERS[producer]
+        if producer == "host":
+            check(int(seed))
+        else:
+            check(int(seed), monkeypatch)
         return
     if case == "flat-masked-tail":
         # a slot mask leaves fewer eligible rows than k: +inf tails
@@ -221,8 +389,8 @@ def test_column_path_matches_tuple_path(case, monkeypatch):
         handle = store.index.search_batch_submit(qs, K, slot_mask=mask)
         hits = handle.collect_columns()
         assert (hits.counts == int(mask[:N].sum())).all()
-        assert store._map_columns(hits, ks) == [
-            store._map_results(r[:k]) for r, k in zip(handle.collect(), ks)]
+        assert store._map_columns(hits, ks) == _map_by_element(
+            store, handle.collect(), ks)
         return
     if case == "pq-repair-in-flight":
         # a slot mutated between the scan and the id mapping: the query is
@@ -245,8 +413,8 @@ def test_column_path_matches_tuple_path(case, monkeypatch):
         # k = refine: the repaired row is one short of the device's
         queries = [(Vector(rows[5]), 32), (Vector(rows[7]), K)]
         got = store.search_batch(queries)
-        want = [store._map_results(r[:k], seen["id_map"])
-                for r, (_, k) in zip(seen["handle"].collect(), queries)]
+        want = _map_by_element(store, seen["handle"].collect(),
+                               [k for _, k in queries], seen["id_map"])
         assert got == want and "id_map" in seen
         assert [len(r) for r in got] == [31, K]
         assert all(r.id != "r5" or r.distance > 1.0 for r in got[0])
@@ -264,17 +432,15 @@ def test_column_path_matches_tuple_path(case, monkeypatch):
     if "handle" not in seen:                  # an empty store answers []
         assert before is _empty and got == [[] for _ in queries]
         return
-    assert "id_map" in seen                   # the column path ran
+    assert seen["mapped"][-1] == NQ           # one mapping of the call
     if between is not None:
         assert seen["id_map"] is not None     # a frozen column
-    want = [store._map_results(raw[:k], seen["id_map"])
-            for raw, k in zip(seen["handle"].collect(), ks)]
-    assert got == want
+    assert got == _map_by_element(store, seen["handle"].collect(), ks,
+                                  seen["id_map"])
     if between is None:
         assert [len(r) for r in got] == [min(k, len(store)) for k in ks]
     assert all(type(r.id) is str and type(r.distance) is float
                for row in got for r in row)
-    assert profiling.counters()["store.columnar_queries"] == NQ
 
 
 def _hnsw_store(rows):
@@ -284,18 +450,22 @@ def _hnsw_store(rows):
 
 
 @pytest.mark.parametrize("case", ["flat", "ivfpq", "hnsw", "hnsw-ef"])
-def test_columnar_queries_counts_column_path(case):
-    # every query of a flat or IVF-PQ call; none where the index hands
-    # rows (HNSW's eager path) or a knob takes the tuned path
+def test_every_family_maps_through_columns(case, monkeypatch):
+    # a batch of any index family, knob or none, is one HitColumns
+    # mapping of all its queries, and answers as its queries one by one
     make = {"flat": _flat_store, "ivfpq": _ivfpq_store}.get(case,
                                                             _hnsw_store)
     knob = {"ef": 40} if case == "hnsw-ef" else {}
-    counted = case in ("flat", "ivfpq")
     store = make(_rows(300))
     queries = [(Vector(q), K) for q in _rows(NQ, seed=2)]
-    profiling.reset_spans()
+    single = [store.search(q, k, **knob) for q, k in queries]
+    seen = _spy(store, monkeypatch)
     for _ in range(2):
         got = store.search_batch(queries, **knob)
         assert [len(r) for r in got] == [K] * NQ
-    assert profiling.counters().get("store.columnar_queries", 0) == (
-        2 * NQ if counted else 0)
+        assert [[r.id for r in row] for row in got] == [
+            [r.id for r in row] for row in single]
+        for g, s in zip(got, single):
+            np.testing.assert_allclose([r.distance for r in g],
+                                       [r.distance for r in s], rtol=1e-6)
+    assert seen["mapped"] == [NQ, NQ]

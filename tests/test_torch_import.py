@@ -18,7 +18,7 @@ PKG = ROOT / "vectordb_tpu_torch"
 MODULES = sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")
                  if "_build" not in p.parts) + [
                      "chip_smoke.py", "tools/coarse_bodies.py",
-                     "tools/profile_torch_slice.py", "tools/serving_sweep.py"]
+                     "tools/serving_sweep.py"]
 
 _PROBE = """
 import sys

@@ -420,9 +420,9 @@ def test_fill_masked_short_is_exact(pair):
     q = np.ascontiguousarray(db[:3] + 0.01)
     mask = np.zeros(t.capacity, bool)
     mask[np.arange(1, 3000, 3)] = True
-    res = t._fill_masked_short([[], [], []], q, 4, mask,
-                               t.slot_layout_version)
-    _same_results(j.search_batch(q, 4, slot_mask=mask), res)
+    res = t._fill_masked_short(tpqi.HitColumns.from_rows([[], [], []]), q,
+                               4, mask, t.slot_layout_version)
+    _same_results(j.search_batch(q, 4, slot_mask=mask), res.rows())
 
 
 def test_crud_after_training_matches_jax():

@@ -63,7 +63,7 @@ from ..ops.update import (scatter_rows, scatter_rows_copy, scatter_values,
                           scatter_values_copy)
 from ..utils.profiling import annotate, count
 from ..vector import Vector, as_f32_array
-from .base import Index
+from .base import HitColumns, Index, SearchBatchHandle
 
 _MIN_CAPACITY = 1024
 # If more than this fraction of slots is dirty, re-upload wholesale instead
@@ -141,96 +141,14 @@ def _int8_codes_scales(rows: np.ndarray):
     return codes, scales
 
 
-class HitColumns:
-    """A batched search's hits as columns, each query's row ascending by
-    distance: ``ids`` (Q, w) int64 internal ids, -1 past the query's
-    count; ``dists`` (Q, w), the producer's floats; ``counts`` (Q,) the
-    hits a query has. The store maps a whole call from these in one
-    gather; ``rows()`` is the per-query [(internal_id, dist)] form."""
-
-    __slots__ = ("ids", "dists", "counts")
-
-    def __init__(self, ids: np.ndarray, dists: np.ndarray,
-                 counts: np.ndarray):
-        self.ids, self.dists, self.counts = ids, dists, counts
-
-    def rows(self) -> List[List[Tuple[int, float]]]:
-        return [list(zip(i[:n], d[:n])) for i, d, n in
-                zip(self.ids.tolist(), self.dists.tolist(),
-                    self.counts.tolist())]
-
-
-def as_rows(hits) -> List[List[Tuple[int, float]]]:
-    """The per-query rows of a search's hits, given as rows or as
-    HitColumns."""
-    return hits.rows() if isinstance(hits, HitColumns) else hits
-
-
-class SearchBatchHandle:
-    """An in-flight index-level batched search (search_batch_submit).
-
-    ``collect()`` blocks on the device result and returns per-query
-    [(internal_id, dist)] rows; ``collect_columns()`` returns the same
-    hits as HitColumns where the search produced them, else None. The
-    first of them releases the index's in-flight mark — exactly once,
-    even if called repeatedly or if the device work failed. An abandoned
-    handle releases the mark from ``__del__`` so writes don't stay pinned
-    to the copy-scatter path forever."""
-
-    __slots__ = ("_fn", "_on_done", "_result", "_has_result")
-
-    def __init__(self, fn, on_done=None):
-        self._fn = fn
-        self._on_done = on_done
-        self._has_result = False
-        self._result = None
-
-    @classmethod
-    def ready(cls, result) -> "SearchBatchHandle":
-        """A finished handle over rows or HitColumns."""
-        handle = cls(None)
-        handle._result = result
-        handle._has_result = True
-        return handle
-
-    def _resolve(self):
-        if not self._has_result:
-            try:
-                self._result = self._fn()
-                self._has_result = True
-            finally:
-                self._release()
-        return self._result
-
-    def collect(self) -> List[List[Tuple[int, float]]]:
-        return as_rows(self._resolve())
-
-    def collect_columns(self) -> Optional[HitColumns]:
-        result = self._resolve()
-        return result if isinstance(result, HitColumns) else None
-
-    def _release(self):
-        done, self._on_done = self._on_done, None
-        if done is not None:
-            done()
-
-    def __del__(self):
-        try:
-            self._release()
-        except Exception:
-            pass
-
-
 def _slots_to_ids(dists, idx, id_of_slot, k_req: int, nq: int
                   ) -> HitColumns:
     """Map (Q, k) slot results to HitColumns of internal ids: each row
     stops at ``k_req`` or at its first +inf (a masked or invalid slot,
     whose index is never read). One gather for the whole batch."""
-    w = min(int(k_req), dists.shape[1])
-    dists = dists[:nq, :w]
-    gone = np.logical_or.accumulate(np.isinf(dists), axis=1)
-    ids = np.where(gone, -1, id_of_slot[np.where(gone, 0, idx[:nq, :w])])
-    return HitColumns(ids, dists, w - gone.sum(axis=1))
+    dists = dists[:nq]
+    return HitColumns.cut(idx[:nq], dists, ~np.isinf(dists), k_req,
+                          id_of=id_of_slot)
 
 
 class FlatIndex(Index):
@@ -1088,8 +1006,7 @@ class FlatIndex(Index):
     # -- search -------------------------------------------------------------
 
     def search(self, query: Vector, k: int) -> List[Tuple[int, float]]:
-        results = self.search_batch(as_f32_array(query).reshape(1, -1), k)
-        return results[0]
+        return self.search_batch(as_f32_array(query).reshape(1, -1), k)[0]
 
     def search_batch(self, queries: np.ndarray, k: int,
                      slot_mask: Optional[np.ndarray] = None,
@@ -1097,11 +1014,19 @@ class FlatIndex(Index):
                      ) -> List[List[Tuple[int, float]]]:
         """Q queries in one device submission; optional pre-top-k slot
         mask (``mask_layout_version``: see search_batch_submit)."""
-        # non-polymorphic: PqFlatIndex serves its submit through its own
-        # search_batch, so dispatching here would recurse
+        return self._exact_hits(queries, k, slot_mask,
+                                mask_layout_version).rows()
+
+    def _exact_hits(self, queries: np.ndarray, k: int,
+                    slot_mask: Optional[np.ndarray] = None,
+                    mask_layout_version: Optional[int] = None
+                    ) -> HitColumns:
+        """The certified exact search's hits, also the exact fallback of
+        the IVF and PQ subclasses: non-polymorphic, since they serve their
+        submit through their own searches, so dispatching would recurse."""
         return FlatIndex.search_batch_submit(
             self, queries, k, slot_mask=slot_mask,
-            mask_layout_version=mask_layout_version).collect()
+            mask_layout_version=mask_layout_version).collect_columns()
 
     def search_batch_submit(self, queries: np.ndarray, k: int,
                             slot_mask: Optional[np.ndarray] = None,
@@ -1126,7 +1051,7 @@ class FlatIndex(Index):
                                          self.slot_layout_version)
             if self._len == 0 or k <= 0:
                 return SearchBatchHandle.ready(
-                    [[] for _ in range(queries.shape[0])])
+                    HitColumns.from_rows([[]] * queries.shape[0]))
             if queries.shape[1] != self._dim:
                 raise DimensionMismatchError(self._dim, queries.shape[1])
             if self._metric is DistanceMetric.COSINE:
@@ -1255,10 +1180,9 @@ class FlatIndex(Index):
     def search_masked(self, query: Vector, k: int, slot_mask: np.ndarray,
                       mask_layout_version: Optional[int] = None
                       ) -> Optional[List[Tuple[int, float]]]:
-        results = self.search_batch(as_f32_array(query).reshape(1, -1), k,
-                                    slot_mask=slot_mask,
-                                    mask_layout_version=mask_layout_version)
-        return results[0]
+        return self.search_batch(as_f32_array(query).reshape(1, -1), k,
+                                 slot_mask=slot_mask,
+                                 mask_layout_version=mask_layout_version)[0]
 
     # -- introspection ------------------------------------------------------
 

@@ -49,6 +49,7 @@ from ..errors import IndexOpError
 from ..ops import coarse_kernel
 from ..utils.profiling import annotate
 from ..vector import Vector, as_f32_array
+from .base import HitColumns, SearchBatchHandle
 from .flat import FlatIndex
 
 SUB = 16                    # rows per tile (matches ops/coarse_kernel.SUB)
@@ -400,16 +401,22 @@ class IvfFlatIndex(FlatIndex):
         schedule, so the asynchronous contract is served eagerly: the
         search runs now and the handle is ready. (The inherited launcher
         would swap the probed lane for a full exact scan.)"""
-        from .flat import SearchBatchHandle
-        return SearchBatchHandle.ready(self.search_batch(
-            queries, k, slot_mask=slot_mask,
-            mask_layout_version=mask_layout_version))
+        return SearchBatchHandle.ready(self._ivf_hits(
+            queries, k, slot_mask, None, mask_layout_version))
 
     def search_batch(self, queries: np.ndarray, k: int,
                      slot_mask: Optional[np.ndarray] = None,
                      nprobe: Optional[int] = None,
                      mask_layout_version: Optional[int] = None
                      ) -> List[List[Tuple[int, float]]]:
+        return self._ivf_hits(queries, k, slot_mask, nprobe,
+                              mask_layout_version).rows()
+
+    def _ivf_hits(self, queries: np.ndarray, k: int,
+                  slot_mask: Optional[np.ndarray], nprobe: Optional[int],
+                  mask_layout_version: Optional[int]) -> HitColumns:
+        """``search_batch``'s hits: the probed search once trained, the
+        exact scan before."""
         if slot_mask is not None:
             # exact filtered search through the probed path: the mask is
             # ANDed into the validity array. No auto-train here: the
@@ -418,9 +425,8 @@ class IvfFlatIndex(FlatIndex):
             with self._lock:
                 trained = self._trained
             if not trained:
-                return super().search_batch(
-                    queries, k, slot_mask=slot_mask,
-                    mask_layout_version=mask_layout_version)
+                return self._exact_hits(queries, k, slot_mask,
+                                        mask_layout_version)
             return self._probed_search(queries, k, nprobe, slot_mask,
                                        mask_layout_version)
         with self._lock:
@@ -428,18 +434,18 @@ class IvfFlatIndex(FlatIndex):
                 self.train()
             trained = self._trained
         if not trained:
-            return super().search_batch(queries, k)
+            return self._exact_hits(queries, k)
         return self._probed_search(queries, k, nprobe, None, None)
 
     def _probed_search(self, queries: np.ndarray, k: int,
                        nprobe: Optional[int],
                        slot_mask: Optional[np.ndarray],
-                       mask_layout_version: Optional[int]
-                       ) -> List[List[Tuple[int, float]]]:
-        """Cluster-pruned search, masked or not. Queries that come up
-        short of k (sparse probed clusters, dead padding slots, or fewer
-        than k eligible rows) re-run through the exact scan: the any-k
-        contract and filter exactness are unconditional."""
+                       mask_layout_version: Optional[int]) -> HitColumns:
+        """Cluster-pruned search, masked or not. Each row stops at its
+        first non-finite distance. Queries that come up short of k (sparse
+        probed clusters, dead padding slots, or fewer than k eligible
+        rows) re-run through the exact scan: the any-k contract and filter
+        exactness are unconditional."""
         idx, dists, id_of_slot, k_req = self._probed_slots(
             queries, k, nprobe, slot_mask, mask_layout_version)
         queries = np.asarray(queries, dtype=np.float32)
@@ -448,25 +454,15 @@ class IvfFlatIndex(FlatIndex):
                      "mask_layout_version": mask_layout_version})
         if idx is None:
             if k_req is None:
-                return [[] for _ in range(queries.shape[0])]
-            return super().search_batch(queries, k, **fb)
-        q = queries.shape[0]
-        out: List[List[Tuple[int, float]]] = []
-        for qi in range(q):
-            row: List[Tuple[int, float]] = []
-            for j in range(dists.shape[1]):
-                dv = float(dists[qi, j])
-                if not np.isfinite(dv) or len(row) >= k_req:
-                    break
-                row.append((int(id_of_slot[int(idx[qi, j])]), dv))
-            out.append(row)
-        short = [qi for qi in range(q) if len(out[qi]) < k_req]
-        if short:
-            sub = super().search_batch(
-                np.ascontiguousarray(queries[np.asarray(short)]), k, **fb)
-            for qi, rows in zip(short, sub):
-                out[qi] = rows
-        return out
+                return HitColumns.from_rows([[]] * queries.shape[0])
+            return self._exact_hits(queries, k, **fb)
+        hits = HitColumns.cut(idx, dists, np.isfinite(dists), k_req,
+                              id_of=id_of_slot)
+        short = np.nonzero(hits.counts < k_req)[0]
+        if short.size:
+            hits = hits.put(short, self._exact_hits(
+                np.ascontiguousarray(queries[short]), k, **fb))
+        return hits
 
     def _probed_slots(self, queries, k: int, nprobe: Optional[int],
                       slot_mask, mask_layout_version):
@@ -575,7 +571,7 @@ class IvfFlatIndex(FlatIndex):
             cand = min(cand, self._nlist) if self._nlist else cand
             if cand in curve:
                 continue
-            got = self._probed_search(queries, k_eff, cand, None, None)
+            got = self._probed_search(queries, k_eff, cand, None, None).rows()
             hits = sum(len(ts & set(i for i, _ in row)) / max(len(ts), 1)
                        for ts, row in zip(truth_sets, got))
             curve[cand] = recall = hits / max(len(truth_sets), 1)
@@ -679,9 +675,6 @@ class IvfFlatIndex(FlatIndex):
             self._cluster_free = cluster_free
             self._spill_free = spill_free
             self._slot_cluster = slot_cluster
-
-    def search(self, query: Vector, k: int) -> List[Tuple[int, float]]:
-        return self.search_batch(as_f32_array(query).reshape(1, -1), k)[0]
 
     def search_with_nprobe(self, query: Vector, k: int,
                            nprobe: int) -> List[Tuple[int, float]]:

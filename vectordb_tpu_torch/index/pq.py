@@ -54,7 +54,8 @@ from ..distance import DistanceMetric, validate_cosine_operands
 from ..errors import IndexOpError
 from ..ops.update import scatter_rows, scatter_rows_copy
 from ..utils.profiling import annotate
-from .flat import FlatIndex, HitColumns, SearchBatchHandle, as_rows
+from .base import HitColumns, SearchBatchHandle
+from .flat import FlatIndex
 
 _TRAIN_SAMPLE_MAX = 1 << 18
 _SCAN_CHUNK = 16384         # rows per streamed scan chunk (pow2; picked on
@@ -491,10 +492,6 @@ class _PqCodesCore:
     def _device_rerank_active(self) -> bool:
         return self._rerank_venue() == "mirror"
 
-    def _pq_fallback_search(self, queries: np.ndarray, k: int, **fb):
-        """Exact-scan fallback while untrained / for out-of-envelope r."""
-        return FlatIndex.search_batch(self, queries, k, **fb)
-
     # -- search ---------------------------------------------------------------
 
     def search_batch_submit(self, queries: np.ndarray, k: int,
@@ -503,8 +500,7 @@ class _PqCodesCore:
         """The scan + re-rank pipeline is synchronous (the re-rank needs
         the candidates), so the async contract is served eagerly —
         inheriting FlatIndex's launcher would swap the PQ lane for a full
-        exact scan. The handle holds HitColumns where the device re-rank
-        answered."""
+        exact scan."""
         return SearchBatchHandle.ready(self._search_hits(
             queries, k, slot_mask, None, mask_layout_version))
 
@@ -513,23 +509,23 @@ class _PqCodesCore:
                      refine: Optional[int] = None,
                      mask_layout_version: Optional[int] = None
                      ) -> List[List[Tuple[int, float]]]:
-        return as_rows(self._search_hits(queries, k, slot_mask, refine,
-                                         mask_layout_version))
+        return self._search_hits(queries, k, slot_mask, refine,
+                                 mask_layout_version).rows()
 
     def _search_hits(self, queries: np.ndarray, k: int,
                      slot_mask: Optional[np.ndarray],
                      refine: Optional[int],
-                     mask_layout_version: Optional[int]):
-        """``search_batch``'s hits: HitColumns from the device re-rank,
-        per-query rows from every other venue and fallback."""
+                     mask_layout_version: Optional[int]) -> HitColumns:
+        """``search_batch``'s hits, from every venue and fallback. The exact
+        scan serves while the index is untrained and for an r past the
+        scan's envelope."""
         if slot_mask is not None:
             # no auto-train on a filtered query (the JAX package's policy)
             with self._lock:
                 trained = self._trained
             if not trained:
-                return self._pq_fallback_search(
-                    queries, k, slot_mask=slot_mask,
-                    mask_layout_version=mask_layout_version)
+                return self._exact_hits(queries, k, slot_mask,
+                                        mask_layout_version)
             return self._pq_search(queries, k, refine, slot_mask,
                                    mask_layout_version)
         with self._lock:
@@ -538,13 +534,13 @@ class _PqCodesCore:
                 self.train()
             trained = self._trained
         if not trained:
-            return self._pq_fallback_search(queries, k)
+            return self._exact_hits(queries, k)
         return self._pq_search(queries, k, refine, None, None)
 
     def _pq_search(self, queries: np.ndarray, k: int,
                    refine: Optional[int],
                    slot_mask: Optional[np.ndarray],
-                   mask_layout_version: Optional[int]):
+                   mask_layout_version: Optional[int]) -> HitColumns:
         from ..ops.topk import next_pow2
         fb: dict = ({} if slot_mask is None else
                     {"slot_mask": slot_mask,
@@ -560,7 +556,7 @@ class _PqCodesCore:
                 raise StaleSlotMaskError(mask_layout_version,
                                          self.slot_layout_version)
             if self._len == 0 or k <= 0:
-                return [[] for _ in range(queries.shape[0])]
+                return HitColumns.from_rows([[]] * queries.shape[0])
             if queries.shape[1] != self._dim:
                 from ..errors import DimensionMismatchError
                 raise DimensionMismatchError(self._dim, queries.shape[1])
@@ -576,7 +572,7 @@ class _PqCodesCore:
             if r > self._scan_r_max():
                 # huge k / tiny index: the exact scan is the better
                 # program than a multi-thousand-row re-rank
-                return self._pq_fallback_search(queries, k, **fb)
+                return self._exact_hits(queries, k, **fb)
             state = self._scan_state()
             mk = None
             exact_args = None
@@ -591,7 +587,7 @@ class _PqCodesCore:
                 ne = min(cap, self._capacity)
                 elig = np.nonzero(mk[:ne] & self._valid[:ne])[0]
                 if elig.size == 0:
-                    return [[] for _ in range(queries.shape[0])]
+                    return HitColumns.from_rows([[]] * queries.shape[0])
                 if elig.size <= max(r, _MASKED_EXACT_MAX):
                     # selective filter: one re-rank's worth of rows —
                     # scan nothing and answer exactly from a consistent
@@ -657,8 +653,7 @@ class _PqCodesCore:
                     res = self._rerank(queries, scan_scores, slots,
                                        k_req, tick0, lv0, slot_mask=mk)
         if res is not None and mk is not None:
-            res = self._fill_masked_short(as_rows(res), queries, k_req, mk,
-                                          lv0)
+            res = self._fill_masked_short(res, queries, k_req, mk, lv0)
         if res is not None:
             return res
         # the slot layout changed mid-flight: the candidate slots address
@@ -681,7 +676,7 @@ class _PqCodesCore:
         the host re-rank over its full candidate pool, which the dispatch
         loop kept on the device for this repair; its row is written into
         the columns."""
-        parts = []
+        parts: List[HitColumns] = []
         a = 0
         for dv, ds, sv_dev, sl_dev, got in dev_out:
             sl = ds.astype(np.int64)
@@ -694,39 +689,28 @@ class _PqCodesCore:
                     ok &= slot_mask[sl]
                 ids = self._id_of_slot[sl]
             finite = np.isfinite(dv)
+            hits = HitColumns.cut(ids, dv, finite, k_req)
             dropped = finite & ~ok
-            run = np.logical_and.accumulate(finite, axis=1)
-            ids = np.where(run, ids, -1)
-            counts = run.sum(axis=1)
             if dropped.any():
                 qidx = np.nonzero(dropped.any(axis=1))[0]
                 sv_h = sv_dev.cpu().numpy()
                 sl_h = sl_dev.cpu().numpy().astype(np.int64)
-                rows = self._rerank(
+                fixed = self._rerank(
                     np.ascontiguousarray(queries[a + qidx]),
                     sv_h[qidx], sl_h[qidx], k_req, tick0, lv0,
                     slot_mask=slot_mask)
-                if rows is None:
+                if fixed is None:
                     return None
-                dv = dv.copy()
-                for qi, row in zip(qidx.tolist(), rows):
-                    n = counts[qi] = len(row)
-                    ids[qi] = -1
-                    if n:
-                        ids[qi, :n], dv[qi, :n] = zip(*row)
-            parts.append((ids, dv, counts))
+                hits = hits.put(qidx, fixed)
+            parts.append(hits)
             a += got
-        if not parts:
-            return HitColumns(np.empty((0, k_req), np.int64),
-                              np.empty((0, k_req), np.float32),
-                              np.empty(0, np.int64))
-        return HitColumns(*(np.concatenate(c) for c in zip(*parts)))
+        return HitColumns.concat(parts)
 
     def _rerank_gathered(self, queries: np.ndarray,
                          scan_scores: np.ndarray, slots: np.ndarray,
                          k_req: int, tick0: int, lv0: int,
                          slot_mask: Optional[np.ndarray] = None
-                         ) -> Optional[List[List[Tuple[int, float]]]]:
+                         ) -> Optional[HitColumns]:
         """Venue "gathered": per query block the host gathers the
         candidate rows and the consistency mask under the lock, the device
         computes exact distances + top-k (ops/pq.pq_rerank_gathered), and
@@ -734,21 +718,15 @@ class _PqCodesCore:
         as ``_rerank``; returns None if the slot layout changed."""
         from ..ops.pq import pq_rerank_gathered
         metric = self._metric
-        out: List[List[Tuple[int, float]]] = []
-        pending: list = []            # (dists_dev, pos_dev, ids, got)
+        out: List[HitColumns] = []
+        pending: list = []            # (dists_dev, pos_dev, ids)
 
         def collect_one(entry) -> None:
-            dv_dev, pos_dev, ids, got = entry
+            dv_dev, pos_dev, ids = entry
             dv = dv_dev.cpu().numpy()
-            pos = pos_dev.cpu().numpy()
-            for qi in range(got):
-                row: List[Tuple[int, float]] = []
-                for j in range(dv.shape[1]):
-                    dvj = float(dv[qi, j])
-                    if not np.isfinite(dvj):
-                        break
-                    row.append((int(ids[qi, pos[qi, j]]), dvj))
-                out.append(row)
+            out.append(HitColumns.cut(
+                np.take_along_axis(ids, pos_dev.cpu().numpy(), axis=1), dv,
+                np.isfinite(dv), k_req))
 
         blk = _RERANK_QBLOCK
         for a in range(0, queries.shape[0], blk):
@@ -767,23 +745,23 @@ class _PqCodesCore:
             dv_dev, pos_dev = pq_rerank_gathered(
                 self._to_device(qb), self._to_device(rows),
                 self._to_device(ok), metric, k_req)
-            pending.append((dv_dev, pos_dev, ids, len(qb)))
+            pending.append((dv_dev, pos_dev, ids))
             if len(pending) >= 2:     # depth-2: one block in flight
                 collect_one(pending.pop(0))
         for entry in pending:
             collect_one(entry)
-        return out
+        return HitColumns.concat(out)
 
     def _rerank(self, queries: np.ndarray, scan_scores: np.ndarray,
                 slots: np.ndarray, k_req: int, tick0: int, lv0: int,
                 slot_mask: Optional[np.ndarray] = None
-                ) -> Optional[List[List[Tuple[int, float]]]]:
+                ) -> Optional[HitColumns]:
         """Exact f32 host re-rank of the candidate slots on the true
         stored rows (venue "host"). Candidates whose slot mutated after
         the snapshot (stamp > tick0) are dropped; ``slot_mask`` re-applies
         the filter per slot. The lock is held per block for the gather
         only; returns None if the slot layout changed mid-rerank."""
-        out: List[List[Tuple[int, float]]] = []
+        out: List[HitColumns] = []
         metric = self._metric
         for a in range(0, queries.shape[0], _RERANK_QBLOCK):
             qb = queries[a:a + _RERANK_QBLOCK]
@@ -815,15 +793,10 @@ class _PqCodesCore:
                 dist = 1.0 - np.clip(dots / denom, -1.0, 1.0)
             dist = np.where(ok, dist, np.inf).astype(np.float32)
             order = np.argsort(dist, axis=1, kind="stable")[:, :k_req]
-            for qi in range(len(qb)):
-                row: List[Tuple[int, float]] = []
-                for j in order[qi]:
-                    dv = float(dist[qi, j])
-                    if not np.isfinite(dv):
-                        break
-                    row.append((int(ids[qi, j]), dv))
-                out.append(row)
-        return out
+            dist = np.take_along_axis(dist, order, axis=1)
+            out.append(HitColumns.cut(np.take_along_axis(ids, order, axis=1),
+                                      dist, np.isfinite(dist), k_req))
+        return HitColumns.concat(out)
 
     def _host_dists(self, qb: np.ndarray, rows: np.ndarray) -> np.ndarray:
         """(q, d) x (c, d) -> (q, c) exact f32 distances in the re-rank's
@@ -843,10 +816,11 @@ class _PqCodesCore:
 
     def _masked_exact_host(self, queries: np.ndarray, k_req: int,
                            rows: np.ndarray, ids: np.ndarray
-                           ) -> List[List[Tuple[int, float]]]:
+                           ) -> HitColumns:
         """Exact host k-NN over a SMALL eligible row set (selective
-        filters), gathered under the lock by the caller."""
-        out: List[List[Tuple[int, float]]] = []
+        filters), gathered under the lock by the caller. Every row is
+        eligible and live, so no hit is dead."""
+        out: List[HitColumns] = []
         c, d = rows.shape
         qblk = max(1, min(_RERANK_QBLOCK,
                           _HOST_DIST_BYTES // max(c * d * 4, 1)))
@@ -854,20 +828,19 @@ class _PqCodesCore:
         for a in range(0, len(queries), qblk):
             dist = self._host_dists(queries[a:a + qblk], rows)
             order = np.argsort(dist, axis=1, kind="stable")[:, :kk]
-            for qi in range(dist.shape[0]):
-                out.append([(int(ids[j]), float(dist[qi, j]))
-                            for j in order[qi]])
-        return out
+            out.append(HitColumns.cut(ids[order],
+                                      np.take_along_axis(dist, order, axis=1),
+                                      np.ones(order.shape, bool), kk))
+        return HitColumns.concat(out)
 
-    def _fill_masked_short(self, res: List[List[Tuple[int, float]]],
-                           queries: np.ndarray, k_req: int,
-                           mk: np.ndarray, lv0: int
-                           ) -> Optional[List[List[Tuple[int, float]]]]:
+    def _fill_masked_short(self, res: HitColumns, queries: np.ndarray,
+                           k_req: int, mk: np.ndarray, lv0: int
+                           ) -> Optional[HitColumns]:
         """Safety net for masked scans: a query that came back with fewer
         than k results is re-answered by an exact host stream over the
         eligible slots. Returns None when the slot layout changed."""
-        short = [qi for qi, row in enumerate(res) if len(row) < k_req]
-        if not short:
+        short = np.nonzero(res.counts < k_req)[0]
+        if not short.size:
             return res
         with self._lock:
             if self.slot_layout_version != lv0:
@@ -878,17 +851,16 @@ class _PqCodesCore:
                 return res
             fixed = self._masked_exact_stream(
                 np.ascontiguousarray(queries[short]), k_req, elig)
-        for qi, row in zip(short, fixed):
-            if len(row) > len(res[qi]):
-                res[qi] = row
-        return res
+        better = fixed.counts > res.counts[short]
+        return res.put(short[better], HitColumns(
+            fixed.ids[better], fixed.dists[better], fixed.counts[better]))
 
     def _masked_exact_stream(self, qs: np.ndarray, k_req: int,
-                             elig: np.ndarray
-                             ) -> List[List[Tuple[int, float]]]:
+                             elig: np.ndarray) -> HitColumns:
         """Exact host k-NN streamed over a LARGE eligible slot set with a
         running top-k (lock held by the caller: the gather and the result
-        are one snapshot)."""
+        are one snapshot). Each row holds its finite distances ordered by
+        (distance, id)."""
         q = len(qs)
         best_d = np.full((q, k_req), np.inf, np.float32)
         best_i = np.full((q, k_req), -1, np.int64)
@@ -906,14 +878,11 @@ class _PqCodesCore:
                 sel = np.argpartition(cat_d, k_req - 1, axis=1)[:, :k_req]
                 best_d[b:b + qblk] = np.take_along_axis(cat_d, sel, axis=1)
                 best_i[b:b + qblk] = np.take_along_axis(cat_i, sel, axis=1)
-        out: List[List[Tuple[int, float]]] = []
-        for qi in range(q):
-            pairs = sorted(
-                (float(dv), int(iv))
-                for dv, iv in zip(best_d[qi], best_i[qi])
-                if np.isfinite(dv))
-            out.append([(iv, dv) for dv, iv in pairs])
-        return out
+        fin = np.isfinite(best_d)
+        order = np.lexsort((best_i, np.where(fin, best_d, np.inf)), axis=1)
+        return HitColumns.cut(np.take_along_axis(best_i, order, axis=1),
+                              np.take_along_axis(best_d, order, axis=1),
+                              np.take_along_axis(fin, order, axis=1), k_req)
 
     def calibrate_refine(self, target_recall: float, *, k: int = 10,
                          sample: int = 256,
@@ -946,7 +915,7 @@ class _PqCodesCore:
             else:
                 queries = np.ascontiguousarray(queries, np.float32)
             k_eff = min(int(k), self._len)
-            truth = self._masked_exact_stream(queries, k_eff, live)
+            truth = self._masked_exact_stream(queries, k_eff, live).rows()
         truth_sets = [set(i for i, _ in row) for row in truth]
         curve: dict = {}
         chosen = None

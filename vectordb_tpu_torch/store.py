@@ -33,10 +33,10 @@ import numpy as np
 from .distance import DistanceMetric
 from .errors import (DimensionMismatchError, IndexOpError,
                      StaleSlotMaskError, VectorNotFoundError)
-from .index.base import Index
-from .index.flat import FlatIndex, HitColumns
+from .index.base import HitColumns, Index
+from .index.flat import FlatIndex
 from .metadata import ColumnarMetadata, Metadata, MetadataFilter
-from .utils.profiling import annotate, count
+from .utils.profiling import annotate
 from .vector import Vector, as_f32_array
 
 # Bounded retries when a concurrent slot repack invalidates a compiled
@@ -72,11 +72,6 @@ class _InflightIdMap:
 
     def __init__(self):
         self.map: Optional[np.ndarray] = None
-
-
-def _string_id(col: np.ndarray, internal_id) -> Optional[str]:
-    """The string id ``col`` holds for an internal id, None for none."""
-    return col[internal_id] if 0 <= internal_id < len(col) else None
 
 
 class StoreSearchHandle:
@@ -342,34 +337,24 @@ class VectorStore:
         if self._dimension is not None and query.dimension != self._dimension:
             raise DimensionMismatchError(self._dimension, query.dimension)
 
-    def _map_results(self, raw: List[Tuple[int, float]],
-                     id_map: Optional[np.ndarray] = None
-                     ) -> List[SearchResult]:
-        """[(internal_id, dist)] -> SearchResults through the id column
-        (``id_map``: a frozen copy of it); ids with no string id drop."""
-        col = self._ids if id_map is None else id_map
-        out = []
-        for internal_id, dist in raw:
-            sid = _string_id(col, internal_id)
-            if sid is not None:
-                out.append(SearchResult(id=sid, distance=dist))
-        return out
-
-    def _map_columns(self, hits: HitColumns, ks: List[int],
+    def _map_columns(self, hits: HitColumns,
+                     ks: Optional[List[int]] = None,
                      id_map: Optional[np.ndarray] = None
                      ) -> List[List[SearchResult]]:
-        """A call's HitColumns -> SearchResults, as ``_map_results`` over
-        each query's first ``k`` hits: one gather from internal to string
-        ids and one ``tolist()`` for the call, then one pass a query."""
+        """A call's HitColumns -> SearchResults, each query's first ``k``
+        hits (all of them without ``ks``) through the id column
+        (``id_map``: a frozen copy of it); ids with no string id drop. One
+        gather from internal to string ids and one ``tolist()`` for the
+        call, then one pass a query."""
         col = self._ids if id_map is None else id_map
         ids = hits.ids
         known = (ids >= 0) & (ids < len(col))
         sids = np.empty(ids.shape, dtype=object)
         sids[known] = col[ids[known]]
-        count("store.columnar_queries", len(ks))
+        counts = hits.counts.tolist()
         out = []
-        for s, d, n, k in zip(sids.tolist(), hits.dists.tolist(),
-                              hits.counts.tolist(), ks):
+        for s, d, n, k in zip(sids.tolist(), hits.dists.tolist(), counts,
+                              counts if ks is None else ks):
             s = s[:min(n, k)]
             if None in s:
                 out.append([SearchResult(i, x) for i, x in zip(s, d)
@@ -397,9 +382,12 @@ class VectorStore:
             return []
         self._check_query_dim(query)
         if ef is not None or nprobe is not None or refine is not None:
-            return self._map_results(
-                self._tuned_search(query, k, ef, nprobe, refine))
-        return self._map_results(self._index.search(query, k))
+            hits = HitColumns.from_rows(
+                [self._tuned_search(query, k, ef, nprobe, refine)])
+        else:
+            hits = self._index.search_batch_submit(
+                as_f32_array(query).reshape(1, -1), k).collect_columns()
+        return self._map_columns(hits)[0]
 
     def _tuned_knob(self, ef: Optional[int], nprobe: Optional[int],
                     refine: Optional[int] = None):
@@ -489,16 +477,15 @@ class VectorStore:
                         mask_layout_version=self._columnar_layout,
                         ef=knob[1])
                 else:
-                    raw = self._index.search_batch(
+                    masked = self._index.search_batch(
                         as_f32_array(query).reshape(1, -1), k,
                         slot_mask=mask,
                         mask_layout_version=self._columnar_layout,
-                        **{knob[0]: knob[1]})
-                    masked = raw[0]
+                        **{knob[0]: knob[1]})[0]
             except StaleSlotMaskError:
                 continue
             if masked is not None:
-                return self._map_results(masked)
+                return self._map_columns(HitColumns.from_rows([masked]))[0]
             # masked traversal came up short: remember the mask's
             # selectivity so the over-fetch below widens fetch_k to the
             # expected depth of the k-th eligible row instead of the
@@ -521,7 +508,9 @@ class VectorStore:
         for internal_id, dist in raw:
             if len(out) == k:
                 break
-            sid = _string_id(self._ids, internal_id)
+            if not 0 <= internal_id < len(self._ids):
+                continue
+            sid = self._ids[internal_id]
             if sid is None:
                 continue
             meta = self._metadata.get(internal_id)
@@ -555,10 +544,10 @@ class VectorStore:
             results = self.search_with_filter(query, int(limit), filter)
             raw = [(iid, r.distance) for r in results
                    if (iid := self._id_to_internal.get(r.id)) is not None]
-            return self._map_results(
-                self._index.refine_radius(raw, query, radius))
-        return self._map_results(
-            self._index.search_radius(query, radius, int(limit)))
+            raw = self._index.refine_radius(raw, query, radius)
+        else:
+            raw = self._index.search_radius(query, radius, int(limit))
+        return self._map_columns(HitColumns.from_rows([raw]))[0]
 
     def search_batch(self, queries: Sequence[Tuple[Vector, int]], *,
                      ef: Optional[int] = None,
@@ -579,8 +568,9 @@ class VectorStore:
         and returns a handle whose ``collect()`` blocks and maps internal
         ids to string ids. The serving front-end keeps one handle in
         flight so response formatting of batch i overlaps device compute
-        of batch i+1 (server/native_http.py). Index types without a
-        submit path (e.g. HNSW's host traversal) are served eagerly."""
+        of batch i+1 (server/native_http.py). Index types without an
+        asynchronous search (e.g. HNSW's host traversal) and the recall
+        knobs are served eagerly."""
         if not queries:
             return StoreSearchHandle.ready([])
         if self.is_empty():
@@ -603,16 +593,9 @@ class VectorStore:
             else:
                 # HNSW's tuned traversal is per-query host work
                 raw_batches = [fn(q, k, value) for (q, k) in queries]
-            return StoreSearchHandle.ready(
-                [self._map_results(raw[:k])
-                 for raw, k in zip(raw_batches, ks)])
-        submit = getattr(self._index, "search_batch_submit", None)
-        if submit is None:
-            raw_batches = self._index.search_batch(qmat, kmax)
-            return StoreSearchHandle.ready(
-                [self._map_results(raw[:k])
-                 for raw, k in zip(raw_batches, ks)])
-        handle = submit(qmat, kmax)
+            return StoreSearchHandle.ready(self._map_columns(
+                HitColumns.from_rows(raw_batches), ks))
+        handle = self._index.search_batch_submit(qmat, kmax)
         holder = _InflightIdMap()
         self._inflight_id_maps.append(holder)
 
@@ -626,12 +609,8 @@ class VectorStore:
             # a delete/upsert that landed between submit and collect froze
             # the submit-time column in the holder; results reflect the
             # same snapshot point as the index's copy-scatter device state
-            columns = getattr(handle, "collect_columns", None)
-            hits = columns() if columns is not None else None
-            if hits is not None:
-                return self._map_columns(hits, ks, holder.map)
-            return [self._map_results(raw[:k], holder.map)
-                    for raw, k in zip(handle.collect(), ks)]
+            return self._map_columns(handle.collect_columns(), ks,
+                                     holder.map)
 
         return StoreSearchHandle(_collect, release=_release)
 
@@ -663,15 +642,20 @@ class VectorStore:
             ks = [int(k) for _, k in queries]
             kmax = max(ks)
             qmat = np.stack([as_f32_array(q) for q, _ in queries])
-            kwargs = {} if knob is None else {knob[0]: knob[1]}
             try:
-                raw_batches = self._index.search_batch(
-                    qmat, kmax, slot_mask=mask,
-                    mask_layout_version=self._columnar_layout, **kwargs)
+                if knob is None:
+                    hits = self._index.search_batch_submit(
+                        qmat, kmax, slot_mask=mask,
+                        mask_layout_version=self._columnar_layout
+                    ).collect_columns()
+                else:
+                    hits = HitColumns.from_rows(self._index.search_batch(
+                        qmat, kmax, slot_mask=mask,
+                        mask_layout_version=self._columnar_layout,
+                        **{knob[0]: knob[1]}))
             except StaleSlotMaskError:
                 continue
-            return [self._map_results(raw[:k])
-                    for raw, k in zip(raw_batches, ks)]
+            return self._map_columns(hits, ks)
         return [self.search_with_filter(q, k, filter, ef=ef, nprobe=nprobe,
                                         refine=refine)
                 for q, k in queries]
