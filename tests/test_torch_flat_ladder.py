@@ -10,6 +10,8 @@ reaches tier 3 (the plain tiled f32 scan). Every way returns the exact
 top-k. (The collect's mapping of slots to internal ids is held in
 ``test_torch_hit_columns.py``.)"""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -123,11 +125,17 @@ def test_ladder_is_exact_and_counts_its_reruns(monkeypatch, metric, forced):
 
 
 def test_reset_spans_clears_the_counters():
-    profiling.count("flat.queries", 3)
-    profiling.count("flat.queries")
-    assert profiling.counters() == {"flat.queries": 4}
-    got = profiling.counters()
-    got["flat.queries"] = 0
-    assert profiling.counters() == {"flat.queries": 4}     # a copy
-    profiling.reset_spans()
-    assert profiling.counters() == {}
+    # no automatic collection: it would add its ``python/gc.gen*`` counter
+    gc.disable()
+    try:
+        profiling.reset_spans()
+        profiling.count("flat.queries", 3)
+        profiling.count("flat.queries")
+        assert profiling.counters() == {"flat.queries": 4}
+        got = profiling.counters()
+        got["flat.queries"] = 0
+        assert profiling.counters() == {"flat.queries": 4}     # a copy
+        profiling.reset_spans()
+        assert profiling.counters() == {}
+    finally:
+        gc.enable()

@@ -10,6 +10,9 @@ id column. The producers' cuts are held to element-by-element readings
 of their rules: the flat slot mapping stops at +inf, the host, gathered
 and IVF-probed ones at the first non-finite distance."""
 
+import gc
+from dataclasses import dataclass
+
 import numpy as np
 import pytest
 import torch
@@ -469,3 +472,57 @@ def test_every_family_maps_through_columns(case, monkeypatch):
             np.testing.assert_allclose([r.distance for r in g],
                                        [r.distance for r in s], rtol=1e-6)
     assert seen["mapped"] == [NQ, NQ]
+
+
+@dataclass
+class _DataclassHit:
+    """The dataclass ``SearchResult`` the native type replaced."""
+    id: str
+    distance: float
+
+
+def _dataclass_mapping(store, hits, ks=None, id_map=None):
+    """``VectorStore._map_columns`` as it was with the dataclass hit."""
+    col = store._ids if id_map is None else id_map
+    ids = hits.ids
+    known = (ids >= 0) & (ids < len(col))
+    sids = np.empty(ids.shape, dtype=object)
+    sids[known] = col[ids[known]]
+    counts = hits.counts.tolist()
+    out = []
+    for s, d, n, k in zip(sids.tolist(), hits.dists.tolist(), counts,
+                          counts if ks is None else ks):
+        s = s[:min(n, k)]
+        if None in s:
+            out.append([_DataclassHit(i, x) for i, x in zip(s, d)
+                        if i is not None])
+        else:
+            out.append(list(map(_DataclassHit, s, d)))
+    return out
+
+
+@pytest.mark.parametrize("case", ["flat", "ivfpq"])
+def test_batch_hits_are_untracked_and_as_the_dataclass_mapped(
+        case, monkeypatch):
+    # the benchmark's call shape, 64 queries at k = 100: every hit is a
+    # native SearchResult the collector does not track, field for field
+    # what the dataclass mapping built from the same HitColumns
+    store = {"flat": _flat_store, "ivfpq": _ivfpq_store}[case](_rows())
+    seen = []
+    map_columns = store._map_columns
+
+    def spy_map(hits, ks=None, id_map=None):
+        seen.append(_dataclass_mapping(store, hits, ks, id_map))
+        return map_columns(hits, ks, id_map)
+
+    monkeypatch.setattr(store, "_map_columns", spy_map)
+    got = store.search_batch([(Vector(q), 100)
+                              for q in _rows(64, seed=3)])
+    assert len(seen) == 1 and [len(r) for r in got] == [100] * 64
+    for g, w in zip(got, seen[0]):
+        assert type(g) is list
+        assert [(type(r), type(r.id), type(r.distance)) for r in g] == [
+            (SearchResult, str, float)] * len(w)
+        assert [(r.id, r.distance.hex()) for r in g] == [
+            (r.id, r.distance.hex()) for r in w]
+    assert not any(gc.is_tracked(r) for row in got for r in row)

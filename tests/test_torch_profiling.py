@@ -88,6 +88,21 @@ def test_a_collection_is_a_span_out_of_its_parents_self_time(
     assert outer["self_s"] < outer["total_s"]
 
 
+@pytest.mark.parametrize("generation", [0, 1, 2])
+def test_a_collection_counts_one_of_its_generation(no_automatic_gc,
+                                                    generation):
+    # gc.collect() is a full pass: one more python/gc.gen2
+    before = profiling.counters()
+    if generation == 2:
+        gc.collect()
+    else:
+        gc.collect(generation)
+    got = profiling.counters()
+    for g in range(3):
+        name = f"python/gc.gen{g}"
+        assert got.get(name, 0) - before.get(name, 0) == (g == generation)
+
+
 @pytest.mark.parametrize("span_end", ["open", "close"])
 @pytest.mark.parametrize("collect_at", ["before", "after"])
 def test_a_collection_at_a_spans_clock_reading_is_charged_once(

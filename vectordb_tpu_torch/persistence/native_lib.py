@@ -5,8 +5,8 @@ the JAX package's, read by path from ``vectordb_tpu/persistence/native/``
 (``walcore.cpp``, ``hnswcore.cpp``, ``httpcore.cpp``: ``_configure`` binds
 symbols of all three) and never copied or written there: the first call
 of ``get_native`` compiles them with ``g++`` into
-``vectordb_tpu_torch/_build/``, keyed by a hash of the sources, as
-``ops/cuda_kernels.py`` keys the kernel library. Nothing builds at import.
+``vectordb_tpu_torch/_build/``, keyed by a hash of the sources, by the
+package's one build helper (``utils/cext.py``). Nothing builds at import.
 
 Every caller in this package keeps a pure-Python backend that writes the
 same bytes. It runs only when the caller asks for it: ``get_native``
@@ -18,12 +18,12 @@ the compiler's log; it never falls back to the Python backend.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
+
+from ..utils.cext import build
 
 # the C++ sources, shared with the JAX package by path (the port builds
 # them into its own cache directory)
@@ -147,32 +147,9 @@ def _build() -> Path:
     """Compile the sources (once per source hash) into BUILD_DIR and
     return the library's path; raises RuntimeError with the compiler's
     log on a failed build."""
-    srcs = [NATIVE_SRC / name for name in SOURCES]
-    try:
-        blobs = [p.read_bytes() for p in srcs]
-    except OSError as e:
-        raise RuntimeError(f"native persistence sources not found: {e}"
-                           ) from None
-    digest = hashlib.sha256(b"".join(blobs)).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libvdbwal_{digest}.so"
-    if so.exists():
-        return so
-    tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
-    cxx = os.environ.get("CXX", "g++")
-    try:
-        proc = subprocess.run([cxx, *CXXFLAGS, "-o", str(tmp),
-                               *map(str, srcs)],
-                              capture_output=True, text=True, timeout=300)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"native persistence build failed: {e}") from None
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"native persistence build failed ({cxx} exit "
-                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    return build("native persistence", [NATIVE_SRC / n for n in SOURCES],
+                 os.environ.get("CXX", "g++"), CXXFLAGS, "libvdbwal",
+                 BUILD_DIR)
 
 
 def get_native() -> Optional[ctypes.CDLL]:

@@ -21,6 +21,11 @@ Filtered search is *exact* when the index supports masked search (FlatIndex):
 the filter AST compiles to a columnar slot mask applied before top-k. For
 indexes without masked search (HNSW) it falls back to the reference's 3x
 over-fetch + post-filter strategy (src/storage.rs:268-287).
+
+Hits are ``SearchResult``s, a native type the collector does not track:
+importing this module (so the package) builds one small C module,
+``csrc/search_result.c``, with ``gcc`` into ``_build/`` (``utils/cext.py``),
+as the persistence core is built, and a failed build raises.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from .errors import (DimensionMismatchError, IndexOpError,
 from .index.base import HitColumns, Index
 from .index.flat import FlatIndex
 from .metadata import ColumnarMetadata, Metadata, MetadataFilter
+from .utils import cext
 from .utils.profiling import annotate
 from .vector import Vector, as_f32_array
 
@@ -44,11 +50,10 @@ from .vector import Vector, as_f32_array
 _MASK_RETRIES = 4
 
 
-@dataclass
-class SearchResult:
-    """(string id, distance) search hit (reference: src/storage.rs:13-16)."""
-    id: str
-    distance: float
+# (string id, distance) search hit (reference: src/storage.rs:13-16): a
+# native type the cyclic collector does not track (csrc/search_result.c),
+# built and loaded here at the first import
+SearchResult = cext.load("search_result").SearchResult
 
 
 @dataclass

@@ -14,7 +14,9 @@ the device, so this module adds torch.profiler integration:
     (``counters()``), for work that a span's time cannot show: how many
     queries a tier re-ran. One locked dict update, no clock read
   * ``python/gc`` — the interpreter's collections, as spans (a hook in
-    ``gc.callbacks``, registered at import)
+    ``gc.callbacks``, registered at import), and each collection counted
+    by its generation in ``python/gc.gen0``, ``gen1`` and ``gen2`` (a
+    full pass of the heap)
   * ``timed()`` — wall-clock timing helper that synchronises the device
     on exit, so recorded latencies include real device time (asynchronous
     launches otherwise under-report)
@@ -164,14 +166,17 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counters() -> dict:
-    """A copy of the counters: name -> int."""
+    """A copy of the counters: name -> int. The table also holds the
+    collector's ``python/gc.gen*`` counts, which a collection can add at
+    any allocation: an exact comparison of the table leaves them out."""
     with _lock:
         return dict(_counts)
 
 
 def _on_gc(phase: str, info: dict) -> None:
     """``gc.callbacks`` hook: a collection is the span ``python/gc``, its
-    time added to the thread's collection ns. Never raises."""
+    time added to the thread's collection ns, and one more of the counter
+    ``python/gc.gen<generation>``. Never raises."""
     try:
         state = _thread()
         if phase == "start":
@@ -189,6 +194,7 @@ def _on_gc(phase: str, info: dict) -> None:
         pause = _clock() - start
         state[1] += pause
         _add(GC_SPAN, pause, pause)
+        count(f"{GC_SPAN}.gen{info['generation']}")
         if rf is not None:
             rf.__exit__(None, None, None)
     except Exception:       # noqa: BLE001 - a hook that raises is printed
